@@ -5,30 +5,40 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: every CUDA source under ``src/repro_torch/csrc`` into one sm_90a
    library (``build/repro_torch_kernels/``), timed.
-3. Kernels: each of ``flash_fwd``, ``flash_bwd_fused``, ``xent_fwd`` and
-   ``xent_bwd`` against its plain PyTorch version on the same inputs, at
-   the main path's shapes (qwen3-1.7b: server batch 8 x 512 tokens, Hkv 8,
-   G 2, hd 128, bf16; xent T = 8 x 511, D 2048, V 151936) and at a
-   gemma2-style case (hd 256, window, softcaps 50 / 30); kernel, plain and
-   library times with CUDA events.
-4. Reference: the launcher's path on the qwen3-1.7b smoke config from the
-   same initial states on the card (kernels) and on the CPU (plain
-   versions); the histories must agree.
-5. Main path: ``repro_torch.launch.train.run_training`` on full-width,
-   full-depth qwen3-1.7b (random init from the seed), seq 512, 4 clients,
-   cohort 2, H 2, device batch 4, 2 device rounds, server batch 8, one
-   server epoch over 64 samples, 8 eval samples, lr 0.02; every kernel's
-   launch count must be > 0, every loss finite, and the merged model's
-   validation loss below ln V.
+3. Kernels: each of ``flash_fwd``, ``flash_bwd_fused``, ``flash_bwd_dq``,
+   ``flash_bwd_dkv``, ``xent_fwd``, ``xent_bwd`` and ``ssd_intra`` against
+   its plain PyTorch version on the same inputs, at the main paths' shapes
+   (qwen3-1.7b: server batch 8 x 512 tokens, Hkv 8, G 2, hd 128, bf16; xent
+   T = 8 x 511, D 2048, V 151936; mamba2-370m: server SSD (8, 8, 256, 32,
+   64) with N 128, the auxiliary clone's H 16, N 64) and at a gemma2-style
+   case (hd 256, window, softcaps 50 / 30) and a small odd SSD case; kernel,
+   plain and library times with CUDA events.
+4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
+   configs from the same initial states on the card (kernels) and on the
+   CPU (plain versions); the histories must agree.
+5. Main paths: ``repro_torch.launch.train.run_training`` on full-width,
+   full-depth qwen3-1.7b (seq 512, lr 0.02) and mamba2-370m (seq 2048, so
+   8 chunks of 256 per sequence, lr ``MAMBA_LR``), random init from the
+   seed, 4 clients, cohort 2, H 2, device batch 4, 2 device rounds, server
+   batch 8, one server epoch over 64 samples, 8 eval samples; each path's
+   kernels must have launched, every loss be finite, and the merged
+   model's validation loss end below ln V.
+6. Split backward: one server train step of full-width, full-depth
+   qwen3-1.7b (8 x 512) from the same state and batch through
+   ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
+   twice with ``impl="kernel:split"``, in fp32 and in the config's bf16
+   compute: the losses agree, in fp32 every gradient agrees within 1e-4
+   of its scale, the two split runs give bit-identical gradients, and
+   ``flash_bwd_dq``/``flash_bwd_dkv`` launched.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
-cannot exist at V = 151936, so the main path samples the unchanged
-generator at vocab 257 and maps the ids into [0, 151936) through a fixed
-random injection drawn from the seed; model, head and xent still run over
-the full vocabulary.
+cannot exist at V = 151936 or 50280, so the main paths sample the
+unchanged generator at vocab 257 and map the ids into [0, V) through a
+fixed random injection drawn from the seed; model, head and xent still run
+over the full vocabulary.
 
 Tolerances: each kernel output within 1e-4 of its largest magnitude (fp32
-accumulation in another order; dQ through atomics).
+accumulation in another order; dQ through atomics in the fused backward).
 
 Prints one line per phase, then the kernels' JSON line, the card line and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -37,6 +47,7 @@ result, without a CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -51,12 +62,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import splitting, steps  # noqa: E402
 from repro_torch.core.uit import AmpereTrainer  # noqa: E402
 from repro_torch.data import (ActivationStore, Dataset, federate,  # noqa: E402
                               make_dataset_for_model, make_lm_dataset)
-from repro_torch.interop import tree_map  # noqa: E402
+from repro_torch.interop import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -69,25 +82,42 @@ KERNELS = {
                   "src/repro/kernels/flash_attention/kernel.py:104"),
     "flash_bwd_fused": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:407"),
+    "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:201"),
+    "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:257"),
     "xent_fwd": ("src/repro_torch/csrc/xent.cu",
                  "src/repro/kernels/xent/kernel.py:107"),
     "xent_bwd": ("src/repro_torch/csrc/xent.cu",
                  "src/repro/kernels/xent/kernel.py:242"),
+    "ssd_intra": ("src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk/kernel.py:55"),
 }
 WRAPPERS = {"flash_fwd": FK.flash_fwd, "flash_bwd_fused": FK.flash_bwd_fused,
-            "xent_fwd": XK.xent_fwd, "xent_bwd": XK.xent_bwd}
+            "flash_bwd_dq": FK.flash_bwd_dq, "flash_bwd_dkv": FK.flash_bwd_dkv,
+            "xent_fwd": XK.xent_fwd, "xent_bwd": XK.xent_bwd,
+            "ssd_intra": SK.ssd_intra_kernel}
 
-# The main path's sizes.  LR: the launcher's default 0.2 (momentum 0.9)
-# diverges on the random-init full-width server block within one epoch;
-# at 0.02 the merged model trains below ln V (PERF.md, Findings).
-SEQ_LEN = 512
+# The main paths: sequence length, learning rate, and the kernels each
+# must launch.  LR: the launcher's default 0.2 (momentum 0.9) diverges on
+# the random-init full-width qwen3 server block within one epoch; at 0.02
+# it trains below ln V (PERF.md, Findings).  The mamba2 rate comes from
+# ``scripts/torch_lr_probe.py --arch mamba2-370m`` (PERF.md, Findings).
+MAMBA_LR = 0.05
+MAIN_PATHS = {
+    "qwen3-1.7b": dict(seq=512, lr=0.02, kernels=(
+        "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
+    "mamba2-370m": dict(seq=2048, lr=MAMBA_LR, kernels=(
+        "ssd_intra", "xent_fwd", "xent_bwd")),
+}
+SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
 TRAIN_SAMPLES = 64
 EVAL_SAMPLES = 8
 DEVICE_ROUNDS = 2
 SERVER_EPOCHS = 1
-LR = 0.02
 ITERS_ATTENTION = 20     # timed calls per measurement
 ITERS_XENT = 5
+ITERS_SSD = 10
 
 
 def log(phase: str, **kv):
@@ -116,7 +146,10 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 
 def check(name: str, got, want, rel_tol: float) -> float:
     """Each output's max abs error must stay within rel_tol of that
-    output's largest magnitude; returns the max abs error over outputs."""
+    output's largest magnitude; returns the max abs error over outputs
+    (a tensor or a tuple of them)."""
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
     errs, rels = [], []
     for a, b in zip(got, want):
         err = float((a.float() - b.float()).abs().max())
@@ -162,31 +195,42 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
     o, lse = FK.flash_fwd(q, k, v, **kw)
     o_p, lse_p = FK.flash_fwd_plain(q, k, v, **kw)
     tag = f"B{B} S{S} Hkv{Hkv} G{G} hd{hd} window{window} cap{cap}"
-    fwd_err = check(f"flash_fwd {tag}", (o, lse), (o_p, lse_p), 1e-4)
+    errs = {"flash_fwd": check(f"flash_fwd {tag}", (o, lse), (o_p, lse_p),
+                               1e-4)}
     do = torch.randn(o.shape, generator=gen, device=dev)
     delta = torch.sum(do * o_p, dim=-1)
-    got = FK.flash_bwd_fused(q, k, v, do, lse_p, delta, **kw)
-    want = FK.flash_bwd_fused_plain(q, k, v, do, lse_p, delta, **kw)
-    bwd_err = check(f"flash_bwd_fused {tag}", got, want, 1e-4)
+    bargs = (q, k, v, do, lse_p, delta)
+    bwd = {"flash_bwd_fused": (FK.flash_bwd_fused, FK.flash_bwd_fused_plain),
+           "flash_bwd_dq": (FK.flash_bwd_dq, FK.flash_bwd_dq_plain),
+           "flash_bwd_dkv": (FK.flash_bwd_dkv, FK.flash_bwd_dkv_plain)}
+    for name, (fn, plain) in bwd.items():
+        errs[name] = check(f"{name} {tag}", fn(*bargs, **kw),
+                           plain(*bargs, **kw), 1e-4)
     if not library:
         return None
     pairs = BH * _valid_pairs(S, S, True, window)
     isz = q.element_size()
-    res = {}
-    res["flash_fwd"] = dict(
-        max_abs_err=fwd_err,
+    in_bytes = (BH + 2 * BKV) * S * hd * isz          # q, k, v
+    bwd_in = in_bytes + BH * S * (hd + 2) * 4         # + dO, lse, delta
+    res = {"flash_fwd": dict(
         ms=time_ms(lambda: FK.flash_fwd(q, k, v, **kw), iters),
         plain_ms=time_ms(lambda: FK.flash_fwd_plain(q, k, v, **kw), iters),
-        bound=bound_ms((BH + 2 * BKV) * S * hd * isz + BH * S * (hd + 1) * 4,
-                       4 * hd * pairs, dtype))
-    res["flash_bwd_fused"] = dict(
-        max_abs_err=bwd_err,
-        ms=time_ms(lambda: FK.flash_bwd_fused(q, k, v, do, lse_p, delta, **kw),
-                   iters),
-        plain_ms=time_ms(lambda: FK.flash_bwd_fused_plain(
-            q, k, v, do, lse_p, delta, **kw), iters),
-        bound=bound_ms((BH + 2 * BKV) * S * hd * isz + BH * S * (hd + 2) * 4
-                       + (BH + 2 * BKV) * S * hd * 4, 10 * hd * pairs, dtype))
+        bound=bound_ms(in_bytes + BH * S * (hd + 1) * 4, 4 * hd * pairs,
+                       dtype))}
+    # products per unmasked pair: fused S, dP, dV, dK, dQ; dq sweep S, dP,
+    # dQ; dk/dv sweep S, dP, dV, dK (2 * hd flops each)
+    out_bytes = {"flash_bwd_fused": (BH + 2 * BKV) * S * hd * 4,
+                 "flash_bwd_dq": BH * S * hd * 4,
+                 "flash_bwd_dkv": 2 * BKV * S * hd * 4}
+    products = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+    for name, (fn, plain) in bwd.items():
+        res[name] = dict(
+            ms=time_ms(lambda: fn(*bargs, **kw), iters),
+            plain_ms=time_ms(lambda: plain(*bargs, **kw), iters),
+            bound=bound_ms(bwd_in + out_bytes[name],
+                           2 * products[name] * hd * pairs, dtype))
+    for name, r in res.items():
+        r["max_abs_err"] = errs[name]
     # yardstick only: one PyTorch call computing the same function
     q4 = q.reshape(B, Hkv * G, S, hd).requires_grad_(True)
     k4 = k.reshape(B, Hkv, S, hd).requires_grad_(True)
@@ -201,9 +245,11 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
         res["flash_fwd"]["library_ms"] = time_ms(lib_fwd, iters)
     out = lib_fwd()
     do4 = do.reshape(B, Hkv * G, S, hd).to(dtype)
-    res["flash_bwd_fused"]["library_ms"] = time_ms(
+    lib_bwd = time_ms(
         lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
         iters)
+    for name in bwd:
+        res[name]["library_ms"] = lib_bwd
     return res
 
 
@@ -257,15 +303,46 @@ def xent_case(dev, T, D, V, cap, tied, iters, library):
     return res
 
 
+def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
+    """ssd_intra against its plain version; inputs as the model makes them
+    (softplus-range dt, A in [-16, -1], a_cum its in-chunk cumsum)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((B, nc, Q, H, P), generator=gen, device=dev)
+    dt = torch.rand((B, nc, Q, H), generator=gen, device=dev) * 0.1 + 1e-3
+    a = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=dev))
+    a_cum = torch.cumsum(dt * a, dim=2)
+    bm, cm = (torch.randn((B, nc, Q, N), generator=gen, device=dev)
+              for _ in range(2))
+    args = (x, dt, a_cum, bm, cm)
+    tag = f"B{B} nc{nc} Q{Q} H{H} P{P} N{N}"
+    err = check(f"ssd_intra {tag}", SK.ssd_intra_kernel(*args),
+                SK.ssd_intra_plain(*args), 1e-4)
+    if not library:
+        return None
+    BC, pairs = B * nc, Q * (Q + 1) // 2
+    # C.B^T once per (b, chunk) over the causal pairs; per head the weights
+    # (3 ops a pair) and the (pairs x P) product; the state: B * w and the
+    # (P, Q) x (Q, N) product
+    flops = BC * (2 * pairs * N + H * (3 * pairs + 2 * pairs * P)
+                  + H * (Q * N + 2 * Q * P * N))
+    nbytes = 4 * BC * (2 * Q * H * P + 2 * Q * H + 2 * Q * N + H * P * N)
+    return {"ssd_intra": dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: SK.ssd_intra_kernel(*args), iters),
+        plain_ms=time_ms(lambda: SK.ssd_intra_plain(*args), iters),
+        bound=bound_ms(nbytes, flops, torch.float32),
+        library_ms=None)}
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 and 5
+# Phases 4, 5 and 6
 # ---------------------------------------------------------------------------
 
 
-def smoke_reference(dev):
-    """The launcher's path on the qwen3-1.7b smoke config from the same
-    initial states, on the card and on the CPU: histories agree."""
-    cfg = registry.get_smoke_config("qwen3-1.7b")
+def smoke_reference(dev, arch):
+    """The launcher's path on ``arch``'s smoke config from the same initial
+    states, on the card and on the CPU: histories agree."""
+    cfg = registry.get_smoke_config(arch)
     args = launch_train.make_parser().parse_args(
         ["--clients", "4", "--cohort", "2", "--local-steps", "2",
          "--batch-size", "4", "--server-batch", "8"])
@@ -290,9 +367,10 @@ def smoke_reference(dev):
         for a, b in zip(hist["cuda"][phase], hist["cpu"][phase]):
             for key in ("loss", "val_loss"):
                 if not abs(a[key] - b[key]) <= 1e-4 * abs(b[key]):
-                    raise AssertionError(f"smoke {phase} {key}: {a} vs {b}")
-    log("reference", arch="qwen3-1.7b-smoke", cuda=hist["cuda"],
-        cpu=hist["cpu"], rel_tol=1e-4)
+                    raise AssertionError(f"{arch} smoke {phase} {key}: "
+                                         f"{a} vs {b}")
+    log("reference", arch=cfg.name, cuda=hist["cuda"], cpu=hist["cpu"],
+        rel_tol=1e-4)
 
 
 def full_corpus(n, seq, vocab, seed):
@@ -304,24 +382,35 @@ def full_corpus(n, seq, vocab, seed):
                    small.labels)
 
 
-def main_path(dev):
-    cfg = registry.get_config("qwen3-1.7b")
-    argv = ["--arch", "qwen3-1.7b", "--clients", "4", "--cohort", "2",
-            "--local-steps", "2", "--batch-size", "4", "--server-batch", "8",
-            "--seq-len", str(SEQ_LEN), "--lr", str(LR), "--seed", "0"]
-    largs = launch_train.make_parser().parse_args(argv)
-    train = full_corpus(TRAIN_SAMPLES, SEQ_LEN, cfg.vocab_size, 0)
-    evald = full_corpus(EVAL_SAMPLES, SEQ_LEN, cfg.vocab_size, 1)
+def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def main_path(dev, arch):
+    spec = MAIN_PATHS[arch]
+    seq, lr = spec["seq"], spec["lr"]
+    cfg = registry.get_config(arch)
+    argv = ["--arch", arch, "--clients", "4", "--cohort", "2",
+            "--local-steps", "2", "--batch-size", "4", "--server-batch", "8",
+            "--seq-len", str(seq), "--lr", str(lr), "--seed", "0"]
+    largs = launch_train.make_parser().parse_args(argv)
+    train = full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
+    evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
     out = launch_train.run_training(
         cfg, launch_train.build_run_cfg(largs), train, evald, device=dev,
         device_rounds=DEVICE_ROUNDS, server_epochs=SERVER_EPOCHS)
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    launches = read_launches()
     hist = out["history"]
     log("main_path", arch=cfg.name, layers=cfg.num_layers,
-        d_model=cfg.d_model, vocab=cfg.vocab_size, seq=SEQ_LEN, lr=LR,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, seq=seq, lr=lr,
         seconds=out["seconds"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         device=hist["device"], server=hist["server"], launches=launches)
@@ -330,17 +419,104 @@ def main_path(dev):
     if len(hist["device"]) != DEVICE_ROUNDS or \
             len(hist["server"]) != SERVER_EPOCHS or \
             not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"main path history not finite/complete: {hist}")
+        raise AssertionError(f"{arch} main path history not finite/complete:"
+                             f" {hist}")
     # random init sits above ln V; the merged model must have learned
     if not hist["server"][-1]["val_loss"] < math.log(cfg.vocab_size):
-        raise AssertionError(f"merged model did not train below ln V: {hist}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched {name}")
+        raise AssertionError(f"{arch}: merged model did not train below "
+                             f"ln V: {hist}")
+    for name in spec["kernels"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch} main path never launched {name}")
     shapes = {k: tuple(v.shape) for k, v in
               out["merged_params"]["embed"].items()}
     if shapes != {"table": (cfg.vocab_size, cfg.d_model)}:
         raise AssertionError(f"merged params: unexpected {shapes}")
+    return launches
+
+
+def _flat(tree, path=""):
+    """(path, leaf) pairs of a nested dict/list of tensors."""
+    if isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _flat(v, f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def _max_rel(got, want):
+    """Largest max-abs difference over leaves, each relative to that leaf's
+    largest magnitude, and the leaf that has it."""
+    return max((float((a - b).abs().max())
+                / max(float(b.abs().max()), 1e-30), path)
+               for (path, a), (_, b) in zip(_flat(got), _flat(want)))
+
+
+def split_backward(dev):
+    """One qwen3-1.7b server train step from the same state and batch with
+    the fused and the split attention backward, each twice.  The optimizer
+    is the launcher's momentum from a zero buffer, so after one step its
+    buffer holds the gradient exactly.
+
+    In fp32 compute the split gradients must match the fused ones within
+    1e-4 of each leaf's scale.  In the config's bf16 compute a last-bit
+    difference in dQ (the fused kernel's atomics) flips bf16 roundings
+    that 27 layers of backward carry into every gradient, so there the
+    spread of fused against itself is logged beside split against fused.
+    In both, two split steps must give bit-identical gradients."""
+    arch = "qwen3-1.7b"
+    cfg = registry.get_config(arch)
+    seq = MAIN_PATHS[arch]["seq"]
+    run_cfg = launch_train.build_run_cfg(launch_train.make_parser().parse_args(
+        ["--arch", arch, "--server-batch", "8", "--seq-len", str(seq),
+         "--lr", str(MAIN_PATHS[arch]["lr"]), "--seed", "0"]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg)
+    _, srv = splitting.split_params(model, model.init(gen, dev),
+                                    run_cfg.split.split_point)
+    batch = {"acts": torch.randn((8, seq, cfg.d_model), generator=gen,
+                                 device=dev).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size, (8, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    torch.cuda.empty_cache()
+    reset_launches()
+    result = {}
+    for dtype in dict.fromkeys(("float32", cfg.dtype)):
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+
+        def run(impl):
+            step = steps.make_server_train_step(model, run_cfg, impl=impl)
+            new, m = step(steps.init_server_state(model, run_cfg, srv), batch)
+            return float(m["loss"]), new["opt"]["mu"]
+
+        (l_f, g_f), (l_s, g_s) = run("kernel"), run("kernel:split")
+        rel, leaf = _max_rel(g_s, g_f)
+        l_s2, g_s2 = run("kernel:split")
+        split_same = l_s2 == l_s and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g_s2),
+                                              tree_leaves(g_s)))
+        del g_s2
+        l_f2, g_f2 = run("kernel")
+        fused_rel, fused_leaf = _max_rel(g_f2, g_f)
+        del g_f, g_s, g_f2
+        result[dtype] = dict(
+            loss_fused=l_f, loss_split=l_s, split_vs_fused=rel,
+            split_vs_fused_leaf=leaf, split_bit_identical=split_same,
+            fused_vs_fused=fused_rel, fused_vs_fused_leaf=fused_leaf)
+        if not split_same:
+            raise AssertionError(f"{dtype}: split backward grads differ "
+                                 "between two runs")
+        if not abs(l_s - l_f) <= 1e-5 * abs(l_f):
+            raise AssertionError(f"{dtype}: split loss {l_s} vs fused {l_f}")
+    launches = read_launches()
+    log("split_backward", arch=arch, seq=seq, batch=8, rel_tol=1e-4,
+        launches=launches, **result)
+    if not result["float32"]["split_vs_fused"] <= 1e-4:
+        raise AssertionError(f"split grads differ from fused: {result}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"split step never launched {name}")
     return launches
 
 
@@ -372,10 +548,20 @@ def main() -> int:
     g2 = registry.get_config("gemma2-2b")
     xent_case(dev, 1024, g2.d_model, g2.vocab_size, g2.final_softcap, True,
               1, library=False)
+    m2 = registry.get_config("mamba2-370m").mamba
+    res.update(ssd_case(dev, 8, 8, m2.chunk_size, 32, m2.head_dim,
+                        m2.d_state, ITERS_SSD, library=True))
+    ssd_case(dev, 4, 8, m2.chunk_size, 16, m2.head_dim, 64, 1, library=False)
+    ssd_case(dev, 2, 3, 16, 5, 16, 8, 1, library=False)
     torch.cuda.empty_cache()
 
-    smoke_reference(dev)
-    launches = main_path(dev)
+    for arch in MAIN_PATHS:
+        smoke_reference(dev, arch)
+    launches = {}
+    for runs in ([main_path(dev, arch) for arch in MAIN_PATHS]
+                 + [split_backward(dev)]):
+        for name, n in runs.items():
+            launches[name] = launches.get(name, 0) + n
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -20,16 +20,22 @@ from repro_torch.models import transformer as T
 
 def scaled_lm_cfg(cfg, ratio: float):
     """An LMConfig whose internal widths are scaled by ``ratio`` while the
-    residual width d_model stays fixed (dense family)."""
+    residual width d_model stays fixed (dense and SSM families)."""
     def s(x, lo=1):
         return max(lo, int(round(x * ratio)))
 
+    mamba = cfg.mamba
+    if cfg.family in ("ssm", "hybrid"):
+        mamba = dataclasses.replace(
+            mamba, expand=max(1, int(round(mamba.expand * ratio))),
+            d_state=s(mamba.d_state, 8))
     n_kv = s(cfg.num_kv_heads) if cfg.num_kv_heads else 0
     n_q = s(cfg.num_heads) if cfg.num_heads else 0
     if n_kv and n_q % n_kv:
         n_q = max(n_kv, (n_q // n_kv) * n_kv)  # keep GQA divisibility
     return dataclasses.replace(cfg, num_heads=n_q, num_kv_heads=n_kv,
-                               d_ff=s(cfg.d_ff, 8) if cfg.d_ff else 0)
+                               d_ff=s(cfg.d_ff, 8) if cfg.d_ff else 0,
+                               mamba=mamba)
 
 
 def resolve_aux_head(split_cfg) -> str:

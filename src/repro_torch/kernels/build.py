@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "xent.cu")
+SOURCES = ("flash_attention.cu", "xent.cu", "ssd_chunk.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -34,8 +34,11 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES = {
     "rt_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_xent_fwd": [_P] * 6 + [_I] * 5 + [_LL, _LL, _F, _I, _P],
     "rt_xent_bwd": [_P] * 8 + [_I] * 5 + [_LL] * 4 + [_F, _I, _P],
+    "rt_ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

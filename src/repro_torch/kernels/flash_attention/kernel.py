@@ -1,8 +1,10 @@
-"""Flash attention kernel wrappers: forward and fused backward.
+"""Flash attention kernel wrappers: forward, fused backward, and the two
+sweeps of the split backward.
 
-``flash_fwd`` and ``flash_bwd_fused`` replace the TPU Pallas kernels of the
-same names in ``repro/kernels/flash_attention/kernel.py`` (pallas_call at
-:119, and :464/:481).  On a CUDA tensor each launches its hand-written
+``flash_fwd``, ``flash_bwd_fused``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+replace the TPU Pallas kernels of the same names in
+``repro/kernels/flash_attention/kernel.py`` (pallas_call at :119,
+:464/:481, :212 and :269).  On a CUDA tensor each launches its hand-written
 Hopper kernel (``csrc/flash_attention.cu``; the source says what bounds it
 and what its design does about that) or raises; on a CPU tensor it runs its
 plain PyTorch version below, which materializes the (Sq, Skv) scores and
@@ -60,8 +62,9 @@ def flash_fwd_plain(q, k, v, *, group, causal, window, softcap, scale,
     return o.reshape(BH, Sq, hd), lse.reshape(BH, Sq)
 
 
-def flash_bwd_fused_plain(q, k, v, do, lse, delta, *, group, causal, window,
-                          softcap, scale, kv_len):
+def _bwd_p_ds(q, k, v, do, lse, delta, *, group, causal, window, softcap,
+              scale, kv_len):
+    """Recomputed P and dS, (BKV, G, Sq, Skv), with the fp32 operands."""
     BH, Sq, hd = q.shape
     BKV, Skv = k.shape[0], k.shape[1]
     qf = q.float().reshape(BKV, group, Sq, hd)
@@ -76,15 +79,30 @@ def flash_bwd_fused_plain(q, k, v, do, lse, delta, *, group, causal, window,
                  device=q.device)
     lse4 = lse.reshape(BKV, group, Sq, 1)
     p = torch.where(mask, torch.exp(s - lse4), torch.zeros_like(s))
-    dv = torch.einsum("bgqk,bgqd->bkd", p, dof)
     dp = torch.einsum("bgqd,bkd->bgqk", dof, vf)
     ds = p * (dp - delta.reshape(BKV, group, Sq, 1))
     if dchain is not None:
         ds = ds * dchain
-    ds = ds * scale
+    return p, ds * scale, qf, kf, dof
+
+
+def flash_bwd_fused_plain(q, k, v, do, lse, delta, **kw):
+    p, ds, qf, kf, dof = _bwd_p_ds(q, k, v, do, lse, delta, **kw)
+    dv = torch.einsum("bgqk,bgqd->bkd", p, dof)
     dk = torch.einsum("bgqk,bgqd->bkd", ds, qf)
     dq = torch.einsum("bgqk,bkd->bgqd", ds, kf)
-    return dq.reshape(BH, Sq, hd), dk, dv
+    return dq.reshape(q.shape), dk, dv
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw):
+    _, ds, _, kf, _ = _bwd_p_ds(q, k, v, do, lse, delta, **kw)
+    return torch.einsum("bgqk,bkd->bgqd", ds, kf).reshape(q.shape)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw):
+    p, ds, qf, _, dof = _bwd_p_ds(q, k, v, do, lse, delta, **kw)
+    return (torch.einsum("bgqk,bgqd->bkd", ds, qf),
+            torch.einsum("bgqk,bgqd->bkd", p, dof))
 
 
 # ---------------------------------------------------------------------------
@@ -121,23 +139,46 @@ def _launch_fwd(lib, stream, q, k, v, *, group, causal, window, softcap,
     return o, lse
 
 
-def _launch_bwd(lib, stream, q, k, v, do, lse, delta, *, group, causal,
-                window, softcap, scale, kv_len):
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.float().contiguous()
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+def _bwd_operands(q, k, v, do, lse, delta):
+    return (q.contiguous(), k.contiguous(), v.contiguous(),
+            do.float().contiguous(), lse.float().contiguous(),
+            delta.float().contiguous())
+
+
+def _bwd_scalars(q, k, *, group, causal, window, softcap, scale, kv_len):
     BH, Sq, hd = q.shape
-    dq = torch.zeros((BH, Sq, hd), dtype=torch.float32, device=q.device)
+    return (build.dtype_code(q), BH, Sq, k.shape[1], hd, group, int(causal),
+            int(window), float(softcap), float(scale), int(kv_len))
+
+
+def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    err = lib.rt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                           build.dtype_code(q), BH, Sq, k.shape[1], hd, group,
-                           int(causal), int(window), float(softcap),
-                           float(scale), int(kv_len), stream)
+    err = lib.rt_flash_bwd(*(t.data_ptr() for t in ops + (dq, dk, dv)),
+                           *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_fused")
     return dq, dk, dv
+
+
+def _launch_bwd_dq(lib, stream, q, k, v, do, lse, delta, **kw):
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = lib.rt_flash_bwd_dq(*(t.data_ptr() for t in ops + (dq,)),
+                              *_bwd_scalars(q, k, **kw), stream)
+    build.check(lib, err, "flash_bwd_dq")
+    return dq
+
+
+def _launch_bwd_dkv(lib, stream, q, k, v, do, lse, delta, **kw):
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    err = lib.rt_flash_bwd_dkv(*(t.data_ptr() for t in ops + (dk, dv)),
+                               *_bwd_scalars(q, k, **kw), stream)
+    build.check(lib, err, "flash_bwd_dkv")
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -162,21 +203,35 @@ def flash_fwd(q, k, v, *, group, causal, window, softcap, scale, kv_len):
 flash_fwd.launches = 0
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, *, group, causal, window,
-                    softcap, scale, kv_len):
-    """One P recompute per (q tile, kv tile) feeds dQ, dK and dV.
-    Returns fp32 dq (BH, Sq, hd), dk, dv (BKV, Skv, hd)."""
-    if q.device.type == "cpu":
-        return flash_bwd_fused_plain(q, k, v, do, lse, delta, group=group,
-                                     causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     kv_len=kv_len)
-    _check_inputs(q, k, v, group)
-    out = _launch_bwd(build.load(), build.stream_ptr(q), q, k, v, do, lse,
-                      delta, group=group, causal=causal, window=window,
-                      softcap=softcap, scale=scale, kv_len=kv_len)
-    flash_bwd_fused.launches += 1
-    return out
+def _bwd_wrapper(name, plain, launch, doc):
+    def fn(q, k, v, do, lse, delta, *, group, causal, window, softcap, scale,
+           kv_len):
+        kw = dict(group=group, causal=causal, window=window, softcap=softcap,
+                  scale=scale, kv_len=kv_len)
+        if q.device.type == "cpu":
+            return plain(q, k, v, do, lse, delta, **kw)
+        _check_inputs(q, k, v, group)
+        out = launch(build.load(), build.stream_ptr(q), q, k, v, do, lse,
+                     delta, **kw)
+        fn.launches += 1
+        return out
+
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = doc
+    fn.launches = 0
+    return fn
 
 
-flash_bwd_fused.launches = 0
+flash_bwd_fused = _bwd_wrapper(
+    "flash_bwd_fused", flash_bwd_fused_plain, _launch_bwd,
+    """One P recompute per (q tile, kv tile) feeds dQ, dK and dV; dQ goes
+    through fp32 atomics.  Returns fp32 dq (BH, Sq, hd), dk, dv
+    (BKV, Skv, hd).""")
+flash_bwd_dq = _bwd_wrapper(
+    "flash_bwd_dq", flash_bwd_dq_plain, _launch_bwd_dq,
+    """dQ sweep of the two-sweep backward (P recomputed; no atomics).
+    Returns fp32 dq (BH, Sq, hd).""")
+flash_bwd_dkv = _bwd_wrapper(
+    "flash_bwd_dkv", flash_bwd_dkv_plain, _launch_bwd_dkv,
+    """dK/dV sweep of the two-sweep backward (P recomputed; no atomics).
+    Returns fp32 dk, dv (BKV, Skv, hd).""")

@@ -8,8 +8,12 @@ q/k/v/o/lse, so the backward never re-pads them; ``do`` is cast to fp32
 and laid out once, feeding both ``delta = sum(dO * O)`` (over the fp32
 kernel output) and the kernel; the output comes back in the input dtype.
 
-On CUDA tensors the wrappers launch the Hopper kernels; on CPU tensors
-they run the kernels' plain versions.
+``bwd_strategy`` selects the backward: ``"fused"`` (one P recompute; dQ
+through fp32 atomics on the card, so its last bits vary run to run) or
+``"split"`` (``flash_bwd_dq`` then ``flash_bwd_dkv``, as the reference's
+``flash_bwd_dq_dkv`` composes them: P recomputed in each sweep, no atomics,
+bit-identical run to run).  On CUDA tensors the wrappers launch the Hopper
+kernels; on CPU tensors they run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
-                block_k):
+                block_k, bwd_strategy):
         B, S, Hkv, G, hd = q.shape
         Skv = k.shape[1]
         qk = q.permute(0, 2, 3, 1, 4).reshape(B * Hkv * G, S, hd)
@@ -61,14 +65,16 @@ class _FlashAttention(torch.autograd.Function):
                                window=window, softcap=softcap, scale=scale,
                                kv_len=Skv)
         ctx.save_for_backward(qp, kp, vp, op, lsep)
-        ctx.cfg = (causal, window, softcap, scale, block_q, block_k, Skv)
+        ctx.cfg = (causal, window, softcap, scale, block_q, block_k, Skv,
+                   bwd_strategy)
         return (op[:, :S].reshape(B, Hkv, G, S, hd).permute(0, 3, 1, 2, 4)
                 .to(q.dtype))
 
     @staticmethod
     def backward(ctx, do):
         qp, kp, vp, op, lsep = ctx.saved_tensors
-        causal, window, softcap, scale, block_q, block_k, Skv = ctx.cfg
+        causal, window, softcap, scale, block_q, block_k, Skv, strategy = \
+            ctx.cfg
         B, S, Hkv, G, hd = do.shape
         bq, _ = _block_sizes(S, Skv, block_q, block_k, qp.dtype)
         # one fp32 cast + layout pass over do; padded rows are zero, so
@@ -76,25 +82,24 @@ class _FlashAttention(torch.autograd.Function):
         dok = _pad_to(do.permute(0, 2, 3, 1, 4).reshape(B * Hkv * G, S, hd)
                       .float(), 1, bq).contiguous()
         delta = torch.sum(dok * op, dim=-1)
-        dq, dk, dv = K.flash_bwd_fused(qp, kp, vp, dok, lsep, delta, group=G,
-                                       causal=causal, window=window,
-                                       softcap=softcap, scale=scale,
-                                       kv_len=Skv)
+        kw = dict(group=G, causal=causal, window=window, softcap=softcap,
+                  scale=scale, kv_len=Skv)
+        if strategy == "split":
+            dq = K.flash_bwd_dq(qp, kp, vp, dok, lsep, delta, **kw)
+            dk, dv = K.flash_bwd_dkv(qp, kp, vp, dok, lsep, delta, **kw)
+        else:
+            dq, dk, dv = K.flash_bwd_fused(qp, kp, vp, dok, lsep, delta, **kw)
         dq = dq[:, :S].reshape(B, Hkv, G, S, hd).permute(0, 3, 1, 2, 4)
         dk = dk[:, :Skv].reshape(B, Hkv, Skv, hd).permute(0, 2, 1, 3)
         dv = dv[:, :Skv].reshape(B, Hkv, Skv, hd).permute(0, 2, 1, 3)
         return (dq.to(qp.dtype), dk.to(kp.dtype), dv.to(vp.dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=1.0,
                     block_q=128, block_k=128, bwd_strategy="fused"):
     """Returns (B, S, Hkv, G, hd) attention output in the input dtype."""
-    if bwd_strategy == "split":
-        raise NotImplementedError(
-            "bwd_strategy='split' needs flash_bwd_dq/flash_bwd_dkv, which "
-            "are not ported yet (ROADMAP.md queue B)")
-    if bwd_strategy != "fused":
+    if bwd_strategy not in ("fused", "split"):
         raise ValueError(f"unknown bwd_strategy: {bwd_strategy!r}")
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
-                                 block_q, block_k)
+                                 block_q, block_k, bwd_strategy)

@@ -137,6 +137,18 @@ def rmsnorm(p, x, eps: float = 1e-6, compute_dtype="bfloat16",
     return y.to(dt(compute_dtype))
 
 
+def init_gated_rmsnorm(dim: int, param_dtype="float32", device="cpu", lead=()):
+    return init_rmsnorm(dim, param_dtype, device, lead)
+
+
+def gated_rmsnorm(p, x, z, eps: float = 1e-6, compute_dtype="bfloat16"):
+    """Mamba-2 output norm: RMSNorm(x * silu(z))."""
+    xf = x.float() * F.silu(z.float())
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(dt(compute_dtype))
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -198,6 +210,34 @@ def apply_rope(x, positions, theta: float = 10000.0, mrope_sections=()):
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Short causal conv1d (Mamba), training form
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen, channels: int, width: int, param_dtype="float32",
+                device="cpu", lead=()):
+    return {"w": normal_init(gen, tuple(lead) + (width, channels),
+                             1.0 / math.sqrt(width), param_dtype, device),
+            "b": zeros_init(tuple(lead) + (channels,), param_dtype, device)}
+
+
+def causal_conv1d(p, x, compute_dtype="bfloat16"):
+    """Depthwise causal conv over (B, S, C), zero-padded on the left.
+
+    The sum of shifted slices runs in the compute dtype in the reference's
+    order (``y = b``, then ``y += ctx[:, i:i+S] * w[i]``), SiLU in fp32."""
+    w = cast(p["w"], compute_dtype)  # (W, C)
+    y = cast(p["b"], compute_dtype)
+    width = w.shape[0]
+    xc = cast(x, compute_dtype)
+    S = xc.shape[1]
+    ctx = F.pad(xc, (0, 0, width - 1, 0))
+    for i in range(width):
+        y = y + ctx[:, i:i + S, :] * w[i]
+    return F.silu(y.float()).to(dt(compute_dtype))
 
 
 # ---------------------------------------------------------------------------

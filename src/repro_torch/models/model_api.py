@@ -1,4 +1,5 @@
-"""Unified model API (LM dense family), as ``repro.models.model_api``.
+"""Unified model API (LM dense and SSM families), as
+``repro.models.model_api``.
 
 A :class:`Model` exposes ``init(gen, device)`` and
 ``apply(params, inputs, lo=, hi=)``, which runs layers [lo, hi) and
@@ -39,11 +40,11 @@ class Model:
 
 def build_model(cfg) -> Model:
     if isinstance(cfg, LMConfig):
-        if cfg.family not in ("dense",) or cfg.moe.enabled or \
+        if cfg.family not in ("dense", "ssm") or cfg.moe.enabled or \
                 cfg.attn_layer_period:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): only the dense LM family is "
-                "ported (ROADMAP.md queue A)")
+                f"{cfg.name} ({cfg.family}): only the dense and SSM LM "
+                "families are ported (ROADMAP.md queue A)")
         return Model(cfg=cfg, kind="lm")
     if isinstance(cfg, VisionConfig):
         raise NotImplementedError(

@@ -1,5 +1,6 @@
-"""Decoder-LM composition (dense family) with period-stacked parameters and
-layer-range execution, as ``repro.models.transformer``.
+"""Decoder-LM composition (attention and Mamba-2 mixers) with
+period-stacked parameters and layer-range execution, as
+``repro.models.transformer``.
 
 Parameter layout::
 
@@ -13,7 +14,7 @@ lives at blocks[f"pos{j}"] leaf index [r].  The JAX ``lax.scan`` over
 period repetitions is a loop over slices here, and ``remat="block"``
 checkpoints each period body with ``torch.utils.checkpoint``.
 
-MoE and Mamba layers raise ``NotImplementedError``: they are later slices
+MoE layers raise ``NotImplementedError``: they are a later slice
 (ROADMAP.md queue A).
 """
 
@@ -26,22 +27,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import mlp as MLP
 
 
-def _check_dense(cfg, layer_idx: int):
-    mixer, _, is_moe = cfg.layer_kind(layer_idx)
-    if mixer != "attn" or is_moe:
+def _layer_kind(cfg, layer_idx: int):
+    """(mixer, window) of a layer; MoE layers are not ported yet."""
+    mixer, window, is_moe = cfg.layer_kind(layer_idx)
+    if is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: layer {layer_idx} is {mixer}{'+moe' if is_moe else ''}"
-            "; only the dense family is ported (ROADMAP.md queue A)")
+            f"{cfg.name}: layer {layer_idx} is {mixer}+moe; MoE is not "
+            "ported yet (ROADMAP.md queue A)")
+    return mixer, window
 
 
 def init_block(gen, cfg, layer_idx: int, device="cpu", lead=()):
-    _check_dense(cfg, layer_idx)
+    mixer, _ = _layer_kind(cfg, layer_idx)
     pd = cfg.param_dtype
-    p = {"pre_norm": L.init_rmsnorm(cfg.d_model, pd, device, lead),
-         "attn": A.init_attention(gen, cfg, device, lead)}
+    p = {"pre_norm": L.init_rmsnorm(cfg.d_model, pd, device, lead)}
+    if mixer == "attn":
+        p["attn"] = A.init_attention(gen, cfg, device, lead)
+    else:
+        p["mamba"] = M.init_mamba(gen, cfg, device, lead)
     if cfg.d_ff > 0:
         p["pre_mlp_norm"] = L.init_rmsnorm(cfg.d_model, pd, device, lead)
         p["mlp"] = MLP.init_mlp(gen, cfg, device=device, lead=lead)
@@ -59,13 +66,16 @@ def _parse_impl(impl: str):
 
 def block_apply(cfg, p, x, positions, layer_idx: int, *, impl="kernel"):
     """One decoder block.  Returns x.  ``impl`` may carry the flash
-    attention backward suffix (``"kernel:split"``)."""
-    _check_dense(cfg, layer_idx)
+    attention backward suffix (``"kernel:split"``); the base impl is what
+    mamba sees."""
+    mixer, window = _layer_kind(cfg, layer_idx)
     impl, fa_bwd = _parse_impl(impl)
-    _, window, _ = cfg.layer_kind(layer_idx)
     h = L.rmsnorm(p["pre_norm"], x, cfg.norm_eps, cfg.dtype)
-    mix, _ = A.attention(cfg, p["attn"], h, positions, window, impl=impl,
-                         fa_bwd_strategy=fa_bwd)
+    if mixer == "attn":
+        mix, _ = A.attention(cfg, p["attn"], h, positions, window, impl=impl,
+                             fa_bwd_strategy=fa_bwd)
+    else:
+        mix = M.mamba(cfg, p["mamba"], h, impl=impl)
     if cfg.post_block_norm:
         mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.norm_eps, cfg.dtype)
     x = x + mix

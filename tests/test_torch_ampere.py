@@ -1,9 +1,10 @@
 """The whole slice: the port's ``AmpereTrainer`` against
 ``repro.core.uit.AmpereTrainer`` driven through the same phases.
 
-``qwen3-1.7b`` smoke, 4 clients, cohort 2, H=2, 2 device rounds, one-shot
-activations, 2 server epochs, from the JAX trainer's own initial states
-(converted through numpy) and the same synthetic data.  The JAX trainer
+``qwen3-1.7b`` and ``mamba2-370m`` smoke, 4 clients, cohort 2, H=2, 2
+device rounds, one-shot activations, 2 server epochs, from the JAX
+trainer's own initial states (converted through numpy) and the same
+synthetic data.  The JAX trainer
 runs its default ``"xla"`` path; the port runs its kernel path (plain
 versions on CPU).  Histories must agree: losses within 1e-5 relative
 (fp32; the two frameworks sum in different orders, and the differences,
@@ -46,9 +47,9 @@ ROUNDS, EPOCHS = 2, 2
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run():
-    model = j_build(registry.get_smoke_config(ARCH))
-    run = RunConfig(arch=ARCH, fed=FedConfig(**FED), optim=OptimConfig(**OPTIM))
+def _jax_run(arch=ARCH):
+    model = j_build(registry.get_smoke_config(arch))
+    run = RunConfig(arch=arch, fed=FedConfig(**FED), optim=OptimConfig(**OPTIM))
     train = j_dataset(model, N_TRAIN, seq_len=SEQ, seed=0)
     test = j_dataset(model, N_EVAL, seq_len=SEQ, seed=1)
     tr = JTrainer(model, run, j_federate(train, 4, 0.33, seed=0), test,
@@ -62,10 +63,10 @@ def _jax_run():
 
 
 @functools.lru_cache(maxsize=None)
-def _torch_run():
-    init, _, _ = _jax_run()
-    model = t_build(t_registry.get_smoke_config(ARCH))
-    run = TRun(arch=ARCH, fed=TFed(**FED), optim=TOptim(**OPTIM))
+def _torch_run(arch=ARCH):
+    init, _, _ = _jax_run(arch)
+    model = t_build(t_registry.get_smoke_config(arch))
+    run = TRun(arch=arch, fed=TFed(**FED), optim=TOptim(**OPTIM))
     train = t_dataset(model, N_TRAIN, seq_len=SEQ, seed=0)
     test = t_dataset(model, N_EVAL, seq_len=SEQ, seed=1)
     tr = TTrainer(model, run, t_federate(train, 4, 0.33, seed=0), test,
@@ -93,11 +94,9 @@ def test_port_data_copies_match_jax():
                                       b.dataset.arrays["tokens"])
 
 
-@pytest.mark.parametrize("phase,key", [("device", "round"),
-                                       ("server", "epoch")])
-def test_history_matches_jax_trainer(phase, key):
-    _, j_hist, _ = _jax_run()
-    t_hist, _ = _torch_run()
+def _check_history(arch, phase, key):
+    _, j_hist, _ = _jax_run(arch)
+    t_hist, _ = _torch_run(arch)
     n = ROUNDS if phase == "device" else EPOCHS
     assert len(j_hist[phase]) == len(t_hist[phase]) == n
     for t_rec, j_rec in zip(t_hist[phase], j_hist[phase]):
@@ -108,6 +107,21 @@ def test_history_matches_jax_trainer(phase, key):
             assert np.isfinite(t_rec[k])
         np.testing.assert_allclose(t_rec["val_acc"], j_rec["val_acc"],
                                    atol=1e-2)
+
+
+@pytest.mark.parametrize("phase,key", [("device", "round"),
+                                       ("server", "epoch")])
+def test_history_matches_jax_trainer(phase, key):
+    _check_history(ARCH, phase, key)
+
+
+@pytest.mark.parametrize("phase,key", [("device", "round"),
+                                       ("server", "epoch")])
+def test_mamba2_history_matches_jax_trainer(phase, key):
+    """The same phases on the mamba2-370m smoke config (SSD mixers in the
+    device block, the auxiliary clone with expand 1 and d_state 8, and the
+    server block; two chunks of 16 per sequence)."""
+    _check_history("mamba2-370m", phase, key)
 
 
 def test_round_batches_match_jax():

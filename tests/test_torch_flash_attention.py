@@ -2,10 +2,10 @@
 
 ``repro_torch.kernels.flash_attention.ops.flash_attention`` runs the
 kernels' plain versions on CPU tensors; it is held, forward and grad, to
-``repro.kernels.flash_attention.ops.flash_attention(bwd_strategy="fused")``
-(the Pallas kernels in interpret mode) on every ``FA_CASES`` row of
-``tests/test_kernels.py``, and each plain version is held to the port's
-quadratic oracle.  Tolerances are the reference's (tests/test_kernels.py):
+``repro.kernels.flash_attention.ops.flash_attention`` (the Pallas kernels in
+interpret mode) on every ``FA_CASES`` row of ``tests/test_kernels.py``,
+with ``bwd_strategy="fused"`` and ``"split"`` on both sides, and each
+plain version is held to the port's quadratic oracle.  Tolerances are the reference's (tests/test_kernels.py):
 2e-5 forward and 1e-4 grad in fp32, 2e-2 in bf16.
 """
 
@@ -54,8 +54,7 @@ def _f32(x):
                       jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_flash_attention_matches_jax(case):
+def _check_against_jax(case, strategy):
     causal, window, cap, dtype = case[6:]
     q, k, v, scale = _inputs(case)
     fwd_tol, grad_tol = _tol(dtype)
@@ -64,7 +63,7 @@ def test_flash_attention_matches_jax(case):
 
     def jf(q, k, v):
         o = jfa.flash_attention(q, k, v, causal, window, cap, scale, 16, 16,
-                                "fused")
+                                strategy)
         return jnp.sum(jnp.sin(o.astype(jnp.float32))), o
 
     (_, jo), jg = jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True)(
@@ -72,7 +71,8 @@ def test_flash_attention_matches_jax(case):
 
     tq, tk, tv = (torch.tensor(a).to(TORCH_DT[dtype]).requires_grad_(True)
                   for a in (q, k, v))
-    to = tfa.flash_attention(tq, tk, tv, causal, window, cap, scale, 16, 16)
+    to = tfa.flash_attention(tq, tk, tv, causal, window, cap, scale, 16, 16,
+                             strategy)
     assert to.dtype == TORCH_DT[dtype]        # output keeps the input dtype
     tg = torch.autograd.grad(torch.sum(torch.sin(to.float())), (tq, tk, tv))
 
@@ -80,6 +80,18 @@ def test_flash_attention_matches_jax(case):
     for name, a, b in zip("qkv", tg, jg):
         np.testing.assert_allclose(_f32(a), _f32(b), rtol=grad_tol,
                                    atol=grad_tol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_matches_jax(case):
+    _check_against_jax(case, "fused")
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_backward_matches_jax(case):
+    """The two-sweep backward (flash_bwd_dq, then flash_bwd_dkv) against
+    JAX ``bwd_strategy="split"``."""
+    _check_against_jax(case, "split")
 
 
 @pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -117,13 +129,16 @@ def test_plain_versions_match_oracle(case):
              (dv, gv.permute(0, 2, 1, 3).reshape(dv.shape)))
     for a, b in pairs:
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+    # the split sweeps' plain versions compute the same gradients
+    dq_s = K.flash_bwd_dq_plain(qk, kk, vk, do, lse, delta, **kw)
+    dk_s, dv_s = K.flash_bwd_dkv_plain(qk, kk, vk, do, lse, delta, **kw)
+    for a, (b, _) in zip((dq_s, dk_s, dv_s), pairs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def test_split_backward_raises_until_ported():
+def test_unknown_bwd_strategy_raises():
     q = torch.zeros((1, 16, 1, 1, 16))
     k = torch.zeros((1, 16, 1, 16))
-    with pytest.raises(NotImplementedError, match="flash_bwd_dq"):
-        tfa.flash_attention(q, k, k, bwd_strategy="split")
     with pytest.raises(ValueError, match="bwd_strategy"):
         tfa.flash_attention(q, k, k, bwd_strategy="fuzed")
 

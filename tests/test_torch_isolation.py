@@ -15,6 +15,7 @@ from repro_torch.core.uit import AmpereTrainer
 from repro_torch.data import federate, make_dataset_for_model
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.ssd_chunk import kernel as SK
 from repro_torch.kernels.xent import kernel as XK
 from repro_torch.launch import train
 from repro_torch.models import build_model
@@ -61,8 +62,9 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
               kv_len=16)
     with pytest.raises(ValueError, match="CUDA"):
         FK.flash_fwd(q, k, k, **kw)
-    with pytest.raises(ValueError, match="CUDA"):
-        FK.flash_bwd_fused(q, k, k, q, q[..., 0], q[..., 0], **kw)
+    for bwd in (FK.flash_bwd_fused, FK.flash_bwd_dq, FK.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            bwd(q, k, k, q, q[..., 0], q[..., 0], **kw)
     h = torch.empty((8, 16), device="meta")
     w = torch.empty((16, 32), device="meta")
     lab = torch.empty((8,), dtype=torch.int32, device="meta")
@@ -70,6 +72,11 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
         XK.xent_fwd(h, w, lab)
     with pytest.raises(ValueError, match="CUDA"):
         XK.xent_bwd(h, w, lab, lab.float(), lab.float())
+    x = torch.empty((1, 2, 16, 4, 8), device="meta")
+    dt = torch.empty((1, 2, 16, 4), device="meta")
+    bc = torch.empty((1, 2, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.ssd_intra_kernel(x, dt, dt, bc, bc)
 
 
 def test_missing_toolchain_and_failed_launch_raise(monkeypatch, tmp_path):

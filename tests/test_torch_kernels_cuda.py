@@ -7,8 +7,9 @@ fixture).  Needs no JAX, so it runs on a machine that has only PyTorch:
 
 Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
-versions and dQ takes its kv-tile partials through atomics.  TF32 is off
-for the plain versions' matmuls.
+versions and the fused backward takes dQ's kv-tile partials through
+atomics.  The split backward has no atomics and must repeat bit for
+bit.  TF32 is off for the plain versions' matmuls.
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_chunk import kernel as SK
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.xent import kernel as XK
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +78,78 @@ def test_flash_kernels_match_plain(cuda, case):
         _close(a, b, 1e-4)
 
 
+@pytest.mark.parametrize("case", FA, ids=str)
+def test_flash_split_kernels_match_plain_and_repeat(cuda, case):
+    BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt, device=cuda)
+               for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
+    kw = dict(group=G, causal=causal, window=window, softcap=cap,
+              scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
+    o, lse = FK.flash_fwd_plain(q, k, v, **kw)
+    do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32,
+                      device=cuda)
+    delta = torch.sum(do * o, dim=-1)
+    n0 = (FK.flash_bwd_dq.launches, FK.flash_bwd_dkv.launches)
+    runs = [(FK.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *FK.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    assert (FK.flash_bwd_dq.launches, FK.flash_bwd_dkv.launches) == \
+        (n0[0] + 2, n0[1] + 2)
+    want = (FK.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            *FK.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    for a, b, c in zip(runs[0], runs[1], want):
+        assert torch.equal(a, b)
+        _close(a, c, 1e-4)
+
+
+SSD = [  # B, nc, Q, H, P, N
+    (2, 3, 16, 4, 8, 16), (1, 2, 8, 2, 16, 8), (2, 1, 32, 8, 8, 32),
+    (1, 2, 16, 8, 16, 8), (1, 1, 100, 9, 40, 24), (2, 8, 256, 16, 64, 64),
+    (1, 8, 256, 32, 64, 128),
+]
+
+
+def _ssd_inputs(case, dev):
+    B, nc, Q, H, P, N = case
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(0, 1, (B, nc, Q, H, P)), dtype=torch.float32,
+                     device=dev)
+    dt = torch.tensor(np.abs(rng.normal(0, 0.1, (B, nc, Q, H))),
+                      dtype=torch.float32, device=dev)
+    a = -torch.tensor(rng.uniform(0.5, 2.0, H), dtype=torch.float32,
+                      device=dev)
+    bm, cm = (torch.tensor(rng.normal(0, 1, (B, nc, Q, N)),
+                           dtype=torch.float32, device=dev) for _ in range(2))
+    return x, dt, torch.cumsum(dt * a, dim=2), bm, cm
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_kernel_matches_plain(cuda, case):
+    args = _ssd_inputs(case, cuda)
+    n0 = SK.ssd_intra_kernel.launches
+    got = SK.ssd_intra_kernel(*args)
+    assert SK.ssd_intra_kernel.launches == n0 + 1
+    for a, b in zip(got, SK.ssd_intra_plain(*args)):
+        _close(a, b, 1e-5)
+
+
+def test_ssd_autograd_on_cuda_matches_cpu(cuda):
+    """ops.ssd_intra through the kernel on the card equals the plain path
+    on the CPU, forward and grad (the backward is the oracle's autograd on
+    both)."""
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        args = [t.to(dev).requires_grad_(True)
+                for t in _ssd_inputs((2, 2, 32, 4, 16, 16), cuda)]
+        y, s = ssd_ops.ssd_intra(*args)
+        g = torch.autograd.grad(torch.sum(torch.sin(y)) + torch.sum(s ** 2),
+                                args)
+        outs.append([y, s] + list(g))
+    for a, b in zip(*outs):
+        _close(a, b, 1e-4)
+
+
 XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),
         (8, 32, 17, 10.0), (64, 16, 1000, 0.0), (300, 256, 5000, 0.0)]
 
@@ -104,16 +179,18 @@ def test_xent_kernels_match_plain(cuda, case, hdt, tied):
     _close(dw, dw_p, 1e-4)
 
 
-def test_autograd_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("strategy", ["fused", "split"])
+def test_autograd_on_cuda_matches_cpu(cuda, strategy):
     """ops.flash_attention through the kernels on the card equals the plain
-    path on the CPU, forward and grad."""
+    path on the CPU, forward and grad, with either backward."""
     rng = np.random.default_rng(2)
     arrs = [rng.normal(0, 1, s).astype(np.float32)
             for s in ((2, 40, 2, 2, 32), (2, 40, 2, 32), (2, 40, 2, 32))]
     outs = []
     for dev in (cuda, torch.device("cpu")):
         q, k, v = (torch.tensor(a, device=dev, requires_grad=True) for a in arrs)
-        o = fa_ops.flash_attention(q, k, v, True, 8, 30.0, 0.2)
+        o = fa_ops.flash_attention(q, k, v, True, 8, 30.0, 0.2,
+                                   bwd_strategy=strategy)
         g = torch.autograd.grad(torch.sum(torch.sin(o)), (q, k, v))
         outs.append([o] + list(g))
     for a, b in zip(*outs):

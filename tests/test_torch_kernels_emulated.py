@@ -7,9 +7,10 @@ inline PTX), so a C++20 host compiler with the stub headers in
 ``<<<...>>>`` launch becomes a call of the stub ``emu_launch``, and the
 dynamic ``extern __shared__`` array points at the stub's per-block
 buffer.  Each block runs as 256 threads.  This checks the kernels'
-indexing, masking, tile skipping, online statistics, chunking and atomics
-here; the real compiler and the timings are checked on the card
-(``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
+indexing, masking, tile skipping, online statistics, chunking, atomics
+and the ragged edges of the SSD tiles here; the real compiler and the
+timings are checked on the card (``test_torch_kernels_cuda.py``,
+``chip_smoke.py``).  Skips without g++.
 Tolerances (fp32 accumulation in another order): 1e-5 forward, 1e-4
 grads, relative to the output's scale.
 """
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.ssd_chunk import kernel as SK
 from repro_torch.kernels.xent import kernel as XK
 
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
@@ -90,6 +92,50 @@ def test_flash_kernels_emulated(lib, case):
     want = FK.flash_bwd_fused_plain(q, k, v, do, lse_p, delta, **kw)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("case", FA, ids=str)
+def test_flash_split_kernels_emulated(lib, case):
+    """The two sweeps of the split backward (no atomics) against their
+    plain versions."""
+    BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt)
+               for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
+    kw = dict(group=G, causal=causal, window=window, softcap=cap,
+              scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
+    o, lse = FK.flash_fwd_plain(q, k, v, **kw)
+    do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32)
+    delta = torch.sum(do * o, dim=-1)
+    _close(FK._launch_bwd_dq(lib, 0, q, k, v, do, lse, delta, **kw),
+           FK.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), 1e-4)
+    got = FK._launch_bwd_dkv(lib, 0, q, k, v, do, lse, delta, **kw)
+    want = FK.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+SSD = [  # B, nc, Q, H, P, N: SSD_CASES, the smoke widths, ragged tiles
+    (2, 3, 16, 4, 8, 16), (1, 2, 8, 2, 16, 8), (2, 1, 32, 8, 8, 32),
+    (1, 2, 16, 8, 16, 8), (1, 1, 100, 9, 40, 24), (1, 2, 256, 9, 64, 128),
+]
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_kernel_emulated(lib, case):
+    B, nc, Q, H, P, N = case
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(0, 1, (B, nc, Q, H, P)), dtype=torch.float32)
+    dt = torch.tensor(np.abs(rng.normal(0, 0.1, (B, nc, Q, H))),
+                      dtype=torch.float32)
+    a_cum = torch.cumsum(dt * -torch.tensor(rng.uniform(0.5, 2.0, H),
+                                            dtype=torch.float32), dim=2)
+    bm, cm = (torch.tensor(rng.normal(0, 1, (B, nc, Q, N)),
+                           dtype=torch.float32) for _ in range(2))
+    got = SK._launch(lib, 0, x, dt, a_cum, bm, cm)
+    want = SK.ssd_intra_plain(x, dt, a_cum, bm, cm)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
 
 
 XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),

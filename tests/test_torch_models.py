@@ -1,8 +1,9 @@
 """Port LM forward and grads against ``repro.models`` from the same params.
 
-``qwen3-1.7b`` and ``gemma2-2b`` smoke configs (GQA + qk-norm + tied
-embeddings; sliding window + both softcaps + post-block norms + GeGLU)
-start from the JAX package's own init, converted through numpy.  The JAX
+``qwen3-1.7b``, ``gemma2-2b`` and ``mamba2-370m`` smoke configs (GQA +
+qk-norm + tied embeddings; sliding window + both softcaps + post-block
+norms + GeGLU; Mamba-2 SSD mixers with 2 chunks per sequence) start from
+the JAX package's own init, converted through numpy.  The JAX
 ``impl="xla"`` path is held to the port's eager ``"xla"`` path, and JAX
 ``impl="pallas"`` (interpret mode) to the port's ``"kernel"`` path (plain
 versions on CPU).  Tolerance (fp32 smoke configs): 1e-4 on logits, hidden
@@ -27,7 +28,8 @@ from repro_torch.interop import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.models import transformer as TT
 
 CASES = [("qwen3-1.7b", "xla", "xla"), ("qwen3-1.7b", "pallas", "kernel"),
-         ("gemma2-2b", "xla", "xla"), ("gemma2-2b", "pallas", "kernel")]
+         ("gemma2-2b", "xla", "xla"), ("gemma2-2b", "pallas", "kernel"),
+         ("mamba2-370m", "xla", "xla"), ("mamba2-370m", "pallas", "kernel")]
 B, S = 2, 24
 
 
@@ -94,6 +96,27 @@ def test_grads_match_jax(arch, jimpl, timpl):
         scale = max(1e-3, float(np.abs(b).max()))
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * scale,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def test_kernel_split_bwd_matches_fused_at_model_level():
+    """impl="kernel:split" reaches the two-sweep flash-attention backward
+    from the model entry point; grads match the fused default (same math,
+    another kernel schedule), fp32 1e-5, as tests/test_models.py holds the
+    JAX package's "pallas:split"."""
+    cfg = t_registry.get_smoke_config("qwen3-1.7b")
+    params, tokens = _params_and_tokens("qwen3-1.7b")
+    grads = {}
+    for impl in ("kernel", "kernel:split"):
+        leaves = tree_leaves(tp := from_numpy_tree(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        logits = TT.forward(cfg, tp, torch.tensor(tokens), impl=impl,
+                            remat="none")["logits"]
+        grads[impl] = torch.autograd.grad(torch.mean(torch.square(logits)),
+                                          leaves)
+    for a, b in zip(grads["kernel"], grads["kernel:split"]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_converted_params_round_trip():
