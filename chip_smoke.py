@@ -28,8 +28,9 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
    twice with ``impl="kernel:split"``, in fp32 and in the config's bf16
    compute: the losses agree, in fp32 every gradient agrees within 1e-4
-   of its scale, the two split runs give bit-identical gradients, and
-   ``flash_bwd_dq``/``flash_bwd_dkv`` launched.
+   of its scale, in bf16 split differs from fused by at most 3x as much
+   as fused from itself, the two split runs give bit-identical gradients,
+   and ``flash_bwd_dq``/``flash_bwd_dkv`` launched.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -40,9 +41,11 @@ over the full vocabulary.
 Tolerances: each kernel output within 1e-4 of its largest magnitude (fp32
 accumulation in another order; dQ through atomics in the fused backward).
 
-Prints one line per phase, then the kernels' JSON line, the card line and,
-last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, without a CUDA device or when any phase fails.
+Prints one line per phase, then the kernels' JSON line (``launches`` the
+sum over the three path runs of 5 and 6, ``launches_by_path`` each run's
+count), the card line and, last, ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, without a CUDA device or when any
+phase fails.
 """
 
 from __future__ import annotations
@@ -118,6 +121,9 @@ SERVER_EPOCHS = 1
 ITERS_ATTENTION = 20     # timed calls per measurement
 ITERS_XENT = 5
 ITERS_SSD = 10
+# bf16 split backward: allowed difference from fused, in multiples of the
+# fused kernel's run-to-run spread (its dQ atomics) measured in the same run
+BF16_SPREAD = 3.0
 
 
 def log(phase: str, **kv):
@@ -461,9 +467,10 @@ def split_backward(dev):
     In fp32 compute the split gradients must match the fused ones within
     1e-4 of each leaf's scale.  In the config's bf16 compute a last-bit
     difference in dQ (the fused kernel's atomics) flips bf16 roundings
-    that 27 layers of backward carry into every gradient, so there the
-    spread of fused against itself is logged beside split against fused.
-    In both, two split steps must give bit-identical gradients."""
+    that 27 layers of backward carry into every gradient, so there split
+    against fused must stay within ``BF16_SPREAD`` times fused against
+    itself in the same run.  In both, two split steps must give
+    bit-identical gradients."""
     arch = "qwen3-1.7b"
     cfg = registry.get_config(arch)
     seq = MAIN_PATHS[arch]["seq"]
@@ -514,6 +521,12 @@ def split_backward(dev):
         launches=launches, **result)
     if not result["float32"]["split_vs_fused"] <= 1e-4:
         raise AssertionError(f"split grads differ from fused: {result}")
+    if cfg.dtype != "float32":
+        r = result[cfg.dtype]
+        if not r["split_vs_fused"] <= BF16_SPREAD * r["fused_vs_fused"]:
+            raise AssertionError(f"{cfg.dtype} split grads differ from fused "
+                                 f"beyond {BF16_SPREAD}x fused's own spread:"
+                                 f" {r}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] <= 0:
             raise AssertionError(f"split step never launched {name}")
@@ -557,18 +570,18 @@ def main() -> int:
 
     for arch in MAIN_PATHS:
         smoke_reference(dev, arch)
-    launches = {}
-    for runs in ([main_path(dev, arch) for arch in MAIN_PATHS]
-                 + [split_backward(dev)]):
-        for name, n in runs.items():
-            launches[name] = launches.get(name, 0) + n
+    by_path = {arch: main_path(dev, arch) for arch in MAIN_PATHS}
+    by_path["split_backward"] = split_backward(dev)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = res[name]
         bms, by = r.pop("bound")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(n[name] for n in by_path.values()),
+                     "launches_by_path": {p: n[name]
+                                          for p, n in by_path.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms")})

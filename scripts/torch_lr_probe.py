@@ -4,15 +4,14 @@ GPU: does the merged model train at full width, and at which rate?
 
 Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b or
 mamba2-370m, random init from seed 0, the same corpus, sequence length,
-clients, batches and rounds, one server epoch) at each rate of ``--lrs``
-(default 0.2, the launcher's, then 0.05 and 0.02).  For each it prints one
-JSON line: the device history, the server phase's per-step losses, and the
+clients, batches and rounds, one server epoch) at lr 0.2 (the launcher's
+default), 0.05 and 0.02.  For each it prints one JSON line: the device history, the server phase's per-step losses, and the
 merged model's loss and accuracy on the eval samples and on 8 of its own
 training samples.  First it prints the merged model at init and ln V.
 From the repository root:
 
   python3 scripts/torch_lr_probe.py
-  python3 scripts/torch_lr_probe.py --arch mamba2-370m --lrs 0.2 0.05 0.02
+  python3 scripts/torch_lr_probe.py --arch mamba2-370m
 """
 
 from __future__ import annotations
@@ -37,12 +36,13 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
+LRS = (0.2, 0.05, 0.02)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-1.7b",
                     choices=sorted(cs.MAIN_PATHS))
-    ap.add_argument("--lrs", type=float, nargs="+", default=[0.2, 0.05, 0.02])
     args = ap.parse_args(argv)
     seq = cs.MAIN_PATHS[args.arch]["seq"]
     if not torch.cuda.is_available():
@@ -66,7 +66,7 @@ def main(argv=None) -> int:
         return {"eval": evaluate.evaluate(merged_model, merged, evald, dev),
                 "train": evaluate.evaluate(merged_model, merged, seen, dev)}
 
-    for lr in args.lrs:
+    for lr in LRS:
         largv = ["--arch", args.arch, "--clients", "4", "--cohort", "2",
                  "--local-steps", "2", "--batch-size", "4",
                  "--server-batch", "8", "--seq-len", str(seq),
@@ -81,7 +81,7 @@ def main(argv=None) -> int:
         dp, sp, ap = tr._init_states(
             torch.Generator(device=dev).manual_seed(run_cfg.seed))
         dev_state = {"device": dp, "aux": ap}
-        if lr == args.lrs[0]:
+        if lr == LRS[0]:
             print(json.dumps({"init": merged_eval(tr, dev_state, sp)}),
                   flush=True)
         dev_state = tr.run_device_phase(dev_state, cs.DEVICE_ROUNDS)

@@ -6,8 +6,8 @@ chunks of length Q; within a chunk the quadratic (dual) form computes the
 causal contribution, between chunks a linear recurrence carries the
 (H, P, N) state.  Everything is fp32 inside the scan.  ``impl="kernel"``
 routes the intra-chunk term through :mod:`repro_torch.kernels.ssd_chunk`
-(the Hopper kernel on CUDA tensors); ``impl="xla"`` computes it inline
-with einsums, as the reference's default.
+(the Hopper kernel on CUDA tensors); ``impl="xla"`` computes it with the
+einsums of the oracle ``ssd_chunk.ref``, as the reference's default.
 
 Decode and prefill (``ssd_decode_step``, the conv streaming state, the
 cache) come with the serving slice (ROADMAP.md queue A).
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 from repro_torch.models import layers as L
 
 
@@ -90,18 +91,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, impl: str = "kernel"):
     if impl == "kernel":
         y_intra, S_chunk = ssd_ops.ssd_intra(xf, dtf, a_cum, Bf, Cf)
     elif impl == "xla":
-        # decay(i <- j) = exp(a_cum[i] - a_cum[j]) for i >= j, masked
-        # before the exponential
-        seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]
-        tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                     device=xf.device))
-        Ldec = torch.exp(torch.where(tril[None, None, :, :, None], seg,
-                                     torch.full_like(seg, -torch.inf)))
-        cb = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)
-        att = cb[..., None] * Ldec * dtf[:, :, None, :, :]
-        y_intra = torch.einsum("bcqkh,bckhp->bcqhp", att, xf)
-        wj = torch.exp(a_total[:, :, None, :] - a_cum) * dtf
-        S_chunk = torch.einsum("bcqn,bcqhp->bchpn", Bf, xf * wj[..., None])
+        y_intra, S_chunk = ssd_ref.ssd_intra_ref(xf, dtf, a_cum, Bf, Cf)
     else:
         raise ValueError(f"unknown ssd impl {impl!r}")
 
