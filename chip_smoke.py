@@ -10,9 +10,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    its plain PyTorch version on the same inputs, at the main paths' shapes
    (qwen3-1.7b: server batch 8 x 512 tokens, Hkv 8, G 2, hd 128, bf16; xent
    T = 8 x 511, D 2048, V 151936; mamba2-370m: server SSD (8, 8, 256, 32,
-   64) with N 128, the auxiliary clone's H 16, N 64) and at a gemma2-style
-   case (hd 256, window, softcaps 50 / 30) and a small odd SSD case; kernel,
-   plain and library times with CUDA events.
+   64) with N 128, the auxiliary clone's H 16, N 64), at a gemma2-style
+   case (hd 256, window, softcaps 50 / 30), a ragged bf16 attention case
+   (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
+   the main attention shape in fp32 (the CUDA-core instantiations that
+   the split step's fp32 pass runs) and a small odd SSD case; kernel,
+   plain and library times with CUDA events (attention: median of
+   ``REPEATS`` timings after ``WARMUP`` calls, their range beside it).
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
    configs from the same initial states on the card (kernels) and on the
    CPU (plain versions); the histories must agree.
@@ -43,7 +47,9 @@ accumulation in another order; dQ through atomics in the fused backward).
 
 Prints one line per phase, then the kernels' JSON line (``launches`` the
 sum over the three path runs of 5 and 6, ``launches_by_path`` each run's
-count), the card line and, last, ``{"ok": true, "device": {...}}``.
+count; ``flash_fwd`` and ``flash_bwd_fused`` are the bf16 tensor-core
+kernels, ``*_fp32`` the fp32 CUDA-core ones behind the same wrappers,
+counted by dtype; the split sweeps count both dtypes), the card line and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.
 """
@@ -83,8 +89,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = {
     "flash_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention/kernel.py:104"),
+    "flash_fwd_fp32": ("src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:104"),
     "flash_bwd_fused": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:407"),
+    "flash_bwd_fused_fp32": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:407"),
     "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:201"),
     "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attention.cu",
@@ -100,6 +111,11 @@ WRAPPERS = {"flash_fwd": FK.flash_fwd, "flash_bwd_fused": FK.flash_bwd_fused,
             "flash_bwd_dq": FK.flash_bwd_dq, "flash_bwd_dkv": FK.flash_bwd_dkv,
             "xent_fwd": XK.xent_fwd, "xent_bwd": XK.xent_bwd,
             "ssd_intra": SK.ssd_intra_kernel}
+# rows whose wrapper launches a different kernel per dtype: (wrapper, dtype)
+BY_DTYPE = {"flash_fwd": ("flash_fwd", "bfloat16"),
+            "flash_fwd_fp32": ("flash_fwd", "float32"),
+            "flash_bwd_fused": ("flash_bwd_fused", "bfloat16"),
+            "flash_bwd_fused_fp32": ("flash_bwd_fused", "float32")}
 
 # The main paths: sequence length, learning rate, and the kernels each
 # must launch.  LR: the launcher's default 0.2 (momentum 0.9) diverges on
@@ -119,6 +135,8 @@ EVAL_SAMPLES = 8
 DEVICE_ROUNDS = 2
 SERVER_EPOCHS = 1
 ITERS_ATTENTION = 20     # timed calls per measurement
+REPEATS = 5              # attention: measurements per time, median kept
+WARMUP = 3               # attention: untimed calls before them
 ITERS_XENT = 5
 ITERS_SSD = 10
 # bf16 split backward: allowed difference from fused, in multiples of the
@@ -137,17 +155,31 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
+def time_runs(fn, iters: int, warmup: int = 1, repeats: int = 1) -> list:
+    """ms per call of ``repeats`` measurements of ``iters`` calls each."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return runs
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    return time_runs(fn, iters, warmup)[0]
+
+
+def time_median(fn, iters: int) -> tuple:
+    """(median, [min, max]) ms per call over REPEATS measurements."""
+    runs = time_runs(fn, iters, WARMUP, REPEATS)
+    return float(np.median(runs)), [min(runs), max(runs)]
 
 
 def check(name: str, got, want, rel_tol: float) -> float:
@@ -191,16 +223,22 @@ def _valid_pairs(Sq, Skv, causal, window):
 # ---------------------------------------------------------------------------
 
 
-def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
+def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
+            Skv=None, kv_len=None):
+    """Causal attention of S queries over Skv keys (default S), the first
+    kv_len of them valid (default Skv)."""
+    Skv = S if Skv is None else Skv
+    kv_len = Skv if kv_len is None else kv_len
     gen = torch.Generator(device=dev).manual_seed(0)
     BH, BKV = B * Hkv * G, B * Hkv
     q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((BH, S, hd), (BKV, S, hd), (BKV, S, hd)))
+               for s in ((BH, S, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
     kw = dict(group=G, causal=True, window=window, softcap=cap,
-              scale=1 / math.sqrt(hd), kv_len=S)
+              scale=1 / math.sqrt(hd), kv_len=kv_len)
     o, lse = FK.flash_fwd(q, k, v, **kw)
     o_p, lse_p = FK.flash_fwd_plain(q, k, v, **kw)
-    tag = f"B{B} S{S} Hkv{Hkv} G{G} hd{hd} window{window} cap{cap}"
+    tag = (f"B{B} S{S} Skv{Skv} kv_len{kv_len} Hkv{Hkv} G{G} hd{hd} "
+           f"window{window} cap{cap}")
     errs = {"flash_fwd": check(f"flash_fwd {tag}", (o, lse), (o_p, lse_p),
                                1e-4)}
     do = torch.randn(o.shape, generator=gen, device=dev)
@@ -218,11 +256,15 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
     isz = q.element_size()
     in_bytes = (BH + 2 * BKV) * S * hd * isz          # q, k, v
     bwd_in = in_bytes + BH * S * (hd + 2) * 4         # + dO, lse, delta
-    res = {"flash_fwd": dict(
-        ms=time_ms(lambda: FK.flash_fwd(q, k, v, **kw), iters),
-        plain_ms=time_ms(lambda: FK.flash_fwd_plain(q, k, v, **kw), iters),
-        bound=bound_ms(in_bytes + BH * S * (hd + 1) * 4, 4 * hd * pairs,
-                       dtype))}
+    def timed(fn, plain, bound):
+        (ms, ms_range), (plain_ms, _) = (time_median(f, iters)
+                                         for f in (fn, plain))
+        return dict(ms=ms, ms_range=ms_range, plain_ms=plain_ms, bound=bound)
+
+    res = {"flash_fwd": timed(
+        lambda: FK.flash_fwd(q, k, v, **kw),
+        lambda: FK.flash_fwd_plain(q, k, v, **kw),
+        bound_ms(in_bytes + BH * S * (hd + 1) * 4, 4 * hd * pairs, dtype))}
     # products per unmasked pair: fused S, dP, dV, dK, dQ; dq sweep S, dP,
     # dQ; dk/dv sweep S, dP, dV, dK (2 * hd flops each)
     out_bytes = {"flash_bwd_fused": (BH + 2 * BKV) * S * hd * 4,
@@ -230,11 +272,10 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
                  "flash_bwd_dkv": 2 * BKV * S * hd * 4}
     products = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
     for name, (fn, plain) in bwd.items():
-        res[name] = dict(
-            ms=time_ms(lambda: fn(*bargs, **kw), iters),
-            plain_ms=time_ms(lambda: plain(*bargs, **kw), iters),
-            bound=bound_ms(bwd_in + out_bytes[name],
-                           2 * products[name] * hd * pairs, dtype))
+        res[name] = timed(lambda: fn(*bargs, **kw),
+                          lambda: plain(*bargs, **kw),
+                          bound_ms(bwd_in + out_bytes[name],
+                                   2 * products[name] * hd * pairs, dtype))
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
     # yardstick only: one PyTorch call computing the same function
@@ -248,14 +289,21 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library):
                     enable_gqa=True)
 
     with torch.no_grad():
-        res["flash_fwd"]["library_ms"] = time_ms(lib_fwd, iters)
+        (res["flash_fwd"]["library_ms"],
+         res["flash_fwd"]["library_ms_range"]) = time_median(lib_fwd, iters)
     out = lib_fwd()
     do4 = do.reshape(B, Hkv * G, S, hd).to(dtype)
-    lib_bwd = time_ms(
+    lib_bwd, lib_bwd_range = time_median(
         lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
         iters)
     for name in bwd:
         res[name]["library_ms"] = lib_bwd
+        res[name]["library_ms_range"] = lib_bwd_range
+    log("timing", case=tag, dtype=str(dtype).removeprefix("torch."),
+        iters=iters, warmup=WARMUP, repeats=REPEATS,
+        **{name: {k: r[k] for k in ("ms", "ms_range", "library_ms",
+                                    "library_ms_range")}
+           for name, r in res.items()})
     return res
 
 
@@ -391,10 +439,20 @@ def full_corpus(n, seq, vocab, seed):
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = {}
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Launches per row of the kernels line."""
+    out = {}
+    for name in KERNELS:
+        if name in BY_DTYPE:
+            wrapper, dtype = BY_DTYPE[name]
+            out[name] = WRAPPERS[wrapper].launches_by_dtype.get(dtype, 0)
+        else:
+            out[name] = WRAPPERS[name].launches
+    return out
 
 
 def main_path(dev, arch):
@@ -527,7 +585,8 @@ def split_backward(dev):
             raise AssertionError(f"{cfg.dtype} split grads differ from fused "
                                  f"beyond {BF16_SPREAD}x fused's own spread:"
                                  f" {r}")
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_fwd_fp32", "flash_bwd_fused",
+                 "flash_bwd_fused_fp32", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] <= 0:
             raise AssertionError(f"split step never launched {name}")
     return launches
@@ -552,6 +611,15 @@ def main() -> int:
                   ITERS_ATTENTION, library=True)
     fa_case(dev, 2, SEQ_LEN, 4, 2, 256, 256, 50.0, torch.bfloat16, 1,
             library=False)
+    # ragged S, rows past kv_len + window - 1 with no valid key
+    fa_case(dev, 2, 300, 4, 2, 128, 64, 0.0, torch.bfloat16, 1,
+            library=False, Skv=130, kv_len=120)
+    # the fp32 CUDA-core instantiations at the main shape (split step's
+    # fp32 pass); the split sweeps' rows stay those of the bf16 case
+    res32 = fa_case(dev, 8, SEQ_LEN, 8, 2, 128, 0, 0.0, torch.float32,
+                    ITERS_ATTENTION, library=True)
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        res[f"{name}_fp32"] = res32[name]
     cfg = registry.get_config("qwen3-1.7b")
     T = 8 * (SEQ_LEN - 1)
     res.update(xent_case(dev, T, cfg.d_model, cfg.vocab_size, 0.0, False,
@@ -584,7 +652,9 @@ def main() -> int:
                                           for p, n in by_path.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
-                     "bound_by": by, "library_ms": r.get("library_ms")})
+                     "bound_by": by, "library_ms": r.get("library_ms"),
+                     **{k: r[k] for k in ("ms_range", "library_ms_range")
+                        if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,16 +18,41 @@
 // dv, dout and delta are fp32; q, k, v are fp32 or bf16.
 //
 // What bounds it on the H100: at the main path's shapes (S = 512, hd = 128)
-// attention is compute-bound (~2*S*hd flops per loaded q/k/v element).
-// This first version computes every product with fp32 FMAs on the CUDA
-// cores (no tensor cores), so it runs far below the bf16 tensor-core
-// bound; PERF.md keeps its time beside that bound.  What the design does
-// about it: tiles of Q/K/V/dO live in shared memory (converted to fp32 once
-// per tile load), each thread owns a 16 x 16-strided block of every tile
-// product, rows of padded stride hd + 1 keep the shared-memory walks
-// bank-conflict free, and kv tiles that the mask removes entirely are
-// skipped (causal upper triangle, outside the window, past kv_len), which
-// the TPU's sequential grid could not do.
+// attention does ~2*S*hd flops per loaded q/k/v element, so its floor is
+// the bf16 tensor cores' rate together with the bytes it must move (the
+// bytes bound is the larger at this shape).  Two designs, one per dtype:
+//
+// bf16 q, k, v (the main path): the forward and the fused backward run on
+// the tensor cores (fa_fwd_tc_kernel, fa_bwd_tc_kernel; tensor_core.cuh):
+// warp-level mma.sync m16n8k16 bf16 -> fp32 with operands read from
+// shared memory by ldmatrix (.trans for V, dO, Q and K where they are B
+// operands along their rows, and for dS^T as dQ's A operand); tiles kept
+// in shared memory as bf16 in rows padded by 16 B so that ldmatrix has no
+// bank conflicts; the next K/V tile (forward) or Q/dO/lse/delta tile
+// (backward) copied by cp.async into a second stage while the current one
+// computes.  Products of two bf16 operands are exact in fp32, so
+// S = Q K^T takes one pass and is scaled afterwards.  P, dS and dO are
+// fp32; each is split into hi = bf16(x) and lo = bf16(x - hi) (residual
+// <= 2^-17 |x|) and every product over them sums its passes into one fp32
+// fragment: O += P V 2 passes, dP = dO V^T 2, dV += P^T dO 3 (hi.hi,
+// hi.lo, lo.hi), dK += dS^T Q 2, dQ += dS K 2.  That keeps the kernels
+// within the fp32 reference's 1e-4 checks, which one bf16 rounding of P
+// (~2^-9) would not.  P and dS^T stay in registers from the score product
+// to the next product (the C fragment of two n-tiles is the A fragment of
+// one k-step); dS^T goes through shared memory once, for dQ.
+//
+// fp32 q, k, v, and the two sweeps of the split backward in both dtypes:
+// every product with fp32 FMAs on the CUDA cores (no tensor cores; TF32
+// would miss the fp32 checks).  Tiles of Q/K/V/dO live in shared memory
+// (converted to fp32 once per tile load), each thread owns a 16 x
+// 16-strided block of every tile product, and rows of padded stride hd + 1
+// keep the shared-memory walks bank-conflict free.
+//
+// Both skip kv tiles that the mask removes entirely (causal upper
+// triangle, outside the window, past kv_len), which the TPU's sequential
+// grid could not do.  The bf16 kernels order their grids so that the
+// heaviest CTAs under the causal mask start first (last q tiles in the
+// forward, first kv tiles in the backward).
 //
 // Forward: one CTA per (bh, q tile); the kv loop runs inside the CTA with
 // (m, l, acc) in registers.  A q tile holding a row with no valid key at all
@@ -52,7 +77,12 @@
 // and dS for each, keeps dQ in registers and writes it once.  Neither sweep
 // has atomics, so both give bit-identical results run to run, at the price
 // of recomputing P (and dP) twice.
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -497,6 +527,519 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernels: the forward and the fused backward for
+// T = __nv_bfloat16 (see the note at the head of the file)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Rows of ROWS x HD bf16 from global rows [row0, row0 + ROWS) (rows at or
+// past nrows read as zeros) into shared rows of stride LD, 16 B a copy.
+template <int ROWS, int HD, int LD, int NT>
+__device__ __forceinline__ void tc_load_rows(bf16* dst, const bf16* src,
+                                             int row0, int nrows) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < ROWS * CH; e += NT) {
+    const int r = e / CH, c = e % CH * 8;
+    const bool in = row0 + r < nrows;
+    rt::cp_async16(dst + r * LD + c, src + (size_t)(in ? row0 + r : 0) * HD + c,
+                   in ? 16 : 0);
+  }
+}
+
+// Lane addresses of ldmatrix.x4 over a 16 x 16 block at (r0, c0) of a
+// shared tile with row stride ld, for each fragment role (tensor_core.cuh):
+// A row-major, B stored [n][k] (both plain), B stored [k][n] and A stored
+// [k][m] (both .trans).
+__device__ __forceinline__ int tc_a_off(int r0, int c0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (r0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + c0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ int tc_bnk_off(int n0, int k0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int tc_bkn_off(int k0, int n0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ int tc_akm_off(int k0, int m0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
+}
+
+// The A fragments (hi, lo) of k-step kk of a 16-row C tile held as n-tiles
+// of 8 columns: columns [16 kk, 16 kk + 16) are n-tiles 2 kk and 2 kk + 1.
+template <int N>
+__device__ __forceinline__ void tc_c_to_a(const float (&c)[N][4], int kk,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  rt::split_bf16x2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  rt::split_bf16x2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  rt::split_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  rt::split_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// true when the mask keeps every pair of rows [qa, qb] x keys [ka, kb] and
+// every one of them lies inside the tensors (no masking needed)
+__device__ __forceinline__ bool tc_tile_whole(int qa, int qb, int ka, int kb,
+                                              int Skv, int causal, int window,
+                                              int kv_len) {
+  if (kb >= min(kv_len, Skv)) return false;
+  if (causal && kb > qa) return false;
+  if (window && qb - ka >= window) return false;
+  return true;
+}
+
+// Forward tiling: each warp owns 16 q rows and HD / NSPLIT columns of O
+// (at hd 256 two warps share a row block and both compute its scores).
+template <int HD> struct TcFwd {
+  static constexpr int NSPLIT = HD > 128 ? 2 : 1;
+  static constexpr int BQ = 64, BK = HD > 128 ? 32 : 64;
+  static constexpr int THREADS = 32 * (BQ / 16) * NSPLIT;
+  static constexpr int LD = HD + 8;  // padded rows: ldmatrix conflict-free
+  // Q, then two stages of (K, V)
+  static constexpr size_t SMEM = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TcFwd<HD>::THREADS)
+fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int group,
+                 int causal, int window, float softcap, float scale,
+                 int kv_len) {
+  using C = TcFwd<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NT = C::THREADS;
+  constexpr int DW = HD / C::NSPLIT;      // O columns per warp
+  constexpr int NS = BK / 8, NO = DW / 8;  // n-tiles of S and of O
+  extern __shared__ __align__(16) bf16 smem_bf[];
+  bf16* sQ = smem_bf;         // BQ x LD
+  bf16* sKV = sQ + BQ * LD;   // stage s: K at 2 s BK LD, V after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rb = warp % (BQ / 16) * 16, d0 = warp / (BQ / 16) * DW;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int qb = min(q0 + BQ, Sq) - 1;
+  const bf16* qg = q + (size_t)bh * Sq * HD;
+  const bf16* kg = k + (size_t)(bh / group) * Skv * HD;
+  const bf16* vg = v + (size_t)(bh / group) * Skv * HD;
+
+  tc_load_rows<BQ, HD, LD, NT>(sQ, qg, q0, Sq);
+  const int tid = threadIdx.x;
+  const bool empty = tid < BQ && q0 + tid < Sq &&
+                     fa_row_empty(q0 + tid, Skv, causal, window, kv_len);
+  const bool may_skip = !__syncthreads_or(empty);
+  const int nk = (Skv + BK - 1) / BK;
+  auto next_tile = [&](int j) {  // first kv tile >= j that is visited
+    for (; j < nk; ++j)
+      if (!(may_skip && fa_tile_masked(q0, qb, j * BK,
+                                       min(j * BK + BK, Skv) - 1, causal,
+                                       window, kv_len)))
+        break;
+    return j;
+  };
+  auto load_kv = [&](int j, int stage) {
+    bf16* sK = sKV + stage * 2 * BK * LD;
+    tc_load_rows<BK, HD, LD, NT>(sK, kg, j * BK, Skv);
+    tc_load_rows<BK, HD, LD, NT>(sK + BK * LD, vg, j * BK, Skv);
+  };
+
+  const float scale2 = scale * kLog2e;
+  float m_i[2] = {kNegInf * kLog2e, kNegInf * kLog2e}, l_i[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int j = next_tile(0), stage = 0;
+  if (j < nk) load_kv(j, 0);
+  rt::cp_async_commit();
+  while (j < nk) {
+    const int jn = next_tile(j + 1);
+    if (jn < nk) {
+      load_kv(jn, stage ^ 1);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();
+    } else {
+      rt::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and Q) landed for every thread
+    const bf16* sK = sKV + stage * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+
+    // S = Q K^T: bf16 products are exact in fp32, one pass
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      rt::ldmatrix_x4(a, sQ + tc_a_off(rb, kk * 16, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t b[4];
+        rt::ldmatrix_x4(b, sK + tc_bnk_off(n * 8, kk * 16, LD));
+        rt::mma_bf16(s[n], a, b[0], b[1]);
+        rt::mma_bf16(s[n + 1], a, b[2], b[3]);
+      }
+    }
+
+    // online softmax over rows g and g + 8 of the warp's block, in base 2:
+    // scores carry a factor log2(e), so each exponential is one exp2f
+    const int k0 = j * BK;
+    const bool whole = tc_tile_whole(q0, qb, k0, k0 + BK - 1, Skv, causal,
+                                     window, kv_len);
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap != 0.f
+                      ? tanhf(s[n][e] * scale / softcap) * softcap * kLog2e
+                      : s[n][e] * scale2;
+        if (!whole) {  // uniform over the block
+          const int qp = q0 + rb + g + 8 * (e >> 1);
+          const int kp = k0 + n * 8 + 2 * t + (e & 1);
+          // columns past the tensor's Skv are not keys at all (weight 0
+          // even for a row with no valid key); masked keys get the -1e30
+          // sentinel (times log2(e): lse comes back as -1e30 + log l)
+          x = kp >= Skv ? -INFINITY
+                        : (fa_keep(qp, kp, causal, window, kv_len)
+                               ? x : kNegInf * kLog2e);
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = rt::quad_max(mx[r]);
+      corr[r] = exp2f(m_i[r] - m_new);
+      m_i[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m_i[e >> 1]);
+        s[n][e] = p;
+        ps[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * corr[r] + rt::quad_sum(ps[r]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+    // O += P V with P = P_hi + P_lo (two passes; V is exact bf16)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      tc_c_to_a(s, kk, ph, pl);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        rt::ldmatrix_x4_trans(b, sV + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+        rt::mma_bf16(acc[n], ph, b[0], b[1]);
+        rt::mma_bf16(acc[n], pl, b[0], b[1]);
+        rt::mma_bf16(acc[n + 1], ph, b[2], b[3]);
+        rt::mma_bf16(acc[n + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its reload
+    stage ^= 1;
+    j = jn;
+  }
+  rt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rb + g + 8 * r;
+    if (row < Sq) {
+      const float l = fmaxf(l_i[r], 1e-30f);
+      float* og = o + ((size_t)bh * Sq + row) * HD + d0;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(og + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+      if (t == 0 && d0 == 0)
+        lse[(size_t)bh * Sq + row] = m_i[r] * kLn2 + logf(l);
+    }
+  }
+}
+
+// Fused backward tiling: each warp owns 16 keys of the kv tile and
+// HD / NSPLIT columns of dK and dV (at hd 256 two warps share 16 keys and
+// both compute their S^T and dP^T).  For dQ = dS K the same warps split
+// the BQ x HD tile into 16-row blocks x DQW columns.
+template <int HD> struct TcBwd {
+  static constexpr int NSPLIT = HD > 128 ? 2 : 1;
+  static constexpr int BK = 64, BQ = HD > 64 ? 32 : 64;
+  static constexpr int WARPS = BK / 16 * NSPLIT, THREADS = 32 * WARPS;
+  static constexpr int DQW = HD / (WARPS / (BQ / 16));
+  static constexpr int LD = HD + 8, LDS = BQ + 8;  // padded bf16 rows
+  // bf16: K, V, two stages of Q, dO hi, dO lo, dS^T hi, dS^T lo; fp32:
+  // the dO staging tile, two stages of (lse, delta)
+  static constexpr size_t SMEM =
+      (size_t)(2 * BK * LD + 4 * BQ * LD + 2 * BK * LDS) * sizeof(bf16) +
+      (size_t)(BQ * HD + 4 * BQ) * sizeof(float);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TcBwd<HD>::THREADS)
+fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                 int Skv, int group, int causal, int window, float softcap,
+                 float scale, int kv_len) {
+  using C = TcBwd<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS;
+  constexpr int NT = C::THREADS, DW = HD / C::NSPLIT, DQW = C::DQW;
+  constexpr int NS = BQ / 8, NO = DW / 8, NQ = DQW / 8;
+  extern __shared__ __align__(16) bf16 smem_bf[];
+  bf16* sK = smem_bf;             // BK x LD
+  bf16* sV = sK + BK * LD;        // BK x LD
+  bf16* sQ = sV + BK * LD;        // 2 stages of BQ x LD
+  bf16* sOh = sQ + 2 * BQ * LD;   // dO hi, BQ x LD
+  bf16* sOl = sOh + BQ * LD;      // dO lo
+  bf16* sSh = sOl + BQ * LD;      // dS^T hi, BK x LDS
+  bf16* sSl = sSh + BK * LDS;     // dS^T lo
+  float* sOf = reinterpret_cast<float*>(sSl + BK * LDS);  // dO, BQ x HD
+  float* sLD = sOf + BQ * HD;     // stage s: lse at 2 s BQ, delta after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kr = warp % (BK / 16) * 16, d0 = warp / (BK / 16) * DW;
+  const int qr = warp % (BQ / 16) * 16, dq0 = warp / (BQ / 16) * DQW;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // kv tile 0 (most q tiles) first
+  const int kb = min(k0 + BK, Skv) - 1;
+  const int nq = (Sq + BQ - 1) / BQ, nu = group * nq;
+
+  tc_load_rows<BK, HD, LD, NT>(sK, k + (size_t)bkv * Skv * HD, k0, Skv);
+  tc_load_rows<BK, HD, LD, NT>(sV, v + (size_t)bkv * Skv * HD, k0, Skv);
+  // work items u = g * nq + q tile, skipping the tiles the mask removes
+  auto next_item = [&](int u) {
+    for (; u < nu; ++u) {
+      const int q0 = u % nq * BQ;
+      if (!fa_tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, kb, causal, window,
+                          kv_len))
+        break;
+    }
+    return u;
+  };
+  auto load_q = [&](int u, int stage) {
+    const size_t bh = (size_t)bkv * group + u / nq;
+    const int q0 = u % nq * BQ;
+    tc_load_rows<BQ, HD, LD, NT>(sQ + stage * BQ * LD, q + bh * Sq * HD, q0,
+                                 Sq);
+    const float* og = dout + bh * Sq * HD;
+    for (int e = threadIdx.x; e < BQ * HD / 4; e += NT) {
+      const int r = e / (HD / 4), c = e % (HD / 4) * 4;
+      const bool in = q0 + r < Sq;
+      rt::cp_async16(sOf + r * HD + c, og + (size_t)(in ? q0 + r : 0) * HD + c,
+                     in ? 16 : 0);
+    }
+    float* sl = sLD + stage * 2 * BQ;
+    for (int e = threadIdx.x; e < 2 * BQ; e += NT) {
+      const int r = e % BQ;
+      const bool in = q0 + r < Sq;
+      const float* src = (e < BQ ? lse : delta) + bh * Sq + (in ? q0 + r : 0);
+      rt::cp_async4(sl + e, src, in ? 4 : 0);
+    }
+  };
+
+  const float scale2 = scale * kLog2e;
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  int u = next_item(0), stage = 0;
+  if (u < nu) load_q(u, 0);
+  rt::cp_async_commit();
+  while (u < nu) {
+    const size_t bh = (size_t)bkv * group + u / nq;
+    const int q0 = u % nq * BQ;
+    rt::cp_async_wait<0>();
+    __syncthreads();  // this item's tiles landed; the last item is done
+    // dO (fp32) -> dO hi + dO lo (bf16)
+    for (int e = threadIdx.x; e < BQ * HD / 2; e += NT) {
+      const int r = e / (HD / 2), c = e % (HD / 2) * 2;
+      uint32_t hi, lo;
+      rt::split_bf16x2(sOf[r * HD + c], sOf[r * HD + c + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(sOh + r * LD + c) = hi;
+      *reinterpret_cast<uint32_t*>(sOl + r * LD + c) = lo;
+    }
+    for (int e = threadIdx.x; e < BQ; e += NT) sLD[stage * 2 * BQ + e] *= kLog2e;
+    __syncthreads();  // dO hi/lo and lse * log2(e) ready, the staging free
+    const int un = next_item(u + 1);
+    if (un < nu) load_q(un, stage ^ 1);  // lands while this item computes
+    rt::cp_async_commit();
+    const bf16* sQs = sQ + stage * BQ * LD;
+    const float* sL = sLD + stage * 2 * BQ;
+    const float* sD = sL + BQ;
+
+    // S^T = K Q^T (one pass) and dP^T = V dO^T (dO hi and lo) for the
+    // warp's 16 keys x BQ queries
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      rt::ldmatrix_x4(ak, sK + tc_a_off(kr, kk * 16, LD));
+      rt::ldmatrix_x4(av, sV + tc_a_off(kr, kk * 16, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        const int off = tc_bnk_off(n * 8, kk * 16, LD);
+        uint32_t bq[4], bh_[4], bl[4];
+        rt::ldmatrix_x4(bq, sQs + off);
+        rt::ldmatrix_x4(bh_, sOh + off);
+        rt::ldmatrix_x4(bl, sOl + off);
+        rt::mma_bf16(s[n], ak, bq[0], bq[1]);
+        rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
+        rt::mma_bf16(dp[n], av, bh_[0], bh_[1]);
+        rt::mma_bf16(dp[n], av, bl[0], bl[1]);
+        rt::mma_bf16(dp[n + 1], av, bh_[2], bh_[3]);
+        rt::mma_bf16(dp[n + 1], av, bl[2], bl[3]);
+      }
+    }
+    // P^T into s, dS^T into dp (exponentials in base 2: sL holds lse
+    // times log2(e))
+    const bool whole = q0 + BQ <= Sq &&
+                       tc_tile_whole(q0, q0 + BQ - 1, k0, k0 + BK - 1, Skv,
+                                     causal, window, kv_len);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = n * 8 + 2 * t + (e & 1);
+        float x2, chain = 1.f;
+        if (softcap != 0.f) {
+          const float x = tanhf(s[n][e] * scale / softcap) * softcap;
+          const float uu = x / softcap;
+          chain = 1.f - uu * uu;  // d softcap / d s_raw
+          x2 = x * kLog2e - sL[qc];
+        } else {
+          x2 = fmaf(s[n][e], scale2, -sL[qc]);
+        }
+        float p = exp2f(x2);
+        if (!whole) {  // uniform over the block
+          const int kp = k0 + kr + g + 8 * (e >> 1), qp = q0 + qc;
+          if (!(qp < Sq && fa_keep(qp, kp, causal, window, kv_len))) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sD[qc]) * chain * scale;
+      }
+
+    // dV += P^T dO (hi.hi, hi.lo, lo.hi); dK += dS^T Q (dS hi, lo); dS^T
+    // hi/lo to shared memory for dQ
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      tc_c_to_a(s, kk, ph, pl);
+      tc_c_to_a(dp, kk, sh, sl);
+      if (d0 == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int off = (kr + g + 8 * (i & 1)) * LDS + kk * 16 +
+                          8 * (i >> 1) + 2 * t;
+          *reinterpret_cast<uint32_t*>(sSh + off) = sh[i];
+          *reinterpret_cast<uint32_t*>(sSl + off) = sl[i];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        const int off = tc_bkn_off(kk * 16, d0 + n * 8, LD);
+        uint32_t oh[4], ol[4], bq[4];
+        rt::ldmatrix_x4_trans(oh, sOh + off);
+        rt::ldmatrix_x4_trans(ol, sOl + off);
+        rt::ldmatrix_x4_trans(bq, sQs + off);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float(&dvn)[4] = dv_acc[n + h];
+          float(&dkn)[4] = dk_acc[n + h];
+          rt::mma_bf16(dvn, ph, oh[2 * h], oh[2 * h + 1]);
+          rt::mma_bf16(dvn, ph, ol[2 * h], ol[2 * h + 1]);
+          rt::mma_bf16(dvn, pl, oh[2 * h], oh[2 * h + 1]);
+          rt::mma_bf16(dkn, sh, bq[2 * h], bq[2 * h + 1]);
+          rt::mma_bf16(dkn, sl, bq[2 * h], bq[2 * h + 1]);
+        }
+      }
+    }
+    __syncthreads();  // dS^T complete
+
+    // dQ += dS K for the warp's 16 q rows x DQW columns, summed across the
+    // kv-tile CTAs with fp32 atomics
+    float dqa[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      rt::ldmatrix_x4_trans(ah, sSh + tc_akm_off(kk * 16, qr, LDS));
+      rt::ldmatrix_x4_trans(al, sSl + tc_akm_off(kk * 16, qr, LDS));
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t b[4];
+        rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, dq0 + n * 8, LD));
+        rt::mma_bf16(dqa[n], ah, b[0], b[1]);
+        rt::mma_bf16(dqa[n], al, b[0], b[1]);
+        rt::mma_bf16(dqa[n + 1], ah, b[2], b[3]);
+        rt::mma_bf16(dqa[n + 1], al, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + qr + g + 8 * r;
+      if (row < Sq) {
+        float* dqg = dq + (bh * Sq + row) * HD + dq0;
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)  // sm_90: one vector atomic a pair
+          atomicAdd(reinterpret_cast<float2*>(dqg + n * 8 + 2 * t),
+                    make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]));
+      }
+    }
+    stage ^= 1;
+    u = un;
+  }
+  rt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + kr + g + 8 * r;
+    if (row < Skv) {
+      float* dkg = dk + ((size_t)bkv * Skv + row) * HD + d0;
+      float* dvg = dv + ((size_t)bkv * Skv + row) * HD + d0;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<float2*>(dkg + n * 8 + 2 * t) =
+            make_float2(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dvg + n * 8 + 2 * t) =
+            make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
 struct FaArgs {
   const void *q, *k, *v, *dout, *lse_in, *delta;
   void *o, *lse, *dq, *dk, *dv;
@@ -505,20 +1048,41 @@ struct FaArgs {
   cudaStream_t stream;
 };
 
+// the bf16 kernels copy 16 B at a time: their tensors must be so aligned
+bool tc_aligned(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 template <typename T, int HD>
 cudaError_t launch_fwd(const FaArgs& a) {
-  constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-  const size_t smem =
-      ((size_t)(BQ + 2 * BK) * (HD + 1) + (size_t)BQ * (BK + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.BH);
-  fa_fwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (float*)a.o,
-      (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
-      a.scale, a.kv_len);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    using C = TcFwd<HD>;
+    if (!tc_aligned({a.q, a.k, a.v})) return cudaErrorMisalignedAddress;
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
+    fa_fwd_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (float*)a.o,
+        (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
+        a.scale, a.kv_len);
+  } else {
+    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
+    const size_t smem = ((size_t)(BQ + 2 * BK) * (HD + 1) +
+                         (size_t)BQ * (BK + 1)) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Sq + BQ - 1) / BQ, a.BH);
+    fa_fwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (float*)a.o,
+        (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
+        a.scale, a.kv_len);
+  }
   return cudaGetLastError();
 }
 
@@ -541,6 +1105,20 @@ cudaError_t launch_bwd(const FaArgs& a) {
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
         (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq, a.Sq,
         a.Skv, a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
+  } else if constexpr (KIND == kFused &&
+                       std::is_same_v<T, __nv_bfloat16>) {
+    using C = TcBwd<HD>;
+    if (!tc_aligned({a.q, a.k, a.v, a.dout})) return cudaErrorMisalignedAddress;
+    err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
+    fa_bwd_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const float*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
+        (float*)a.dq, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group,
+        a.causal, a.window, a.softcap, a.scale, a.kv_len);
   } else {
     constexpr bool kDQ = KIND == kFused;
     const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +

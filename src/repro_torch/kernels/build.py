@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention.cu", "xent.cu", "ssd_chunk.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tensor_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

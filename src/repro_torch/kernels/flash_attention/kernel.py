@@ -14,7 +14,10 @@ follows the reference kernels' semantics exactly (``-1e30`` mask sentinel,
 Layouts, as the reference kernels: q, o, dq (BH, Sq, hd) with
 BH = B * Hkv * G kv-major (``bh // G`` is the kv head); k, v, dk, dv
 (BKV, Skv, hd).  Outputs are fp32.  Each wrapper carries ``launches``, the
-number of kernel launches it made.
+number of kernel launches it made, and ``launches_by_dtype``, the same
+count split by q's dtype (``"bfloat16"``, ``"float32"``): the forward and
+the fused backward launch a tensor-core kernel for bf16 and a CUDA-core
+kernel for fp32.
 """
 
 from __future__ import annotations
@@ -196,11 +199,18 @@ def flash_fwd(q, k, v, *, group, causal, window, softcap, scale, kv_len):
     out = _launch_fwd(build.load(), build.stream_ptr(q), q, k, v,
                       group=group, causal=causal, window=window,
                       softcap=softcap, scale=scale, kv_len=kv_len)
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return out
 
 
+def _count(fn, q):
+    fn.launches += 1
+    key = str(q.dtype).removeprefix("torch.")
+    fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+
+
 flash_fwd.launches = 0
+flash_fwd.launches_by_dtype = {}
 
 
 def _bwd_wrapper(name, plain, launch, doc):
@@ -213,12 +223,13 @@ def _bwd_wrapper(name, plain, launch, doc):
         _check_inputs(q, k, v, group)
         out = launch(build.load(), build.stream_ptr(q), q, k, v, do, lse,
                      delta, **kw)
-        fn.launches += 1
+        _count(fn, q)
         return out
 
     fn.__name__ = fn.__qualname__ = name
     fn.__doc__ = doc
     fn.launches = 0
+    fn.launches_by_dtype = {}
     return fn
 
 

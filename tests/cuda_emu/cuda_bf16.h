@@ -3,9 +3,26 @@
 #include <cstdint>
 #include <cstring>
 struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float __bfloat162float(__nv_bfloat16 b) {
   const uint32_t u = uint32_t(b.x) << 16;
   float f;
   std::memcpy(&f, &u, 4);
   return f;
+}
+// round to nearest, ties to even (NaN stays NaN)
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
 }

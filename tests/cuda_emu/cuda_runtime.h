@@ -3,13 +3,15 @@
 // compiler and run the kernels on the CPU: each block runs as blockDim.x
 // std::threads sharing one barrier, blocks run one after another.
 // __shfl_xor_sync and __syncthreads_or become barrier exchanges, which is
-// valid because every kernel calls them with all threads of the block.
+// valid because every kernel calls them with all threads of the block; so
+// do the warp-level tensor-core helpers of csrc/tensor_core.cuh (ptx_emu.h).
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -19,7 +21,8 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 #define __restrict__
 #define __shared__ static
 struct dim3 {
@@ -33,9 +36,12 @@ inline thread_local std::barrier<>* emu_bar;
 inline thread_local float* emu_fslots;
 inline thread_local int* emu_islots;
 inline thread_local char* emu_dyn;
+inline thread_local uint32_t* emu_uslots;     // 6 words per thread
+inline thread_local const void** emu_pslots;  // 1 pointer per thread
 typedef int cudaError_t;
 const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
+const int cudaErrorMisalignedAddress = 716;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
@@ -61,6 +67,9 @@ inline int __syncthreads_or(int p) {
 inline float atomicAdd(float* a, float v) {
   return std::atomic_ref<float>(*a).fetch_add(v);
 }
+inline float2 atomicAdd(float2* a, float2 v) {
+  return {atomicAdd(&a->x, v.x), atomicAdd(&a->y, v.y)};
+}
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
 template <class F, class... Args>
 void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
@@ -70,6 +79,8 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
       std::vector<char> dyn(smem + 16);
       std::vector<float> fs(block.x);
       std::vector<int> is(block.x);
+      std::vector<uint32_t> us(6 * block.x);
+      std::vector<const void*> ps(block.x);
       std::barrier<> bar(block.x);
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < block.x; ++t)
@@ -82,8 +93,11 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
           emu_fslots = fs.data();
           emu_islots = is.data();
           emu_dyn = dyn.data();
+          emu_uslots = us.data();
+          emu_pslots = ps.data();
           kern(args...);
         });
       for (auto& th : ts) th.join();
     }
 }
+#include "ptx_emu.h"

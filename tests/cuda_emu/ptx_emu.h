@@ -1,0 +1,101 @@
+// Host versions of the PTX helpers in src/repro_torch/csrc/tensor_core.cuh
+// (test scaffolding: nvcc never sees this file).  A warp-level instruction
+// becomes a block-wide slot exchange: every thread posts its operands,
+// waits at the block barrier, reads its warp's operands back in the PTX
+// ISA's fragment layout and waits again before the slots are reused.  That
+// is valid because every kernel calls these helpers with all threads of
+// the block, the same number of times.  cp.async copies at once, so its
+// commit and wait are no-ops.
+#pragma once
+#define RT_HOST_EMULATION 1
+
+namespace rt {
+
+inline float emu_bf16(uint32_t w, int half) {
+  const uint32_t u = half ? (w & 0xffff0000u) : (w << 16);
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+inline unsigned emu_warp0() { return threadIdx.x & ~31u; }
+
+// d += A B: this lane's four D elements from the warp's A and B fragments
+inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                     uint32_t b1) {
+  uint32_t* mine = emu_uslots + 6 * threadIdx.x;
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* w = emu_uslots + 6 * emu_warp0();
+  float arow[2][16], bcol[2][16];  // A rows g, g+8; B columns 2t, 2t+1
+  for (unsigned tt = 0; tt < 4; ++tt) {
+    const uint32_t* f = w + 6 * (4 * g + tt);  // lane (g, tt) holds row g
+    for (int h = 0; h < 2; ++h) {
+      arow[0][2 * tt + h] = emu_bf16(f[0], h);
+      arow[1][2 * tt + h] = emu_bf16(f[1], h);
+      arow[0][2 * tt + 8 + h] = emu_bf16(f[2], h);
+      arow[1][2 * tt + 8 + h] = emu_bf16(f[3], h);
+    }
+  }
+  for (int c = 0; c < 2; ++c) {
+    const uint32_t* f = w + 6 * (4 * (2 * t + c));  // lanes of column n
+    for (unsigned tt = 0; tt < 4; ++tt, f += 6)
+      for (int h = 0; h < 2; ++h) {
+        bcol[c][2 * tt + h] = emu_bf16(f[4], h);
+        bcol[c][2 * tt + 8 + h] = emu_bf16(f[5], h);
+      }
+  }
+  __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) s += arow[i >> 1][k] * bcol[i & 1][k];
+    d[i] += s;
+  }
+}
+
+inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
+  emu_pslots[threadIdx.x] = p;
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const void* const* w = emu_pslots + emu_warp0();
+  for (int i = 0; i < 4; ++i) {
+    uint16_t e[2];
+    for (int h = 0; h < 2; ++h) {
+      const unsigned row = trans ? 2 * t + h : g, col = trans ? g : 2 * t + h;
+      e[h] = static_cast<const uint16_t*>(w[8 * i + row])[col];
+    }
+    r[i] = uint32_t(e[0]) | (uint32_t(e[1]) << 16);
+  }
+  __syncthreads();
+}
+
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, false);
+}
+
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, true);
+}
+
+inline void emu_cp(void* dst, const void* src, int n, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, n - src_bytes);
+}
+
+inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  emu_cp(dst, src, 16, src_bytes);
+}
+
+inline void cp_async4(void* dst, const void* src, int src_bytes) {
+  emu_cp(dst, src, 4, src_bytes);
+}
+
+inline void cp_async_commit() {}
+
+template <int N>
+inline void cp_async_wait() {}
+
+}  // namespace rt

@@ -52,6 +52,13 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     (2, 2, 96, 96, 64, True, 0, 0.0, torch.bfloat16),
     (2, 2, 200, 200, 128, True, 0, 0.0, torch.bfloat16),
     (2, 2, 150, 150, 256, True, 64, 50.0, torch.float32),
+    # bf16: the tensor-core kernels, one row per branch of their path
+    (4, 2, 32, 32, 16, False, 0, 0.0, torch.bfloat16),    # non-causal
+    (2, 2, 300, 300, 128, False, 0, 0.0, torch.bfloat16),
+    (2, 4, 130, 130, 32, True, 16, 30.0, torch.bfloat16),  # G 4, window, cap
+    (2, 2, 100, 180, 64, True, 40, 50.0, torch.bfloat16),  # Skv > Sq, kv_len
+    (1, 2, 150, 60, 32, True, 8, 0.0, torch.bfloat16),     # no valid key
+    (2, 2, 150, 150, 256, True, 64, 50.0, torch.bfloat16),  # hd 256
 ]
 
 
@@ -63,9 +70,11 @@ def test_flash_kernels_match_plain(cuda, case):
                for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
     kw = dict(group=G, causal=causal, window=window, softcap=cap,
               scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
-    n0 = FK.flash_fwd.launches
+    key = str(dt).removeprefix("torch.")
+    n0 = (FK.flash_fwd.launches, FK.flash_fwd.launches_by_dtype.get(key, 0))
     o, lse = FK.flash_fwd(q, k, v, **kw)
-    assert FK.flash_fwd.launches == n0 + 1
+    assert (FK.flash_fwd.launches,
+            FK.flash_fwd.launches_by_dtype[key]) == (n0[0] + 1, n0[1] + 1)
     o_p, lse_p = FK.flash_fwd_plain(q, k, v, **kw)
     _close(o, o_p, 1e-5)
     _close(lse, lse_p, 1e-5)

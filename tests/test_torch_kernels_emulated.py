@@ -1,13 +1,16 @@
 """The CUDA kernel sources compiled for the host and run on the CPU,
 against their plain versions.
 
-``src/repro_torch/csrc/*.cu`` use only portable CUDA C++ (no wgmma, TMA or
-inline PTX), so a C++20 host compiler with the stub headers in
-``tests/cuda_emu`` compiles them with two textual rewrites: the
+``src/repro_torch/csrc/*.cu`` are portable CUDA C++ apart from the PTX
+helpers of ``csrc/tensor_core.cuh`` (mma.sync, ldmatrix, cp.async), which
+``tests/cuda_emu/ptx_emu.h`` replaces with host versions that follow the
+PTX ISA's fragment layouts.  So a C++20 host compiler with the stub
+headers in ``tests/cuda_emu`` compiles them with two textual rewrites: the
 ``<<<...>>>`` launch becomes a call of the stub ``emu_launch``, and the
 dynamic ``extern __shared__`` array points at the stub's per-block
-buffer.  Each block runs as 256 threads.  This checks the kernels'
-indexing, masking, tile skipping, online statistics, chunking, atomics
+buffer.  Each block runs as its launch's threads.  This checks the
+kernels' indexing, masking, tile skipping, online statistics, chunking,
+atomics, the tensor-core fragment layouts of the bf16 attention kernels
 and the ragged edges of the SSD tiles here; the real compiler and the
 timings are checked on the card (``test_torch_kernels_cuda.py``,
 ``chip_smoke.py``).  Skips without g++.
@@ -32,6 +35,8 @@ from repro_torch.kernels.xent import kernel as XK
 
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
 LAUNCH = re.compile(r"([A-Za-z_][A-Za-z_0-9]*(?:<[^<>;()]*>)?)<<<(.*?)>>>\(")
+# extern __shared__ [__align__(n)] T name[];  ->  T* name = (T*)emu_dyn;
+SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -43,8 +48,7 @@ def lib(tmp_path_factory):
     sources = []
     for name in build.SOURCES:
         src = LAUNCH.sub(r"emu_launch(\1, \2, ", (build.CSRC / name).read_text())
-        src = src.replace("extern __shared__ float smem[];",
-                          "float* smem = (float*)emu_dyn;")
+        src = SHARED.sub(r"\1* \2 = (\1*)emu_dyn;", src)
         path = out / (name + ".cpp")
         path.write_text(src)
         sources.append(str(path))
@@ -71,6 +75,13 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     (1, 2, 96, 96, 64, True, 0, 0.0, torch.bfloat16),
     (1, 1, 70, 70, 128, True, 0, 0.0, torch.bfloat16),
     (1, 1, 40, 40, 256, True, 24, 50.0, torch.float32),
+    # bf16: the tensor-core kernels, one row per branch of their path
+    (4, 2, 32, 32, 16, False, 0, 0.0, torch.bfloat16),   # non-causal
+    (2, 4, 40, 40, 32, True, 16, 30.0, torch.bfloat16),  # G 4, window, cap
+    (2, 2, 40, 72, 16, True, 8, 50.0, torch.bfloat16),   # Skv > Sq, kv_len
+    (1, 1, 80, 24, 32, True, 8, 0.0, torch.bfloat16),    # no valid key
+    (1, 1, 40, 40, 256, True, 24, 50.0, torch.bfloat16),  # hd 256
+    (1, 2, 160, 160, 32, True, 0, 0.0, torch.bfloat16),  # unmasked tiles
 ]
 
 
