@@ -14,7 +14,8 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    case (hd 256, window, softcaps 50 / 30), a ragged bf16 attention case
    (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
    the main attention shape in fp32 (the CUDA-core instantiations that
-   the split step's fp32 pass runs) and a small odd SSD case; kernel,
+   the split step's fp32 pass runs) and a small odd SSD case (the fused
+   backward gets an fp32 dO, the split sweeps dO in q's dtype); kernel,
    plain and library times with CUDA events (attention: median of
    ``REPEATS`` timings after ``WARMUP`` calls, their range beside it).
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
@@ -34,7 +35,7 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    compute: the losses agree, in fp32 every gradient agrees within 1e-4
    of its scale, in bf16 split differs from fused by at most 3x as much
    as fused from itself, the two split runs give bit-identical gradients,
-   and ``flash_bwd_dq``/``flash_bwd_dkv`` launched.
+   and every attention kernel launched in both dtypes.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -47,9 +48,9 @@ accumulation in another order; dQ through atomics in the fused backward).
 
 Prints one line per phase, then the kernels' JSON line (``launches`` the
 sum over the three path runs of 5 and 6, ``launches_by_path`` each run's
-count; ``flash_fwd`` and ``flash_bwd_fused`` are the bf16 tensor-core
-kernels, ``*_fp32`` the fp32 CUDA-core ones behind the same wrappers,
-counted by dtype; the split sweeps count both dtypes), the card line and, last, ``{"ok": true, "device": {...}}``.
+count; the attention rows are the bf16 tensor-core kernels, ``*_fp32``
+the fp32 CUDA-core ones behind the same wrappers, counted by dtype), the
+card line and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.
 """
@@ -98,8 +99,12 @@ KERNELS = {
         "src/repro/kernels/flash_attention/kernel.py:407"),
     "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:201"),
+    "flash_bwd_dq_fp32": ("src/repro_torch/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention/kernel.py:201"),
     "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/kernel.py:257"),
+    "flash_bwd_dkv_fp32": ("src/repro_torch/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention/kernel.py:257"),
     "xent_fwd": ("src/repro_torch/csrc/xent.cu",
                  "src/repro/kernels/xent/kernel.py:107"),
     "xent_bwd": ("src/repro_torch/csrc/xent.cu",
@@ -112,10 +117,10 @@ WRAPPERS = {"flash_fwd": FK.flash_fwd, "flash_bwd_fused": FK.flash_bwd_fused,
             "xent_fwd": XK.xent_fwd, "xent_bwd": XK.xent_bwd,
             "ssd_intra": SK.ssd_intra_kernel}
 # rows whose wrapper launches a different kernel per dtype: (wrapper, dtype)
-BY_DTYPE = {"flash_fwd": ("flash_fwd", "bfloat16"),
-            "flash_fwd_fp32": ("flash_fwd", "float32"),
-            "flash_bwd_fused": ("flash_bwd_fused", "bfloat16"),
-            "flash_bwd_fused_fp32": ("flash_bwd_fused", "float32")}
+FA_BY_DTYPE = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+               "flash_bwd_dkv")
+BY_DTYPE = {**{name: (name, "bfloat16") for name in FA_BY_DTYPE},
+            **{f"{name}_fp32": (name, "float32") for name in FA_BY_DTYPE}}
 
 # The main paths: sequence length, learning rate, and the kernels each
 # must launch.  LR: the launcher's default 0.2 (momentum 0.9) diverges on
@@ -241,13 +246,19 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
            f"window{window} cap{cap}")
     errs = {"flash_fwd": check(f"flash_fwd {tag}", (o, lse), (o_p, lse_p),
                                1e-4)}
+    # the fused kernel takes an fp32 dO (its hi/lo split is checked); the
+    # split sweeps read dO in q's dtype, as ops.py hands it to them
     do = torch.randn(o.shape, generator=gen, device=dev)
-    delta = torch.sum(do * o_p, dim=-1)
-    bargs = (q, k, v, do, lse_p, delta)
-    bwd = {"flash_bwd_fused": (FK.flash_bwd_fused, FK.flash_bwd_fused_plain),
-           "flash_bwd_dq": (FK.flash_bwd_dq, FK.flash_bwd_dq_plain),
-           "flash_bwd_dkv": (FK.flash_bwd_dkv, FK.flash_bwd_dkv_plain)}
-    for name, (fn, plain) in bwd.items():
+    do_q = do.to(dtype)
+    fused_args = (q, k, v, do, lse_p, torch.sum(do * o_p, dim=-1))
+    split_args = (q, k, v, do_q, lse_p, torch.sum(do_q.float() * o_p, dim=-1))
+    bwd = {"flash_bwd_fused": (FK.flash_bwd_fused, FK.flash_bwd_fused_plain,
+                               fused_args),
+           "flash_bwd_dq": (FK.flash_bwd_dq, FK.flash_bwd_dq_plain,
+                            split_args),
+           "flash_bwd_dkv": (FK.flash_bwd_dkv, FK.flash_bwd_dkv_plain,
+                             split_args)}
+    for name, (fn, plain, bargs) in bwd.items():
         errs[name] = check(f"{name} {tag}", fn(*bargs, **kw),
                            plain(*bargs, **kw), 1e-4)
     if not library:
@@ -255,7 +266,11 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
     pairs = BH * _valid_pairs(S, S, True, window)
     isz = q.element_size()
     in_bytes = (BH + 2 * BKV) * S * hd * isz          # q, k, v
-    bwd_in = in_bytes + BH * S * (hd + 2) * 4         # + dO, lse, delta
+    lse_delta = BH * S * 2 * 4
+    # + dO as each kernel reads it (fp32 for fused, q's dtype for the sweeps)
+    bwd_in = {"flash_bwd_fused": in_bytes + BH * S * hd * 4 + lse_delta,
+              "flash_bwd_dq": in_bytes + BH * S * hd * isz + lse_delta,
+              "flash_bwd_dkv": in_bytes + BH * S * hd * isz + lse_delta}
     def timed(fn, plain, bound):
         (ms, ms_range), (plain_ms, _) = (time_median(f, iters)
                                          for f in (fn, plain))
@@ -271,10 +286,10 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
                  "flash_bwd_dq": BH * S * hd * 4,
                  "flash_bwd_dkv": 2 * BKV * S * hd * 4}
     products = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
-    for name, (fn, plain) in bwd.items():
+    for name, (fn, plain, bargs) in bwd.items():
         res[name] = timed(lambda: fn(*bargs, **kw),
                           lambda: plain(*bargs, **kw),
-                          bound_ms(bwd_in + out_bytes[name],
+                          bound_ms(bwd_in[name] + out_bytes[name],
                                    2 * products[name] * hd * pairs, dtype))
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
@@ -585,8 +600,7 @@ def split_backward(dev):
             raise AssertionError(f"{cfg.dtype} split grads differ from fused "
                                  f"beyond {BF16_SPREAD}x fused's own spread:"
                                  f" {r}")
-    for name in ("flash_fwd", "flash_fwd_fp32", "flash_bwd_fused",
-                 "flash_bwd_fused_fp32", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in BY_DTYPE:
         if launches[name] <= 0:
             raise AssertionError(f"split step never launched {name}")
     return launches
@@ -614,11 +628,11 @@ def main() -> int:
     # ragged S, rows past kv_len + window - 1 with no valid key
     fa_case(dev, 2, 300, 4, 2, 128, 64, 0.0, torch.bfloat16, 1,
             library=False, Skv=130, kv_len=120)
-    # the fp32 CUDA-core instantiations at the main shape (split step's
-    # fp32 pass); the split sweeps' rows stay those of the bf16 case
+    # the fp32 CUDA-core instantiations at the main shape (the split
+    # step's fp32 pass)
     res32 = fa_case(dev, 8, SEQ_LEN, 8, 2, 128, 0, 0.0, torch.float32,
                     ITERS_ATTENTION, library=True)
-    for name in ("flash_fwd", "flash_bwd_fused"):
+    for name in FA_BY_DTYPE:
         res[f"{name}_fp32"] = res32[name]
     cfg = registry.get_config("qwen3-1.7b")
     T = 8 * (SEQ_LEN - 1)

@@ -15,44 +15,50 @@
 //
 // Layouts (as the reference kernels): q, dout, dq (BH, Sq, hd) with
 // BH = B * Hkv * G, kv-major; k, v, dk, dv (BKV, Skv, hd).  o, lse, dq, dk,
-// dv, dout and delta are fp32; q, k, v are fp32 or bf16.
+// dv and delta are fp32; q, k, v are fp32 or bf16; dout is fp32 for the
+// fused backward and in q's dtype for the two sweeps.
 //
 // What bounds it on the H100: at the main path's shapes (S = 512, hd = 128)
 // attention does ~2*S*hd flops per loaded q/k/v element, so its floor is
 // the bf16 tensor cores' rate together with the bytes it must move (the
-// bytes bound is the larger at this shape).  Two designs, one per dtype:
+// bytes bound is the larger at this shape, for every kernel here, the two
+// sweeps too).  Two designs, one per dtype:
 //
-// bf16 q, k, v (the main path): the forward and the fused backward run on
-// the tensor cores (fa_fwd_tc_kernel, fa_bwd_tc_kernel; tensor_core.cuh):
-// warp-level mma.sync m16n8k16 bf16 -> fp32 with operands read from
-// shared memory by ldmatrix (.trans for V, dO, Q and K where they are B
-// operands along their rows, and for dS^T as dQ's A operand); tiles kept
-// in shared memory as bf16 in rows padded by 16 B so that ldmatrix has no
-// bank conflicts; the next K/V tile (forward) or Q/dO/lse/delta tile
-// (backward) copied by cp.async into a second stage while the current one
-// computes.  Products of two bf16 operands are exact in fp32, so
-// S = Q K^T takes one pass and is scaled afterwards.  P, dS and dO are
-// fp32; each is split into hi = bf16(x) and lo = bf16(x - hi) (residual
+// bf16 q, k, v (the main path): every kernel runs on the tensor cores
+// (fa_fwd_tc_kernel, fa_bwd_tc_kernel, fa_bwd_dq_tc_kernel;
+// tensor_core.cuh): warp-level mma.sync m16n8k16 bf16 -> fp32 with
+// operands read from shared memory by ldmatrix (.trans for V, dO, Q and K
+// where they are B operands along their rows, and for dS^T as dQ's A
+// operand); tiles kept in shared memory as bf16 in rows padded by 16 B so
+// that ldmatrix has no bank conflicts; the next K/V tile (forward, dQ
+// sweep) or Q/dO/lse/delta tile (fused backward, dK/dV sweep) copied by
+// cp.async into a second stage while the current one computes.  Products
+// of two bf16 operands are exact in fp32, so S = Q K^T takes one pass and
+// is scaled afterwards.  P and dS are fp32, and so is the fused kernel's
+// dO; each is split into hi = bf16(x) and lo = bf16(x - hi) (residual
 // <= 2^-17 |x|) and every product over them sums its passes into one fp32
-// fragment: O += P V 2 passes, dP = dO V^T 2, dV += P^T dO 3 (hi.hi,
-// hi.lo, lo.hi), dK += dS^T Q 2, dQ += dS K 2.  That keeps the kernels
-// within the fp32 reference's 1e-4 checks, which one bf16 rounding of P
-// (~2^-9) would not.  P and dS^T stay in registers from the score product
-// to the next product (the C fragment of two n-tiles is the A fragment of
-// one k-step); dS^T goes through shared memory once, for dQ.
+// fragment.  Fused: O += P V 2 passes, dP = dO V^T 2, dV += P^T dO 3
+// (hi.hi, hi.lo, lo.hi), dK += dS^T Q 2, dQ += dS K 2.  The sweeps read dO
+// in bf16 (on the training path it is the grad of a bf16 output, so an
+// fp32 copy would carry a zero lo half): dQ sweep S 1, dP 1, dQ += dS K 2;
+// dK/dV sweep S^T 1, dP^T 1, dV += P^T dO 2, dK += dS^T Q 2.  That keeps
+// the kernels within the fp32 reference's 1e-4 checks, which one bf16
+// rounding of P (~2^-9) would not.  P, dS (and their transposes) stay in
+// registers from the score product to the next product (the C fragment
+// of two n-tiles is the A fragment of one k-step); the fused kernel's
+// dS^T goes through shared memory once, for dQ.
 //
-// fp32 q, k, v, and the two sweeps of the split backward in both dtypes:
-// every product with fp32 FMAs on the CUDA cores (no tensor cores; TF32
-// would miss the fp32 checks).  Tiles of Q/K/V/dO live in shared memory
-// (converted to fp32 once per tile load), each thread owns a 16 x
-// 16-strided block of every tile product, and rows of padded stride hd + 1
-// keep the shared-memory walks bank-conflict free.
+// fp32 q, k, v: every product with fp32 FMAs on the CUDA cores (no tensor
+// cores; TF32 would miss the fp32 checks).  Tiles of Q/K/V/dO live in
+// shared memory (converted to fp32 once per tile load), each thread owns a
+// 16 x 16-strided block of every tile product, and rows of padded stride
+// hd + 1 keep the shared-memory walks bank-conflict free.
 //
 // Both skip kv tiles that the mask removes entirely (causal upper
 // triangle, outside the window, past kv_len), which the TPU's sequential
 // grid could not do.  The bf16 kernels order their grids so that the
 // heaviest CTAs under the causal mask start first (last q tiles in the
-// forward, first kv tiles in the backward).
+// forward and the dQ sweep, first kv tiles in the backward).
 //
 // Forward: one CTA per (bh, q tile); the kv loop runs inside the CTA with
 // (m, l, acc) in registers.  A q tile holding a row with no valid key at all
@@ -72,11 +78,14 @@
 // bits (the summation order of the nk adds).
 //
 // Two-sweep backward, deterministic: the dK/dV sweep is the fused kernel
-// without its dQ atomics (kDQ = false); the dQ sweep runs one CTA per
-// (bh, q tile) that loops over the kv tiles the mask leaves, recomputes P
-// and dS for each, keeps dQ in registers and writes it once.  Neither sweep
-// has atomics, so both give bit-identical results run to run, at the price
-// of recomputing P (and dP) twice.
+// without its dQ (kDQ = false; for bf16 also without the dS^T tiles, and
+// with dO read as it is); the dQ sweep runs one CTA per (bh, q tile) that
+// loops over the kv tiles the mask leaves, recomputes P and dS for each,
+// keeps dQ in registers and writes it once.  Neither sweep has atomics, so
+// both give bit-identical results run to run, at the price of recomputing
+// P (and dP) twice.  In the backward a masked P is exactly zero, so
+// skipping a fully masked tile is exact for every row, rows with no valid
+// key included.
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
@@ -528,8 +537,9 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels: the forward and the fused backward for
-// T = __nv_bfloat16 (see the note at the head of the file)
+// bf16 tensor-core kernels: the forward, the fused backward and the two
+// sweeps of the split backward for T = __nv_bfloat16 (see the note at the
+// head of the file)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -778,33 +788,44 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Fused backward tiling: each warp owns 16 keys of the kv tile and
+// Backward tiling, one CTA per (bkv, kv tile) looping over the group's G
+// heads and all q tiles: each warp owns 16 keys of the kv tile and
 // HD / NSPLIT columns of dK and dV (at hd 256 two warps share 16 keys and
-// both compute their S^T and dP^T).  For dQ = dS K the same warps split
-// the BQ x HD tile into 16-row blocks x DQW columns.
+// both compute their S^T and dP^T).  For dQ = dS K (the fused backward)
+// the same warps split the BQ x HD tile into 16-row blocks x DQW columns.
 template <int HD> struct TcBwd {
   static constexpr int NSPLIT = HD > 128 ? 2 : 1;
   static constexpr int BK = 64, BQ = HD > 64 ? 32 : 64;
   static constexpr int WARPS = BK / 16 * NSPLIT, THREADS = 32 * WARPS;
   static constexpr int DQW = HD / (WARPS / (BQ / 16));
   static constexpr int LD = HD + 8, LDS = BQ + 8;  // padded bf16 rows
-  // bf16: K, V, two stages of Q, dO hi, dO lo, dS^T hi, dS^T lo; fp32:
-  // the dO staging tile, two stages of (lse, delta)
-  static constexpr size_t SMEM =
-      (size_t)(2 * BK * LD + 4 * BQ * LD + 2 * BK * LDS) * sizeof(bf16) +
-      (size_t)(BQ * HD + 4 * BQ) * sizeof(float);
+  // bf16: K, V, two stages of Q, two dO tiles (hi and lo of an fp32 dO,
+  // or two stages of a bf16 one) and, with dQ, dS^T hi and lo; fp32: the
+  // staging tile of an fp32 dO, two stages of (lse, delta)
+  template <typename TO, bool kDQ>
+  static constexpr size_t smem() {
+    return (size_t)(2 * BK * LD + 4 * BQ * LD + (kDQ ? 2 * BK * LDS : 0)) *
+               sizeof(bf16) +
+           (size_t)((std::is_same_v<TO, float> ? BQ * HD : 0) + 4 * BQ) *
+               sizeof(float);
+  }
 };
 
-template <int HD>
+// TO float, kDQ: the fused backward (fp32 dO split into hi + lo, dQ by
+// atomics).  TO bf16, !kDQ: the dK/dV sweep of the two-sweep backward (dO
+// read as it is; no dS^T tiles, no dQ).
+template <int HD, typename TO, bool kDQ>
 __global__ void __launch_bounds__(TcBwd<HD>::THREADS)
 fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ dout,
+                 const bf16* __restrict__ v, const TO* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
                  float* __restrict__ dk, float* __restrict__ dv, int Sq,
                  int Skv, int group, int causal, int window, float softcap,
                  float scale, int kv_len) {
   using C = TcBwd<HD>;
+  constexpr bool kSplitO = std::is_same_v<TO, float>;
+  static_assert(kSplitO || std::is_same_v<TO, bf16>, "dO is fp32 or bf16");
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS;
   constexpr int NT = C::THREADS, DW = HD / C::NSPLIT, DQW = C::DQW;
   constexpr int NS = BQ / 8, NO = DW / 8, NQ = DQW / 8;
@@ -812,12 +833,14 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sK = smem_bf;             // BK x LD
   bf16* sV = sK + BK * LD;        // BK x LD
   bf16* sQ = sV + BK * LD;        // 2 stages of BQ x LD
-  bf16* sOh = sQ + 2 * BQ * LD;   // dO hi, BQ x LD
-  bf16* sOl = sOh + BQ * LD;      // dO lo
-  bf16* sSh = sOl + BQ * LD;      // dS^T hi, BK x LDS
-  bf16* sSl = sSh + BK * LDS;     // dS^T lo
-  float* sOf = reinterpret_cast<float*>(sSl + BK * LDS);  // dO, BQ x HD
-  float* sLD = sOf + BQ * HD;     // stage s: lse at 2 s BQ, delta after it
+  bf16* sOh = sQ + 2 * BQ * LD;   // dO hi (fp32 dO) or dO stage 0, BQ x LD
+  bf16* sOl = sOh + BQ * LD;      // dO lo (fp32 dO) or dO stage 1
+  bf16* sSh = sOl + BQ * LD;      // dS^T hi, BK x LDS (with dQ)
+  bf16* sSl = sSh + (kDQ ? BK * LDS : 0);  // dS^T lo
+  // dO, BQ x HD (fp32 dO)
+  float* sOf = reinterpret_cast<float*>(sSl + (kDQ ? BK * LDS : 0));
+  // stage s: lse at 2 s BQ, delta after it
+  float* sLD = sOf + (kSplitO ? BQ * HD : 0);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -845,12 +868,16 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = u % nq * BQ;
     tc_load_rows<BQ, HD, LD, NT>(sQ + stage * BQ * LD, q + bh * Sq * HD, q0,
                                  Sq);
-    const float* og = dout + bh * Sq * HD;
-    for (int e = threadIdx.x; e < BQ * HD / 4; e += NT) {
-      const int r = e / (HD / 4), c = e % (HD / 4) * 4;
-      const bool in = q0 + r < Sq;
-      rt::cp_async16(sOf + r * HD + c, og + (size_t)(in ? q0 + r : 0) * HD + c,
-                     in ? 16 : 0);
+    const TO* og = dout + bh * Sq * HD;
+    if constexpr (kSplitO) {
+      for (int e = threadIdx.x; e < BQ * HD / 4; e += NT) {
+        const int r = e / (HD / 4), c = e % (HD / 4) * 4;
+        const bool in = q0 + r < Sq;
+        rt::cp_async16(sOf + r * HD + c,
+                       og + (size_t)(in ? q0 + r : 0) * HD + c, in ? 16 : 0);
+      }
+    } else {
+      tc_load_rows<BQ, HD, LD, NT>(sOh + stage * BQ * LD, og, q0, Sq);
     }
     float* sl = sLD + stage * 2 * BQ;
     for (int e = threadIdx.x; e < 2 * BQ; e += NT) {
@@ -875,26 +902,36 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t bh = (size_t)bkv * group + u / nq;
     const int q0 = u % nq * BQ;
     rt::cp_async_wait<0>();
-    __syncthreads();  // this item's tiles landed; the last item is done
-    // dO (fp32) -> dO hi + dO lo (bf16)
-    for (int e = threadIdx.x; e < BQ * HD / 2; e += NT) {
-      const int r = e / (HD / 2), c = e % (HD / 2) * 2;
-      uint32_t hi, lo;
-      rt::split_bf16x2(sOf[r * HD + c], sOf[r * HD + c + 1], hi, lo);
-      *reinterpret_cast<uint32_t*>(sOh + r * LD + c) = hi;
-      *reinterpret_cast<uint32_t*>(sOl + r * LD + c) = lo;
+    if constexpr (kSplitO) {
+      __syncthreads();  // this item's tiles landed; the last item is done
+      // dO (fp32) -> dO hi + dO lo (bf16)
+      for (int e = threadIdx.x; e < BQ * HD / 2; e += NT) {
+        const int r = e / (HD / 2), c = e % (HD / 2) * 2;
+        uint32_t hi, lo;
+        rt::split_bf16x2(sOf[r * HD + c], sOf[r * HD + c + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(sOh + r * LD + c) = hi;
+        *reinterpret_cast<uint32_t*>(sOl + r * LD + c) = lo;
+      }
+      for (int e = threadIdx.x; e < BQ; e += NT)
+        sLD[stage * 2 * BQ + e] *= kLog2e;
+      __syncthreads();  // dO hi/lo and lse * log2(e) ready, the staging free
+    } else {
+      // each thread scales the lse entries it copied itself (its wait made
+      // them visible to it), so one barrier serves
+      for (int e = threadIdx.x; e < BQ; e += NT)
+        sLD[stage * 2 * BQ + e] *= kLog2e;
+      __syncthreads();  // this item's tiles landed; the last item is done
     }
-    for (int e = threadIdx.x; e < BQ; e += NT) sLD[stage * 2 * BQ + e] *= kLog2e;
-    __syncthreads();  // dO hi/lo and lse * log2(e) ready, the staging free
     const int un = next_item(u + 1);
     if (un < nu) load_q(un, stage ^ 1);  // lands while this item computes
     rt::cp_async_commit();
     const bf16* sQs = sQ + stage * BQ * LD;
+    const bf16* sOs = sOh + stage * BQ * LD;  // bf16 dO
     const float* sL = sLD + stage * 2 * BQ;
     const float* sD = sL + BQ;
 
-    // S^T = K Q^T (one pass) and dP^T = V dO^T (dO hi and lo) for the
-    // warp's 16 keys x BQ queries
+    // S^T = K Q^T (one pass) and dP^T = V dO^T (dO hi and lo, or the bf16
+    // dO in one pass) for the warp's 16 keys x BQ queries
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -908,16 +945,26 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         const int off = tc_bnk_off(n * 8, kk * 16, LD);
-        uint32_t bq[4], bh_[4], bl[4];
+        uint32_t bq[4];
         rt::ldmatrix_x4(bq, sQs + off);
-        rt::ldmatrix_x4(bh_, sOh + off);
-        rt::ldmatrix_x4(bl, sOl + off);
-        rt::mma_bf16(s[n], ak, bq[0], bq[1]);
-        rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
-        rt::mma_bf16(dp[n], av, bh_[0], bh_[1]);
-        rt::mma_bf16(dp[n], av, bl[0], bl[1]);
-        rt::mma_bf16(dp[n + 1], av, bh_[2], bh_[3]);
-        rt::mma_bf16(dp[n + 1], av, bl[2], bl[3]);
+        if constexpr (kSplitO) {
+          uint32_t bh_[4], bl[4];
+          rt::ldmatrix_x4(bh_, sOh + off);
+          rt::ldmatrix_x4(bl, sOl + off);
+          rt::mma_bf16(s[n], ak, bq[0], bq[1]);
+          rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
+          rt::mma_bf16(dp[n], av, bh_[0], bh_[1]);
+          rt::mma_bf16(dp[n], av, bl[0], bl[1]);
+          rt::mma_bf16(dp[n + 1], av, bh_[2], bh_[3]);
+          rt::mma_bf16(dp[n + 1], av, bl[2], bl[3]);
+        } else {
+          uint32_t bo[4];
+          rt::ldmatrix_x4(bo, sOs + off);
+          rt::mma_bf16(s[n], ak, bq[0], bq[1]);
+          rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
+          rt::mma_bf16(dp[n], av, bo[0], bo[1]);
+          rt::mma_bf16(dp[n + 1], av, bo[2], bo[3]);
+        }
       }
     }
     // P^T into s, dS^T into dp (exponentials in base 2: sL holds lse
@@ -948,14 +995,14 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[n][e] = p * (dp[n][e] - sD[qc]) * chain * scale;
       }
 
-    // dV += P^T dO (hi.hi, hi.lo, lo.hi); dK += dS^T Q (dS hi, lo); dS^T
-    // hi/lo to shared memory for dQ
+    // dV += P^T dO (fp32 dO: hi.hi, hi.lo, lo.hi; bf16 dO: P hi, P lo);
+    // dK += dS^T Q (dS hi, lo); with dQ, dS^T hi/lo to shared memory
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
       tc_c_to_a(s, kk, ph, pl);
       tc_c_to_a(dp, kk, sh, sl);
-      if (d0 == 0) {
+      if (kDQ && d0 == 0) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int off = (kr + g + 8 * (i & 1)) * LDS + kk * 16 +
@@ -967,55 +1014,73 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         const int off = tc_bkn_off(kk * 16, d0 + n * 8, LD);
-        uint32_t oh[4], ol[4], bq[4];
-        rt::ldmatrix_x4_trans(oh, sOh + off);
-        rt::ldmatrix_x4_trans(ol, sOl + off);
-        rt::ldmatrix_x4_trans(bq, sQs + off);
+        if constexpr (kSplitO) {
+          uint32_t oh[4], ol[4], bq[4];
+          rt::ldmatrix_x4_trans(oh, sOh + off);
+          rt::ldmatrix_x4_trans(ol, sOl + off);
+          rt::ldmatrix_x4_trans(bq, sQs + off);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float(&dvn)[4] = dv_acc[n + h];
-          float(&dkn)[4] = dk_acc[n + h];
-          rt::mma_bf16(dvn, ph, oh[2 * h], oh[2 * h + 1]);
-          rt::mma_bf16(dvn, ph, ol[2 * h], ol[2 * h + 1]);
-          rt::mma_bf16(dvn, pl, oh[2 * h], oh[2 * h + 1]);
-          rt::mma_bf16(dkn, sh, bq[2 * h], bq[2 * h + 1]);
-          rt::mma_bf16(dkn, sl, bq[2 * h], bq[2 * h + 1]);
+          for (int h = 0; h < 2; ++h) {
+            float(&dvn)[4] = dv_acc[n + h];
+            float(&dkn)[4] = dk_acc[n + h];
+            rt::mma_bf16(dvn, ph, oh[2 * h], oh[2 * h + 1]);
+            rt::mma_bf16(dvn, ph, ol[2 * h], ol[2 * h + 1]);
+            rt::mma_bf16(dvn, pl, oh[2 * h], oh[2 * h + 1]);
+            rt::mma_bf16(dkn, sh, bq[2 * h], bq[2 * h + 1]);
+            rt::mma_bf16(dkn, sl, bq[2 * h], bq[2 * h + 1]);
+          }
+        } else {
+          uint32_t bo[4], bq[4];
+          rt::ldmatrix_x4_trans(bo, sOs + off);
+          rt::ldmatrix_x4_trans(bq, sQs + off);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float(&dvn)[4] = dv_acc[n + h];
+            float(&dkn)[4] = dk_acc[n + h];
+            rt::mma_bf16(dvn, ph, bo[2 * h], bo[2 * h + 1]);
+            rt::mma_bf16(dvn, pl, bo[2 * h], bo[2 * h + 1]);
+            rt::mma_bf16(dkn, sh, bq[2 * h], bq[2 * h + 1]);
+            rt::mma_bf16(dkn, sl, bq[2 * h], bq[2 * h + 1]);
+          }
         }
       }
     }
-    __syncthreads();  // dS^T complete
 
-    // dQ += dS K for the warp's 16 q rows x DQW columns, summed across the
-    // kv-tile CTAs with fp32 atomics
-    float dqa[NQ][4];
+    if constexpr (kDQ) {
+      __syncthreads();  // dS^T complete
+
+      // dQ += dS K for the warp's 16 q rows x DQW columns, summed across
+      // the kv-tile CTAs with fp32 atomics
+      float dqa[NQ][4];
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+      for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      rt::ldmatrix_x4_trans(ah, sSh + tc_akm_off(kk * 16, qr, LDS));
-      rt::ldmatrix_x4_trans(al, sSl + tc_akm_off(kk * 16, qr, LDS));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t ah[4], al[4];
+        rt::ldmatrix_x4_trans(ah, sSh + tc_akm_off(kk * 16, qr, LDS));
+        rt::ldmatrix_x4_trans(al, sSl + tc_akm_off(kk * 16, qr, LDS));
 #pragma unroll
-      for (int n = 0; n < NQ; n += 2) {
-        uint32_t b[4];
-        rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, dq0 + n * 8, LD));
-        rt::mma_bf16(dqa[n], ah, b[0], b[1]);
-        rt::mma_bf16(dqa[n], al, b[0], b[1]);
-        rt::mma_bf16(dqa[n + 1], ah, b[2], b[3]);
-        rt::mma_bf16(dqa[n + 1], al, b[2], b[3]);
+        for (int n = 0; n < NQ; n += 2) {
+          uint32_t b[4];
+          rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, dq0 + n * 8, LD));
+          rt::mma_bf16(dqa[n], ah, b[0], b[1]);
+          rt::mma_bf16(dqa[n], al, b[0], b[1]);
+          rt::mma_bf16(dqa[n + 1], ah, b[2], b[3]);
+          rt::mma_bf16(dqa[n + 1], al, b[2], b[3]);
+        }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + qr + g + 8 * r;
-      if (row < Sq) {
-        float* dqg = dq + (bh * Sq + row) * HD + dq0;
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + qr + g + 8 * r;
+        if (row < Sq) {
+          float* dqg = dq + (bh * Sq + row) * HD + dq0;
 #pragma unroll
-        for (int n = 0; n < NQ; ++n)  // sm_90: one vector atomic a pair
-          atomicAdd(reinterpret_cast<float2*>(dqg + n * 8 + 2 * t),
-                    make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]));
+          for (int n = 0; n < NQ; ++n)  // sm_90: one vector atomic a pair
+            atomicAdd(reinterpret_cast<float2*>(dqg + n * 8 + 2 * t),
+                      make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]));
+        }
       }
     }
     stage ^= 1;
@@ -1036,6 +1101,181 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<float2*>(dvg + n * 8 + 2 * t) =
             make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
       }
+    }
+  }
+}
+
+// dQ sweep tiling: the forward's (each warp owns 16 q rows and HD / NSPLIT
+// columns of dQ; at hd 256 two warps share a row block and both compute
+// its S and dP).
+template <int HD> struct TcDq : TcFwd<HD> {
+  using TcFwd<HD>::BQ, TcFwd<HD>::BK, TcFwd<HD>::LD;
+  // Q, dO, then two stages of (K, V)
+  static constexpr size_t SMEM = (size_t)(2 * BQ + 4 * BK) * LD * sizeof(bf16);
+};
+
+// dQ sweep of the two-sweep backward for bf16 q, k, v, dO: one CTA per
+// (bh, q tile) keeps Q and dO in shared memory and dQ in registers, streams
+// the kv tiles that the mask leaves through two cp.async stages, and writes
+// dQ once (no atomics).  Per kv tile: S = Q K^T and dP = dO V^T in one pass
+// each, P and dS in registers, dQ += dS K in two (dS hi, lo).  A masked P is
+// exactly zero here, so skipping fully masked tiles is exact for every row.
+template <int HD>
+__global__ void __launch_bounds__(TcDq<HD>::THREADS)
+fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Sq, int Skv, int group, int causal, int window,
+                    float softcap, float scale, int kv_len) {
+  using C = TcDq<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NT = C::THREADS;
+  constexpr int DW = HD / C::NSPLIT;       // dQ columns per warp
+  constexpr int NS = BK / 8, NO = DW / 8;  // n-tiles of S and of dQ
+  extern __shared__ __align__(16) bf16 smem_bf[];
+  bf16* sQ = smem_bf;         // BQ x LD
+  bf16* sO = sQ + BQ * LD;    // dO, BQ x LD
+  bf16* sKV = sO + BQ * LD;   // stage s: K at 2 s BK LD, V after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rb = warp % (BQ / 16) * 16, d0 = warp / (BQ / 16) * DW;
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int qb = min(q0 + BQ, Sq) - 1;
+  const bf16* kg = k + (bh / group) * Skv * HD;
+  const bf16* vg = v + (bh / group) * Skv * HD;
+
+  tc_load_rows<BQ, HD, LD, NT>(sQ, q + bh * Sq * HD, q0, Sq);
+  tc_load_rows<BQ, HD, LD, NT>(sO, dout + bh * Sq * HD, q0, Sq);
+  // lse (times log2(e)) and delta of the thread's rows g and g + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rb + g + 8 * r;
+    const bool in = row < Sq;
+    lse2[r] = in ? lse[bh * Sq + row] * kLog2e : 0.f;
+    dlt[r] = in ? delta[bh * Sq + row] : 0.f;
+  }
+  const int nk = (Skv + BK - 1) / BK;
+  auto next_tile = [&](int j) {  // first kv tile >= j that the mask leaves
+    for (; j < nk; ++j)
+      if (!fa_tile_masked(q0, qb, j * BK, min(j * BK + BK, Skv) - 1, causal,
+                          window, kv_len))
+        break;
+    return j;
+  };
+  auto load_kv = [&](int j, int stage) {
+    bf16* sK = sKV + stage * 2 * BK * LD;
+    tc_load_rows<BK, HD, LD, NT>(sK, kg, j * BK, Skv);
+    tc_load_rows<BK, HD, LD, NT>(sK + BK * LD, vg, j * BK, Skv);
+  };
+
+  const float scale2 = scale * kLog2e;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int j = next_tile(0), stage = 0;
+  if (j < nk) load_kv(j, 0);
+  rt::cp_async_commit();
+  while (j < nk) {
+    const int jn = next_tile(j + 1);
+    if (jn < nk) {
+      load_kv(jn, stage ^ 1);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();
+    } else {
+      rt::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and Q, dO) landed for every thread
+    const bf16* sK = sKV + stage * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+
+    // S = Q K^T and dP = dO V^T: bf16 products are exact in fp32, one pass
+    // each
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      rt::ldmatrix_x4(aq, sQ + tc_a_off(rb, kk * 16, LD));
+      rt::ldmatrix_x4(ao, sO + tc_a_off(rb, kk * 16, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        const int off = tc_bnk_off(n * 8, kk * 16, LD);
+        uint32_t bk[4], bv[4];
+        rt::ldmatrix_x4(bk, sK + off);
+        rt::ldmatrix_x4(bv, sV + off);
+        rt::mma_bf16(s[n], aq, bk[0], bk[1]);
+        rt::mma_bf16(s[n + 1], aq, bk[2], bk[3]);
+        rt::mma_bf16(dp[n], ao, bv[0], bv[1]);
+        rt::mma_bf16(dp[n + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS into dp: P in base 2 (lse2 holds lse times log2(e)), exact zeros
+    // where masked
+    const int k0 = j * BK;
+    const bool whole = tc_tile_whole(q0, qb, k0, k0 + BK - 1, Skv, causal,
+                                     window, kv_len);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x2, chain = 1.f;
+        if (softcap != 0.f) {
+          const float x = tanhf(s[n][e] * scale / softcap) * softcap;
+          const float uu = x / softcap;
+          chain = 1.f - uu * uu;  // d softcap / d s_raw
+          x2 = x * kLog2e - lse2[r];
+        } else {
+          x2 = fmaf(s[n][e], scale2, -lse2[r]);
+        }
+        float p = exp2f(x2);
+        if (!whole) {  // uniform over the block
+          const int qp = q0 + rb + g + 8 * r;
+          const int kp = k0 + n * 8 + 2 * t + (e & 1);
+          if (!fa_keep(qp, kp, causal, window, kv_len)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[r]) * chain * scale;
+      }
+
+    // dQ += dS K with dS = dS hi + dS lo (two passes; K is exact bf16)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      tc_c_to_a(dp, kk, sh, sl);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+        rt::mma_bf16(acc[n], sh, b[0], b[1]);
+        rt::mma_bf16(acc[n], sl, b[0], b[1]);
+        rt::mma_bf16(acc[n + 1], sh, b[2], b[3]);
+        rt::mma_bf16(acc[n + 1], sl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its reload
+    stage ^= 1;
+    j = jn;
+  }
+  rt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rb + g + 8 * r;
+    if (row < Sq) {
+      float* dqg = dq + (bh * Sq + row) * HD + d0;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(dqg + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
@@ -1091,9 +1331,40 @@ enum BwdKind { kFused, kDq, kDkv };
 
 template <typename T, int HD, BwdKind KIND>
 cudaError_t launch_bwd(const FaArgs& a) {
-  constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
   cudaError_t err;
-  if constexpr (KIND == kDq) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!tc_aligned({a.q, a.k, a.v, a.dout})) return cudaErrorMisalignedAddress;
+    if constexpr (KIND == kDq) {
+      using C = TcDq<HD>;
+      err = cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)C::SMEM);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
+      fa_bwd_dq_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+          (const bf16*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
+          (float*)a.dq, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
+          a.scale, a.kv_len);
+    } else {
+      // the fused backward reads dO in fp32, the dK/dV sweep in bf16
+      constexpr bool kDQ = KIND == kFused;
+      using TO = std::conditional_t<kDQ, float, bf16>;
+      using C = TcBwd<HD>;
+      constexpr size_t smem = C::template smem<TO, kDQ>();
+      err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD, TO, kDQ>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
+      fa_bwd_tc_kernel<HD, TO, kDQ><<<grid, C::THREADS, smem, a.stream>>>(
+          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+          (const TO*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
+          (float*)a.dq, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group,
+          a.causal, a.window, a.softcap, a.scale, a.kv_len);
+    }
+  } else if constexpr (KIND == kDq) {
+    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
     const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +
                          (size_t)BQ * (BK + 1) + 2 * BQ) * sizeof(float);
     err = cudaFuncSetAttribute(fa_bwd_dq_kernel<T, HD>,
@@ -1105,21 +1376,8 @@ cudaError_t launch_bwd(const FaArgs& a) {
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
         (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq, a.Sq,
         a.Skv, a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
-  } else if constexpr (KIND == kFused &&
-                       std::is_same_v<T, __nv_bfloat16>) {
-    using C = TcBwd<HD>;
-    if (!tc_aligned({a.q, a.k, a.v, a.dout})) return cudaErrorMisalignedAddress;
-    err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::SMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
-    fa_bwd_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const float*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
-        (float*)a.dq, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group,
-        a.causal, a.window, a.softcap, a.scale, a.kv_len);
   } else {
+    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
     constexpr bool kDQ = KIND == kFused;
     const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +
                          (size_t)2 * BQ * (BK + 1) + 2 * BQ) * sizeof(float);

@@ -13,11 +13,12 @@ follows the reference kernels' semantics exactly (``-1e30`` mask sentinel,
 
 Layouts, as the reference kernels: q, o, dq (BH, Sq, hd) with
 BH = B * Hkv * G kv-major (``bh // G`` is the kv head); k, v, dk, dv
-(BKV, Skv, hd).  Outputs are fp32.  Each wrapper carries ``launches``, the
+(BKV, Skv, hd).  Outputs are fp32.  The fused backward reads dO in fp32;
+the two sweeps read it in q's dtype and raise ``TypeError`` on another
+(the plain versions take either).  Each wrapper carries ``launches``, the
 number of kernel launches it made, and ``launches_by_dtype``, the same
-count split by q's dtype (``"bfloat16"``, ``"float32"``): the forward and
-the fused backward launch a tensor-core kernel for bf16 and a CUDA-core
-kernel for fp32.
+count split by q's dtype (``"bfloat16"``, ``"float32"``): every wrapper
+launches a tensor-core kernel for bf16 and a CUDA-core kernel for fp32.
 """
 
 from __future__ import annotations
@@ -143,9 +144,20 @@ def _launch_fwd(lib, stream, q, k, v, *, group, causal, window, softcap,
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
+    """The fused backward's operands: dO in fp32 (a bf16 q splits it into
+    hi + lo)."""
     return (q.contiguous(), k.contiguous(), v.contiguous(),
             do.float().contiguous(), lse.float().contiguous(),
             delta.float().contiguous())
+
+
+def _split_operands(q, k, v, do, lse, delta):
+    """The split sweeps' operands: dO in q's dtype, never rounded here."""
+    if do.dtype != q.dtype:
+        raise TypeError(f"split backward: dO must be in q's dtype {q.dtype}, "
+                        f"got {do.dtype}")
+    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+            lse.float().contiguous(), delta.float().contiguous())
 
 
 def _bwd_scalars(q, k, *, group, causal, window, softcap, scale, kv_len):
@@ -166,7 +178,7 @@ def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
 
 
 def _launch_bwd_dq(lib, stream, q, k, v, do, lse, delta, **kw):
-    ops = _bwd_operands(q, k, v, do, lse, delta)
+    ops = _split_operands(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = lib.rt_flash_bwd_dq(*(t.data_ptr() for t in ops + (dq,)),
                               *_bwd_scalars(q, k, **kw), stream)
@@ -175,7 +187,7 @@ def _launch_bwd_dq(lib, stream, q, k, v, do, lse, delta, **kw):
 
 
 def _launch_bwd_dkv(lib, stream, q, k, v, do, lse, delta, **kw):
-    ops = _bwd_operands(q, k, v, do, lse, delta)
+    ops = _split_operands(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     err = lib.rt_flash_bwd_dkv(*(t.data_ptr() for t in ops + (dk, dv)),
@@ -240,9 +252,9 @@ flash_bwd_fused = _bwd_wrapper(
     (BKV, Skv, hd).""")
 flash_bwd_dq = _bwd_wrapper(
     "flash_bwd_dq", flash_bwd_dq_plain, _launch_bwd_dq,
-    """dQ sweep of the two-sweep backward (P recomputed; no atomics).
-    Returns fp32 dq (BH, Sq, hd).""")
+    """dQ sweep of the two-sweep backward (P recomputed; no atomics); dO in
+    q's dtype.  Returns fp32 dq (BH, Sq, hd).""")
 flash_bwd_dkv = _bwd_wrapper(
     "flash_bwd_dkv", flash_bwd_dkv_plain, _launch_bwd_dkv,
-    """dK/dV sweep of the two-sweep backward (P recomputed; no atomics).
-    Returns fp32 dk, dv (BKV, Skv, hd).""")
+    """dK/dV sweep of the two-sweep backward (P recomputed; no atomics); dO
+    in q's dtype.  Returns fp32 dk, dv (BKV, Skv, hd).""")

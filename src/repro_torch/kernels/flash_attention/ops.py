@@ -6,7 +6,8 @@ are laid out as the kernels' (BH, S, hd) / (BKV, Skv, hd) views and padded
 to block multiples; the saved residuals are the padded kernel-layout
 q/k/v/o/lse, so the backward never re-pads them; ``do`` is cast to fp32
 and laid out once, feeding both ``delta = sum(dO * O)`` (over the fp32
-kernel output) and the kernel; the output comes back in the input dtype.
+kernel output) and the fused kernel (the split sweeps take it back in
+q's dtype); the output comes back in the input dtype.
 
 ``bwd_strategy`` selects the backward: ``"fused"`` (one P recompute; dQ
 through fp32 atomics on the card, so its last bits vary run to run) or
@@ -85,8 +86,11 @@ class _FlashAttention(torch.autograd.Function):
         kw = dict(group=G, causal=causal, window=window, softcap=softcap,
                   scale=scale, kv_len=Skv)
         if strategy == "split":
-            dq = K.flash_bwd_dq(qp, kp, vp, dok, lsep, delta, **kw)
-            dk, dv = K.flash_bwd_dkv(qp, kp, vp, dok, lsep, delta, **kw)
+            # the sweeps read dO in q's dtype; exact, since do is the grad
+            # of the output that forward returned in q's dtype
+            doq = dok.to(qp.dtype)
+            dq = K.flash_bwd_dq(qp, kp, vp, doq, lsep, delta, **kw)
+            dk, dv = K.flash_bwd_dkv(qp, kp, vp, doq, lsep, delta, **kw)
         else:
             dq, dk, dv = K.flash_bwd_fused(qp, kp, vp, dok, lsep, delta, **kw)
         dq = dq[:, :S].reshape(B, Hkv, G, S, hd).permute(0, 3, 1, 2, 4)

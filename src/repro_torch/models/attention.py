@@ -10,7 +10,8 @@ Two implementations sit behind one interface:
 * ``impl="xla"``    — :func:`chunked_attention`, the eager counterpart of
   the JAX package's chunked online-softmax ``"xla"`` path.
 
-``":split"`` (the two-sweep backward) raises until its kernels are ported.
+``":split"`` selects the two-sweep backward (``bwd_strategy="split"``:
+no atomics, bit-identical gradients run to run on the card).
 The prefill and decode modes (KV cache) come with the serving slice.
 """
 

@@ -97,8 +97,8 @@ def test_flash_split_kernels_match_plain_and_repeat(cuda, case):
               scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
     o, lse = FK.flash_fwd_plain(q, k, v, **kw)
     do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32,
-                      device=cuda)
-    delta = torch.sum(do * o, dim=-1)
+                      device=cuda).to(dt)  # the sweeps read dO in q's dtype
+    delta = torch.sum(do.float() * o, dim=-1)
     n0 = (FK.flash_bwd_dq.launches, FK.flash_bwd_dkv.launches)
     runs = [(FK.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
              *FK.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))

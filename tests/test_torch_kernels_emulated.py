@@ -108,7 +108,7 @@ def test_flash_kernels_emulated(lib, case):
 @pytest.mark.parametrize("case", FA, ids=str)
 def test_flash_split_kernels_emulated(lib, case):
     """The two sweeps of the split backward (no atomics) against their
-    plain versions."""
+    plain versions; dO in q's dtype, as the sweeps read it."""
     BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
     rng = np.random.default_rng(2)
     q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt)
@@ -116,14 +116,30 @@ def test_flash_split_kernels_emulated(lib, case):
     kw = dict(group=G, causal=causal, window=window, softcap=cap,
               scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
     o, lse = FK.flash_fwd_plain(q, k, v, **kw)
-    do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32)
-    delta = torch.sum(do * o, dim=-1)
+    do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32).to(dt)
+    delta = torch.sum(do.float() * o, dim=-1)
     _close(FK._launch_bwd_dq(lib, 0, q, k, v, do, lse, delta, **kw),
            FK.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), 1e-4)
     got = FK._launch_bwd_dkv(lib, 0, q, k, v, do, lse, delta, **kw)
     want = FK.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+
+
+def test_flash_split_kernels_refuse_other_do_dtype(lib):
+    """A bf16 q with an fp32 dO raises in both sweeps' launches: the
+    kernels read dO in q's dtype and nothing rounds it on the way."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=torch.bfloat16)
+               for s in ((4, 32, 16), (2, 32, 16), (2, 32, 16)))
+    kw = dict(group=2, causal=True, window=0, softcap=0.0, scale=0.25,
+              kv_len=32)
+    o, lse = FK.flash_fwd_plain(q, k, v, **kw)
+    do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32)
+    delta = torch.sum(do * o, dim=-1)
+    for launch in (FK._launch_bwd_dq, FK._launch_bwd_dkv):
+        with pytest.raises(TypeError, match="dO"):
+            launch(lib, 0, q, k, v, do, lse, delta, **kw)
 
 
 SSD = [  # B, nc, Q, H, P, N: SSD_CASES, the smoke widths, ragged tiles
