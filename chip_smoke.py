@@ -15,9 +15,15 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
    the main attention shape in fp32 (the CUDA-core instantiations that
    the split step's fp32 pass runs) and a small odd SSD case (the fused
-   backward gets an fp32 dO, the split sweeps dO in q's dtype); kernel,
-   plain and library times with CUDA events (attention: median of
-   ``REPEATS`` timings after ``WARMUP`` calls, their range beside it).
+   backward gets an fp32 dO, the split sweeps dO in q's dtype); xent on
+   the tensor cores (bf16 h, fp32 w) at the qwen3 shape (untied), the
+   tied auxiliary shape (T 2044), gemma2's softcap case (T 1024, V 256000)
+   and the mamba2-370m server shape (T 16376, D 1024, V 50280, tied), and
+   on the CUDA cores (fp32 h) at the qwen3 shape, each backward twice
+   (bit-identical); kernel, plain and library times with CUDA events
+   (median of ``REPEATS`` timings after ``WARMUP`` calls, their range
+   beside it; SSD one timing).  The build prints ptxas's registers,
+   spills and static shared memory of the tensor-core xent kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
    configs from the same initial states on the card (kernels) and on the
    CPU (plain versions); the histories must agree.
@@ -28,7 +34,14 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    batch 8, one server epoch over 64 samples, 8 eval samples; each path's
    kernels must have launched, every loss be finite, and the merged
    model's validation loss end below ln V.
-6. Split backward: one server train step of full-width, full-depth
+6. Profile: one server train step of each main path at its shape (8 x 512
+   qwen3-1.7b, 8 x 2048 mamba2-370m) under ``torch.profiler`` after one
+   untimed step and 3 steps timed without it (CUDA events): device time
+   by kernel name (top 10), the xent kernels' share, and the device busy
+   share (union of kernel intervals over the unprofiled step's median
+   time; over the profiled step's wall time beside it), or "not
+   measured" when the trace holds no device time.
+7. Split backward: one server train step of full-width, full-depth
    qwen3-1.7b (8 x 512) from the same state and batch through
    ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
    twice with ``impl="kernel:split"``, in fp32 and in the config's bf16
@@ -47,17 +60,21 @@ Tolerances: each kernel output within 1e-4 of its largest magnitude (fp32
 accumulation in another order; dQ through atomics in the fused backward).
 
 Prints one line per phase, then the kernels' JSON line (``launches`` the
-sum over the three path runs of 5 and 6, ``launches_by_path`` each run's
-count; the attention rows are the bf16 tensor-core kernels, ``*_fp32``
-the fp32 CUDA-core ones behind the same wrappers, counted by dtype), the
-card line and, last, ``{"ok": true, "device": {...}}``.
+sum over the three path runs of 5 and 7, ``launches_by_path`` each run's
+count; the attention and xent rows are the bf16 tensor-core kernels,
+``*_fp32`` the fp32 CUDA-core ones behind the same wrappers, counted by
+dtype; the xent rows add their bf16 pass count, the fp32-FMA bound for
+comparison and their times at the mamba2 shape), the card line and,
+last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -107,8 +124,12 @@ KERNELS = {
                            "src/repro/kernels/flash_attention/kernel.py:257"),
     "xent_fwd": ("src/repro_torch/csrc/xent.cu",
                  "src/repro/kernels/xent/kernel.py:107"),
+    "xent_fwd_fp32": ("src/repro_torch/csrc/xent.cu",
+                      "src/repro/kernels/xent/kernel.py:107"),
     "xent_bwd": ("src/repro_torch/csrc/xent.cu",
                  "src/repro/kernels/xent/kernel.py:242"),
+    "xent_bwd_fp32": ("src/repro_torch/csrc/xent.cu",
+                      "src/repro/kernels/xent/kernel.py:242"),
     "ssd_intra": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk/kernel.py:55"),
 }
@@ -119,8 +140,11 @@ WRAPPERS = {"flash_fwd": FK.flash_fwd, "flash_bwd_fused": FK.flash_bwd_fused,
 # rows whose wrapper launches a different kernel per dtype: (wrapper, dtype)
 FA_BY_DTYPE = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
                "flash_bwd_dkv")
-BY_DTYPE = {**{name: (name, "bfloat16") for name in FA_BY_DTYPE},
-            **{f"{name}_fp32": (name, "float32") for name in FA_BY_DTYPE}}
+XENT_BY_DTYPE = ("xent_fwd", "xent_bwd")
+BY_DTYPE = {**{name: (name, "bfloat16")
+               for name in FA_BY_DTYPE + XENT_BY_DTYPE},
+            **{f"{name}_fp32": (name, "float32")
+               for name in FA_BY_DTYPE + XENT_BY_DTYPE}}
 
 # The main paths: sequence length, learning rate, and the kernels each
 # must launch.  LR: the launcher's default 0.2 (momentum 0.9) diverges on
@@ -142,8 +166,13 @@ SERVER_EPOCHS = 1
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
 WARMUP = 3               # attention: untimed calls before them
-ITERS_XENT = 5
+ITERS_XENT = 2
 ITERS_SSD = 10
+# kernels whose ptxas report the build phase prints: the xent tensor-core
+# kernels and the split pre-pass
+PTXAS_REPORT = ("xent_tc_", "xent_split_")
+PROFILE_TOP = 10         # kernels named in each profile line
+PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # bf16 split backward: allowed difference from fused, in multiples of the
 # fused kernel's run-to-run spread (its dQ atomics) measured in the same run
 BF16_SPREAD = 3.0
@@ -322,9 +351,30 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
     return res
 
 
-def xent_case(dev, T, D, V, cap, tied, iters, library):
+def xent_bound(T, D, V, hdt, backward):
+    """(bound ms, by, bf16 passes or None, fp32-FMA bound ms) for an fp32 w:
+    bytes of h, w, labels (+ lse, g, dh, dw in the backward) read or
+    written once; the tensor-core route (bf16 h) runs the fewest bf16
+    passes that carry the fp32 operands to 1e-4 (forward 2, backward
+    2 + 3 + 2; a bf16 w would need 1 and 1 + 2 + 2), the CUDA-core route
+    one fp32 product per contraction."""
+    ops = 2.0 * T * D * V
+    nbytes = (T * D * (4 if hdt == torch.float32 else 2) + D * V * 4
+              + T * 4 + T * 8)       # + loss, lse out / lse, g in
+    if backward:
+        nbytes += T * D * 4 + D * V * 4
+    fma = bound_ms(nbytes, (3 if backward else 1) * ops, torch.float32)
+    if hdt == torch.float32:
+        return (*fma, None, fma[0])
+    passes = 7 if backward else 2
+    return (*bound_ms(nbytes, passes * ops, torch.bfloat16), passes, fma[0])
+
+
+def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
+    """xent_fwd / xent_bwd against their plain versions (h in hdt, w fp32),
+    the backward twice (no atomics: bit-identical)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    h = torch.randn((T, D), generator=gen, device=dev).to(torch.bfloat16)
+    h = torch.randn((T, D), generator=gen, device=dev).to(hdt)
     w = torch.randn((V, D) if tied else (D, V), generator=gen,
                     device=dev) / math.sqrt(D)
     w = w.t() if tied else w
@@ -332,43 +382,60 @@ def xent_case(dev, T, D, V, cap, tied, iters, library):
                         dtype=torch.int32)
     loss, lse = XK.xent_fwd(h, w, lab, softcap=cap)
     loss_p, lse_p = XK.xent_fwd_plain(h, w, lab, softcap=cap)
-    tag = f"T{T} D{D} V{V} cap{cap} tied{int(tied)}"
+    tag = (f"T{T} D{D} V{V} cap{cap} tied{int(tied)} "
+           f"h {str(hdt).removeprefix('torch.')}")
     fwd_err = check(f"xent_fwd {tag}", (loss, lse), (loss_p, lse_p), 1e-4)
     del loss_p
     g = torch.full((T,), 1.0 / T, device=dev)
     got = XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap)
     want = XK.xent_bwd_plain(h, w, lab, lse_p, g, softcap=cap)
     bwd_err = check(f"xent_bwd {tag}", got, want, 1e-4)
-    del got, want
+    del want
+    again = XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("check", kernel=f"xent_bwd repeat {tag}", bit_identical=same)
+    if not same:
+        raise AssertionError(f"xent_bwd {tag}: two calls differ")
+    del got, again
     if not library:
         return None
-    ops = 2.0 * T * D * V
-    in_bytes = T * D * 2 + D * V * 4 + T * 4
-    res = {"xent_fwd": dict(
-        max_abs_err=fwd_err,
-        ms=time_ms(lambda: XK.xent_fwd(h, w, lab, softcap=cap), iters),
-        plain_ms=time_ms(lambda: XK.xent_fwd_plain(h, w, lab, softcap=cap),
-                         iters),
-        bound=bound_ms(in_bytes + T * 8, ops, torch.float32))}
-    res["xent_bwd"] = dict(
-        max_abs_err=bwd_err,
-        ms=time_ms(lambda: XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap),
-                   iters),
-        plain_ms=time_ms(lambda: XK.xent_bwd_plain(h, w, lab, lse_p, g,
-                                                   softcap=cap), iters),
-        bound=bound_ms(in_bytes + T * 8 + T * D * 4 + D * V * 4, 3 * ops,
-                       torch.float32))
     # yardstick only: fp32 logits + F.cross_entropy, and its autograd
     ce = torch.nn.functional.cross_entropy
     hl = h.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
     labl = lab.long()
-    with torch.no_grad():
-        res["xent_fwd"]["library_ms"] = time_ms(
-            lambda: ce(hl.float() @ wl, labl, reduction="none"), iters)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return ce(hl.float() @ wl, labl, reduction="none")
+
     out = ce(hl.float() @ wl, labl)
-    res["xent_bwd"]["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(out, (hl, wl), retain_graph=True), iters)
+    fns = {"xent_fwd": (lambda: XK.xent_fwd(h, w, lab, softcap=cap),
+                        lambda: XK.xent_fwd_plain(h, w, lab, softcap=cap),
+                        lib_fwd, fwd_err),
+           "xent_bwd": (lambda: XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap),
+                        lambda: XK.xent_bwd_plain(h, w, lab, lse_p, g,
+                                                  softcap=cap),
+                        lambda: torch.autograd.grad(out, (hl, wl),
+                                                    retain_graph=True),
+                        bwd_err)}
+    res, bounds = {}, {}
+    for name, (fn, plain, library_fn, err) in fns.items():
+        ms, ms_range = time_median(fn, iters)
+        plain_ms, _ = time_median(plain, iters)
+        lib_ms, lib_range = time_median(library_fn, iters)
+        bms, by, passes, fma_ms = xent_bound(T, D, V, hdt,
+                                             name == "xent_bwd")
+        res[name] = dict(max_abs_err=err, ms=ms, ms_range=ms_range,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_ms_range=lib_range, bound=(bms, by))
+        bounds[name] = dict(bound_ms=bms, passes=passes,
+                            bound_fp32_fma_ms=fma_ms)
+    log("timing", case=tag, iters=iters, warmup=WARMUP, repeats=REPEATS,
+        **{name: {**{k: r[k] for k in ("ms", "ms_range", "plain_ms",
+                                       "library_ms", "library_ms_range")},
+                  **bounds[name]}
+           for name, r in res.items()})
     return res
 
 
@@ -531,6 +598,114 @@ def _max_rel(got, want):
                for (path, a), (_, b) in zip(_flat(got), _flat(want)))
 
 
+def server_step_inputs(dev, arch):
+    """A server train step of ``arch`` at its main path's shape (8 x seq)
+    from the seed: (model, run_cfg, server params, batch)."""
+    cfg = registry.get_config(arch)
+    seq = MAIN_PATHS[arch]["seq"]
+    run_cfg = launch_train.build_run_cfg(launch_train.make_parser().parse_args(
+        ["--arch", arch, "--server-batch", "8", "--seq-len", str(seq),
+         "--lr", str(MAIN_PATHS[arch]["lr"]), "--seed", "0"]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg)
+    _, srv = splitting.split_params(model, model.init(gen, dev),
+                                    run_cfg.split.split_point)
+    batch = {"acts": torch.randn((8, seq, cfg.d_model), generator=gen,
+                                 device=dev).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size, (8, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    return model, run_cfg, srv, batch
+
+
+def _union_us(intervals):
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_step(dev, arch):
+    """One server train step under torch.profiler, after one untimed step
+    and PROFILE_STEPS steps timed without the profiler (CUDA events; the
+    profiler's CPU tracing slows the host's ~10^4 launches a step, so its
+    wall time overstates the step): device time by kernel name (the
+    PROFILE_TOP largest), the xent kernels' share, and the device busy
+    share, the union of kernel intervals over the unprofiled step's
+    median time (kernel durations do not depend on the host), with the
+    share over the profiled step's wall time beside it."""
+    model, run_cfg, srv, batch = server_step_inputs(dev, arch)
+    step = steps.make_server_train_step(model, run_cfg, impl="kernel")
+    state = steps.init_server_state(model, run_cfg, srv)
+    del srv
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(PROFILE_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    step_ms_med = float(np.median(step_ms))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    loss = float(m["loss"])
+    del state
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    if device_ms <= 0:
+        log("profile", arch=arch, wall_s=wall, loss=loss,
+            step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
+            device_time="not measured", device_busy_share="not measured")
+        return
+    union_ms = _union_us([(e.time_range.start, e.time_range.end)
+                          for e in kernels]) / 1e3
+    xent_ms = sum(ms for name, (ms, _) in by_name.items() if "xent" in name)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    log("profile", arch=arch, seq=MAIN_PATHS[arch]["seq"], batch=8,
+        step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
+        wall_s=wall, loss=loss, device_ms=device_ms, device_union_ms=union_ms,
+        device_busy_share=union_ms / step_ms_med,
+        device_busy_share_profiled=union_ms / 1e3 / wall,
+        kernels=len(kernels), xent_ms=xent_ms,
+        xent_share_of_step=xent_ms / step_ms_med,
+        top=[{"name": name[:120], "ms": ms, "calls": n}
+             for name, (ms, n) in ranked])
+
+
+def build_with_ptxas_report():
+    """Build the library with ``-Xptxas -v`` and print ptxas's own lines
+    (registers, spills, static shared memory) for the kernels whose
+    mangled names hold one of PTXAS_REPORT; the dynamic shared memory is
+    set at launch (PERF.md gives it).  A library already built prints
+    nothing."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        path = build.build(verbose=True)
+    keep = False
+    for line in buf.getvalue().splitlines():
+        if "entry function" in line or "Function properties" in line:
+            keep = any(p in line for p in PTXAS_REPORT)
+        if keep:
+            print(line, flush=True)
+    return path
+
+
 def split_backward(dev):
     """One qwen3-1.7b server train step from the same state and batch with
     the fused and the split attention backward, each twice.  The optimizer
@@ -547,18 +722,7 @@ def split_backward(dev):
     arch = "qwen3-1.7b"
     cfg = registry.get_config(arch)
     seq = MAIN_PATHS[arch]["seq"]
-    run_cfg = launch_train.build_run_cfg(launch_train.make_parser().parse_args(
-        ["--arch", arch, "--server-batch", "8", "--seq-len", str(seq),
-         "--lr", str(MAIN_PATHS[arch]["lr"]), "--seed", "0"]))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = build_model(cfg)
-    _, srv = splitting.split_params(model, model.init(gen, dev),
-                                    run_cfg.split.split_point)
-    batch = {"acts": torch.randn((8, seq, cfg.d_model), generator=gen,
-                                 device=dev).to(torch.bfloat16),
-             "tokens": torch.randint(0, cfg.vocab_size, (8, seq),
-                                     generator=gen, device=dev,
-                                     dtype=torch.int32)}
+    _, run_cfg, srv, batch = server_step_inputs(dev, arch)
     torch.cuda.empty_cache()
     reset_launches()
     result = {}
@@ -618,7 +782,7 @@ def main() -> int:
     log("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0))
     t = time.perf_counter()
-    path = build.build()
+    path = build_with_ptxas_report()
     log("build", seconds=time.perf_counter() - t, library=str(path))
 
     res = fa_case(dev, 8, SEQ_LEN, 8, 2, 128, 0, 0.0, torch.bfloat16,
@@ -634,15 +798,30 @@ def main() -> int:
                     ITERS_ATTENTION, library=True)
     for name in FA_BY_DTYPE:
         res[f"{name}_fp32"] = res32[name]
+    # xent: the server heads of both main paths (qwen3 untied, T 8 x 511;
+    # mamba2 tied, T 8 x 2047), the tied auxiliary head (T 4 x 511),
+    # gemma2's softcap, and the CUDA-core route (fp32 h) at the qwen3 shape
     cfg = registry.get_config("qwen3-1.7b")
     T = 8 * (SEQ_LEN - 1)
     res.update(xent_case(dev, T, cfg.d_model, cfg.vocab_size, 0.0, False,
                          ITERS_XENT, library=True))
+    mcfg = registry.get_config("mamba2-370m")
+    at_mamba2 = xent_case(dev, 8 * (MAIN_PATHS["mamba2-370m"]["seq"] - 1),
+                          mcfg.d_model, mcfg.vocab_size, 0.0, True,
+                          ITERS_XENT, library=True)
+    for name, r in at_mamba2.items():
+        bms, by = r.pop("bound")
+        res[name]["at_mamba2_shape"] = dict(r, bound_ms=bms, bound_by=by)
     xent_case(dev, 4 * (SEQ_LEN - 1), cfg.d_model, cfg.vocab_size, 0.0,
               True, 1, library=False)
     g2 = registry.get_config("gemma2-2b")
     xent_case(dev, 1024, g2.d_model, g2.vocab_size, g2.final_softcap, True,
               1, library=False)
+    res32 = xent_case(dev, T, cfg.d_model, cfg.vocab_size, 0.0, False, 1,
+                      library=True, hdt=torch.float32)
+    for name in XENT_BY_DTYPE:
+        res[f"{name}_fp32"] = res32[name]
+    del at_mamba2, res32
     m2 = registry.get_config("mamba2-370m").mamba
     res.update(ssd_case(dev, 8, 8, m2.chunk_size, 32, m2.head_dim,
                         m2.d_state, ITERS_SSD, library=True))
@@ -653,6 +832,10 @@ def main() -> int:
     for arch in MAIN_PATHS:
         smoke_reference(dev, arch)
     by_path = {arch: main_path(dev, arch) for arch in MAIN_PATHS}
+    torch.cuda.empty_cache()
+    for arch in MAIN_PATHS:
+        profile_step(dev, arch)
+        torch.cuda.empty_cache()
     by_path["split_backward"] = split_backward(dev)
 
     rows = []
@@ -667,7 +850,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms"),
-                     **{k: r[k] for k in ("ms_range", "library_ms_range")
+                     **{k: r[k] for k in ("ms_range", "library_ms_range",
+                                          "at_mamba2_shape")
                         if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

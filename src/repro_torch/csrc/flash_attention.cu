@@ -558,26 +558,10 @@ __device__ __forceinline__ void tc_load_rows(bf16* dst, const bf16* src,
   }
 }
 
-// Lane addresses of ldmatrix.x4 over a 16 x 16 block at (r0, c0) of a
-// shared tile with row stride ld, for each fragment role (tensor_core.cuh):
-// A row-major, B stored [n][k] (both plain), B stored [k][n] and A stored
-// [k][m] (both .trans).
-__device__ __forceinline__ int tc_a_off(int r0, int c0, int ld) {
-  const int l = threadIdx.x % 32;
-  return (r0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + c0 + (l >> 4) * 8;
-}
-__device__ __forceinline__ int tc_bnk_off(int n0, int k0, int ld) {
-  const int l = threadIdx.x % 32;
-  return (n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int tc_bkn_off(int k0, int n0, int ld) {
-  const int l = threadIdx.x % 32;
-  return (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
-}
-__device__ __forceinline__ int tc_akm_off(int k0, int m0, int ld) {
-  const int l = threadIdx.x % 32;
-  return (k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
-}
+using rt::tc_a_off;
+using rt::tc_akm_off;
+using rt::tc_bkn_off;
+using rt::tc_bnk_off;
 
 // The A fragments (hi, lo) of k-step kk of a 16-row C tile held as n-tiles
 // of 8 columns: columns [16 kk, 16 kk + 16) are n-tiles 2 kk and 2 kk + 1.

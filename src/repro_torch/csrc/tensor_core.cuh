@@ -52,6 +52,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Lane addresses of ldmatrix.x4 over a 16 x 16 block at (r0, c0) of a
+// shared tile with row stride ld, for each fragment role: A row-major, B
+// stored [n][k] (both plain), B stored [k][n] and A stored [k][m] (both
+// .trans).
+__device__ __forceinline__ int tc_a_off(int r0, int c0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (r0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + c0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ int tc_bnk_off(int n0, int k0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int tc_bkn_off(int k0, int n0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ int tc_akm_off(int k0, int m0, int ld) {
+  const int l = threadIdx.x % 32;
+  return (k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
+}
+
 #ifndef RT_HOST_EMULATION
 
 // d += A B on the warp's fragments
@@ -62,6 +83,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = A B (a zero accumulator).  The tensor cores round each sum toward
+// zero, so a product chained over thousands of k-steps drifts (~1e-4
+// relative at K = 1.5e5); a caller that sums d into its own fp32
+// registers per k-step keeps the fp32 adder's round-to-nearest instead.
+__device__ __forceinline__ void mma_bf16_zc(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

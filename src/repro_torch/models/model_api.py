@@ -1,4 +1,4 @@
-"""Unified model API (LM dense and SSM families), as
+"""Unified model API (every LM family but MoE and hybrid), as
 ``repro.models.model_api``.
 
 A :class:`Model` exposes ``init(gen, device)`` and
@@ -40,11 +40,10 @@ class Model:
 
 def build_model(cfg) -> Model:
     if isinstance(cfg, LMConfig):
-        if cfg.family not in ("dense", "ssm") or cfg.moe.enabled or \
-                cfg.attn_layer_period:
+        if cfg.moe.enabled or cfg.attn_layer_period:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): only the dense and SSM LM "
-                "families are ported (ROADMAP.md queue A)")
+                f"{cfg.name} ({cfg.family}): the MoE and hybrid LM "
+                "families are a later slice (ROADMAP.md queue A)")
         return Model(cfg=cfg, kind="lm")
     if isinstance(cfg, VisionConfig):
         raise NotImplementedError(

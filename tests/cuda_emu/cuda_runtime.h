@@ -2,8 +2,10 @@
 // use, so tests can compile src/repro_torch/csrc/*.cu with a C++20 host
 // compiler and run the kernels on the CPU: each block runs as blockDim.x
 // std::threads sharing one barrier, blocks run one after another.
-// __shfl_xor_sync and __syncthreads_or become barrier exchanges, which is
-// valid because every kernel calls them with all threads of the block; so
+// __syncthreads_or becomes a block-wide barrier exchange, valid because
+// every kernel calls it with all threads of the block; __shfl_xor_sync
+// becomes a warp-wide one (each warp of 32 threads has a barrier of its
+// own), valid because every kernel calls it with all lanes of the warp; so
 // do the warp-level tensor-core helpers of csrc/tensor_core.cuh (ptx_emu.h).
 #pragma once
 #include <algorithm>
@@ -13,6 +15,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -33,6 +36,7 @@ struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
 inline thread_local std::barrier<>* emu_bar;
+inline thread_local std::barrier<>* emu_warp_bar;  // this thread's warp
 inline thread_local float* emu_fslots;
 inline thread_local int* emu_islots;
 inline thread_local char* emu_dyn;
@@ -49,11 +53,12 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void emu_syncwarp() { emu_warp_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   emu_fslots[threadIdx.x] = v;
-  __syncthreads();
+  emu_syncwarp();
   const float r = emu_fslots[threadIdx.x ^ o];
-  __syncthreads();
+  emu_syncwarp();
   return r;
 }
 inline int __syncthreads_or(int p) {
@@ -82,6 +87,10 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
       std::vector<uint32_t> us(6 * block.x);
       std::vector<const void*> ps(block.x);
       std::barrier<> bar(block.x);
+      std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+      for (unsigned w = 0; w < block.x; w += 32)
+        warp_bars.push_back(std::make_unique<std::barrier<>>(
+            std::min<std::ptrdiff_t>(32, block.x - w)));
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < block.x; ++t)
         ts.emplace_back([&, t] {
@@ -90,6 +99,7 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
           blockDim = block;
           gridDim = grid;
           emu_bar = &bar;
+          emu_warp_bar = warp_bars[t / 32].get();
           emu_fslots = fs.data();
           emu_islots = is.data();
           emu_dyn = dyn.data();

@@ -1,10 +1,10 @@
 // Host versions of the PTX helpers in src/repro_torch/csrc/tensor_core.cuh
 // (test scaffolding: nvcc never sees this file).  A warp-level instruction
-// becomes a block-wide slot exchange: every thread posts its operands,
-// waits at the block barrier, reads its warp's operands back in the PTX
-// ISA's fragment layout and waits again before the slots are reused.  That
-// is valid because every kernel calls these helpers with all threads of
-// the block, the same number of times.  cp.async copies at once, so its
+// becomes a warp-wide slot exchange: every lane posts its operands, waits
+// at its warp's barrier, reads its warp's operands back in the PTX ISA's
+// fragment layout and waits again before the slots are reused.  That is
+// valid because every kernel calls these helpers with all lanes of the
+// warp, the same number of times.  cp.async copies at once, so its
 // commit and wait are no-ops.
 #pragma once
 #define RT_HOST_EMULATION 1
@@ -27,7 +27,7 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   for (int i = 0; i < 4; ++i) mine[i] = a[i];
   mine[4] = b0;
   mine[5] = b1;
-  __syncthreads();
+  emu_syncwarp();
   const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t* w = emu_uslots + 6 * emu_warp0();
   float arow[2][16], bcol[2][16];  // A rows g, g+8; B columns 2t, 2t+1
@@ -48,7 +48,7 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
         bcol[c][2 * tt + 8 + h] = emu_bf16(f[5], h);
       }
   }
-  __syncthreads();
+  emu_syncwarp();
   for (int i = 0; i < 4; ++i) {
     float s = 0.f;
     for (int k = 0; k < 16; ++k) s += arow[i >> 1][k] * bcol[i & 1][k];
@@ -56,9 +56,15 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   }
 }
 
+inline void mma_bf16_zc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                        uint32_t b1) {
+  for (int i = 0; i < 4; ++i) d[i] = 0.f;
+  mma_bf16(d, a, b0, b1);
+}
+
 inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
   emu_pslots[threadIdx.x] = p;
-  __syncthreads();
+  emu_syncwarp();
   const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const void* const* w = emu_pslots + emu_warp0();
   for (int i = 0; i < 4; ++i) {
@@ -69,7 +75,7 @@ inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
     }
     r[i] = uint32_t(e[0]) | (uint32_t(e[1]) << 16);
   }
-  __syncthreads();
+  emu_syncwarp();
 }
 
 inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -164,18 +164,27 @@ XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),
 
 
 @pytest.mark.parametrize("tied", [False, True])
-@pytest.mark.parametrize("hdt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("hdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)],
+                         ids=str)
 @pytest.mark.parametrize("case", XENT, ids=str)
-def test_xent_kernels_match_plain(cuda, case, hdt, tied):
+def test_xent_kernels_match_plain(cuda, case, hdt, wdt, tied):
+    """fp32 h: the CUDA-core kernels; bf16 h: the tensor-core ones (w split
+    into bf16 hi/lo, none for a bf16 w), counted under h's dtype; the
+    backward repeats bit for bit."""
     T, D, V, cap = case
     rng = np.random.default_rng(1)
     h = torch.tensor(rng.normal(0, 1, (T, D)), dtype=hdt, device=cuda)
     shape = (V, D) if tied else (D, V)
     w = torch.tensor(rng.normal(0, 1, shape) / np.sqrt(D), dtype=torch.float32,
-                     device=cuda)
+                     device=cuda).to(wdt)
     w = w.t() if tied else w
     lab = torch.tensor(rng.integers(0, V, (T,)), dtype=torch.int32,
                        device=cuda)
+    key = str(hdt).removeprefix("torch.")
+    n0 = [fn.launches_by_dtype.get(key, 0)
+          for fn in (XK.xent_fwd, XK.xent_bwd)]
     loss, lse = XK.xent_fwd(h, w, lab, softcap=cap)
     loss_p, lse_p = XK.xent_fwd_plain(h, w, lab, softcap=cap)
     _close(loss, loss_p, 1e-5)
@@ -186,6 +195,21 @@ def test_xent_kernels_match_plain(cuda, case, hdt, tied):
     dh_p, dw_p = XK.xent_bwd_plain(h, w, lab, lse_p, g, softcap=cap)
     _close(dh, dh_p, 1e-4)
     _close(dw, dw_p, 1e-4)
+    again = XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap)
+    assert torch.equal(again[0], dh) and torch.equal(again[1], dw)
+    assert [fn.launches_by_dtype[key] for fn in (XK.xent_fwd, XK.xent_bwd)] \
+        == [n0[0] + 1, n0[1] + 2]
+
+
+def test_xent_tc_route_refuses_d_not_multiple_of_8(cuda):
+    h = torch.zeros((8, 12), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((12, 30), device=cuda)
+    lab = torch.zeros((8,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        XK.xent_fwd(h, w, lab)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        XK.xent_bwd(h, w, lab, torch.zeros(8, device=cuda),
+                    torch.ones(8, device=cuda))
 
 
 @pytest.mark.parametrize("strategy", ["fused", "split"])

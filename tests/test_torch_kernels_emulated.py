@@ -10,12 +10,14 @@ headers in ``tests/cuda_emu`` compiles them with two textual rewrites: the
 dynamic ``extern __shared__`` array points at the stub's per-block
 buffer.  Each block runs as its launch's threads.  This checks the
 kernels' indexing, masking, tile skipping, online statistics, chunking,
-atomics, the tensor-core fragment layouts of the bf16 attention kernels
-and the ragged edges of the SSD tiles here; the real compiler and the
-timings are checked on the card (``test_torch_kernels_cuda.py``,
-``chip_smoke.py``).  Skips without g++.
-Tolerances (fp32 accumulation in another order): 1e-5 forward, 1e-4
-grads, relative to the output's scale.
+atomics, the tensor-core fragment layouts of the bf16 attention and
+cross-entropy kernels and the ragged edges of the SSD tiles here; the
+real compiler and the timings are checked on the card
+(``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
+Tolerances (fp32 accumulation in another order; on the tensor-core
+routes each fp32 operand also carries the ~2^-17 relative residual of its
+bf16 hi/lo split): 1e-5 forward, 1e-4 grads, relative to the output's
+scale.
 """
 
 import ctypes
@@ -191,3 +193,88 @@ def test_xent_kernels_emulated(lib, case, tied, hdt, monkeypatch):
     dh_p, dw_p = XK.xent_bwd_plain(h, w, lab, lse_p, g, softcap=cap)
     _close(dh, dh_p, 1e-4)
     _close(dw, dw_p, 1e-4)
+
+
+def _xent_inputs(case, tied, hdt, wdt, seed=1):
+    T, D, V, _ = case
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.normal(0, 1, (T, D)), dtype=hdt)
+    w = torch.tensor(rng.normal(0, 1, (V, D) if tied else (D, V)) / np.sqrt(D),
+                     dtype=torch.float32).to(wdt)
+    lab = torch.tensor(rng.integers(0, V, (T,)), dtype=torch.int32)
+    g = torch.tensor(rng.random(T), dtype=torch.float32)
+    return h, (w.t() if tied else w), lab, g
+
+
+@pytest.mark.parametrize("tied,wdt", [(False, torch.float32),
+                                      (False, torch.bfloat16),
+                                      (True, torch.bfloat16)], ids=str)
+@pytest.mark.parametrize("case", XENT, ids=str)
+def test_xent_tc_route_emulated(lib, case, tied, wdt, monkeypatch):
+    """The tensor-core route (bf16 h) with each head the test above does
+    not give it: an untied fp32 w (two passes against W_hi, W_lo) and a bf16
+    w (no lo half), tied and untied; ragged T and V, softcaps, and the
+    backward in chunks of TC_CHUNK rows."""
+    cap = case[3]
+    h, w, lab, g = _xent_inputs(case, tied, torch.bfloat16, wdt)
+    loss, lse = XK._launch_fwd(lib, 0, h, w, lab, softcap=cap)
+    loss_p, lse_p = XK.xent_fwd_plain(h, w, lab, softcap=cap)
+    _close(loss, loss_p, 1e-5)
+    _close(lse, lse_p, 1e-5)
+    monkeypatch.setattr(XK, "STAGE_BYTES", 4 * XK._vpad(case[2]) * XK.TC_CHUNK)
+    dh, dw = XK._launch_bwd(lib, 0, h, w, lab, lse_p, g, softcap=cap)
+    assert dw.stride() == w.stride()
+    dh_p, dw_p = XK.xent_bwd_plain(h, w, lab, lse_p, g, softcap=cap)
+    _close(dh, dh_p, 1e-4)
+    _close(dw, dw_p, 1e-4)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16], ids=str)
+def test_xent_split_prepass_emulated(lib, wdt):
+    """The pre-pass alone: W_hi = bf16(w), W_lo = bf16(w - W_hi) (none for a
+    bf16 w), laid out (Vp, D) with zero rows past V, the same from the
+    untied (D, V) array and the tied transposed view of a (V, D) one."""
+    D, V = 40, 150
+    rng = np.random.default_rng(6)
+    wt = torch.tensor(rng.normal(0, 1, (V, D)), dtype=torch.float32).to(wdt)
+    untied = XK._launch_split(lib, 0, wt.t().contiguous())
+    tied = XK._launch_split(lib, 0, wt.t())
+    hi_want = wt.to(torch.bfloat16)
+    lo_want = (wt.float() - hi_want.float()).to(torch.bfloat16)
+    for w_hi, w_lo in (untied, tied):
+        assert w_hi.shape == (XK._vpad(V), D) == (256, D)
+        assert torch.equal(w_hi[:V], hi_want)
+        assert not w_hi[V:].any()
+        if wdt == torch.bfloat16:
+            assert w_lo is None
+            continue
+        assert torch.equal(w_lo[:V], lo_want)
+        assert not w_lo[V:].any()
+        # the pair carries w to ~2^-17 relative (hi's and lo's roundings)
+        err = (w_hi[:V].float() + w_lo[:V].float() - wt).abs()
+        assert float((err - wt.abs() * 2.0 ** -16).max()) <= 0
+
+
+def test_xent_tc_route_refuses_d_not_multiple_of_8(lib):
+    """A bf16 h whose rows are not whole 16-B copies raises ValueError in
+    both launches; no other route takes it."""
+    h, w, lab, g = _xent_inputs((8, 12, 30, 0.0), False, torch.bfloat16,
+                                torch.float32)
+    lse = torch.zeros(8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        XK._launch_fwd(lib, 0, h, w, lab, softcap=0.0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        XK._launch_bwd(lib, 0, h, w, lab, lse, g, softcap=0.0)
+
+
+def test_xent_tc_backward_repeats_bit_identical(lib, monkeypatch):
+    """No atomics: two backward calls (several chunks, dW accumulated
+    across them) give bit-identical dh and dw."""
+    case = (70, 40, 300, 0.0)
+    h, w, lab, g = _xent_inputs(case, True, torch.bfloat16, torch.float32)
+    _, lse = XK.xent_fwd_plain(h, w, lab)
+    monkeypatch.setattr(XK, "STAGE_BYTES", 4 * XK._vpad(300) * XK.TC_CHUNK)
+    first, second = (XK._launch_bwd(lib, 0, h, w, lab, lse, g, softcap=0.0)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -2,8 +2,11 @@
 
 ``qwen3-1.7b``, ``gemma2-2b`` and ``mamba2-370m`` smoke configs (GQA +
 qk-norm + tied embeddings; sliding window + both softcaps + post-block
-norms + GeGLU; Mamba-2 SSD mixers with 2 chunks per sequence) start from
-the JAX package's own init, converted through numpy.  The JAX
+norms + GeGLU; Mamba-2 SSD mixers with 2 chunks per sequence), and the
+``musicgen-large`` (audio family), ``qwen2-vl-72b`` (vlm family, M-RoPE
+with random (3, B, S) positions made with numpy and handed to both
+packages), ``qwen1.5-4b`` and ``mistral-large-123b`` smoke configs start
+from the JAX package's own init, converted through numpy.  The JAX
 ``impl="xla"`` path is held to the port's eager ``"xla"`` path, and JAX
 ``impl="pallas"`` (interpret mode) to the port's ``"kernel"`` path (plain
 versions on CPU).  Tolerance (fp32 smoke configs): 1e-4 on logits, hidden
@@ -27,9 +30,10 @@ from repro_torch.core import losses as t_losses
 from repro_torch.interop import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.models import transformer as TT
 
-CASES = [("qwen3-1.7b", "xla", "xla"), ("qwen3-1.7b", "pallas", "kernel"),
-         ("gemma2-2b", "xla", "xla"), ("gemma2-2b", "pallas", "kernel"),
-         ("mamba2-370m", "xla", "xla"), ("mamba2-370m", "pallas", "kernel")]
+ARCHS = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m", "musicgen-large",
+         "qwen2-vl-72b", "qwen1.5-4b", "mistral-large-123b")
+CASES = [(arch, jimpl, timpl) for arch in ARCHS
+         for jimpl, timpl in (("xla", "xla"), ("pallas", "kernel"))]
 B, S = 2, 24
 
 
@@ -43,12 +47,25 @@ def _params_and_tokens(arch):
 
 
 @functools.lru_cache(maxsize=None)
+def _positions(arch):
+    """M-RoPE (t, h, w) positions for the vlm config, else None (both
+    packages then make their default positions)."""
+    if not registry.get_smoke_config(arch).mrope_sections:
+        return None
+    return np.random.default_rng(1).integers(0, 2 * S, (3, B, S)).astype(
+        np.int32)
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_run(arch, impl):
     cfg = registry.get_smoke_config(arch)
     params, tokens = _params_and_tokens(arch)
+    pos = _positions(arch)
+    pos = None if pos is None else jnp.asarray(pos)
 
     def loss_fn(p):
-        out = JT.forward(cfg, p, jnp.asarray(tokens), impl=impl)
+        out = JT.forward(cfg, p, jnp.asarray(tokens), positions=pos,
+                         impl=impl)
         loss, _ = j_losses.lm_loss_from_logits(out["logits"],
                                                jnp.asarray(tokens))
         return loss, out
@@ -66,7 +83,9 @@ def _torch_run(arch, impl):
     leaves = tree_leaves(tp)
     for t in leaves:
         t.requires_grad_(True)
-    out = TT.forward(cfg, tp, torch.tensor(tokens), impl=impl)
+    pos = _positions(arch)
+    pos = None if pos is None else torch.tensor(pos)
+    out = TT.forward(cfg, tp, torch.tensor(tokens), positions=pos, impl=impl)
     loss, _ = t_losses.lm_loss_from_logits(out["logits"], torch.tensor(tokens))
     grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
