@@ -6,11 +6,12 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
 2. Build: every CUDA source under ``src/repro_torch/csrc`` into one sm_90a
    library (``build/repro_torch_kernels/``), timed.
 3. Kernels: each of ``flash_fwd``, ``flash_bwd_fused``, ``flash_bwd_dq``,
-   ``flash_bwd_dkv``, ``xent_fwd``, ``xent_bwd`` and ``ssd_intra`` against
-   its plain PyTorch version on the same inputs, at the main paths' shapes
-   (qwen3-1.7b: server batch 8 x 512 tokens, Hkv 8, G 2, hd 128, bf16; xent
-   T = 8 x 511, D 2048, V 151936; mamba2-370m: server SSD (8, 8, 256, 32,
-   64) with N 128, the auxiliary clone's H 16, N 64), at a gemma2-style
+   ``flash_bwd_dkv``, ``xent_fwd``, ``xent_bwd``, ``ssd_intra`` and
+   ``ssd_intra_bwd`` against its plain PyTorch version on the same
+   inputs, at the main paths' shapes (qwen3-1.7b: server batch 8 x 512
+   tokens, Hkv 8, G 2, hd 128, bf16; xent T = 8 x 511, D 2048, V
+   151936; mamba2-370m: server SSD (8, 8, 256, 32, 64) with N 128, the
+   auxiliary clone's H 16, N 64), at a gemma2-style
    case (hd 256, window, softcaps 50 / 30), a ragged bf16 attention case
    (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
    the main attention shape in fp32 (the CUDA-core instantiations that
@@ -20,10 +21,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    tied auxiliary shape (T 2044), gemma2's softcap case (T 1024, V 256000)
    and the mamba2-370m server shape (T 16376, D 1024, V 50280, tied), and
    on the CUDA cores (fp32 h) at the qwen3 shape, each backward twice
+   (bit-identical); the SSD backward on all three SSD cases, twice
    (bit-identical); kernel, plain and library times with CUDA events
    (median of ``REPEATS`` timings after ``WARMUP`` calls, their range
-   beside it; SSD one timing).  The build prints ptxas's registers,
-   spills and static shared memory of the tensor-core xent kernels.
+   beside it; SSD one timing), and for the SSD backward the route it
+   replaced (autograd of the oracle ``ssd_intra_ref``, ``replaced_ms``).
+   The build prints ptxas's registers, spills and static shared memory of
+   the tensor-core xent kernels and the SSD backward kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
    configs from the same initial states on the card (kernels) and on the
    CPU (plain versions); the histories must agree.
@@ -37,10 +41,11 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
 6. Profile: one server train step of each main path at its shape (8 x 512
    qwen3-1.7b, 8 x 2048 mamba2-370m) under ``torch.profiler`` after one
    untimed step and 3 steps timed without it (CUDA events): device time
-   by kernel name (top 10), the xent kernels' share, and the device busy
-   share (union of kernel intervals over the unprofiled step's median
+   by kernel name (top 10), the xent and SSD kernels' shares, the device
+   busy share (union of kernel intervals over the unprofiled step's median
    time; over the profiled step's wall time beside it), or "not
-   measured" when the trace holds no device time.
+   measured" when the trace holds no device time, and the peak memory of
+   the timed steps.
 7. Split backward: one server train step of full-width, full-depth
    qwen3-1.7b (8 x 512) from the same state and batch through
    ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
@@ -59,7 +64,8 @@ over the full vocabulary.
 Tolerances: each kernel output within 1e-4 of its largest magnitude (fp32
 accumulation in another order; dQ through atomics in the fused backward).
 
-Prints one line per phase, then the kernels' JSON line (``launches`` the
+Prints one line per phase (the last, "total", the script's wall
+seconds), then the kernels' JSON line (``launches`` the
 sum over the three path runs of 5 and 7, ``launches_by_path`` each run's
 count; the attention and xent rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 CUDA-core ones behind the same wrappers, counted by
@@ -97,6 +103,7 @@ from repro_torch.interop import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ref as SR  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -132,11 +139,15 @@ KERNELS = {
                       "src/repro/kernels/xent/kernel.py:242"),
     "ssd_intra": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk/kernel.py:55"),
+    # the reference's VJP of ssd_intra_pallas (autograd of its oracle)
+    "ssd_intra_bwd": ("src/repro_torch/csrc/ssd_chunk.cu",
+                      "src/repro/kernels/ssd_chunk/ops.py:29"),
 }
 WRAPPERS = {"flash_fwd": FK.flash_fwd, "flash_bwd_fused": FK.flash_bwd_fused,
             "flash_bwd_dq": FK.flash_bwd_dq, "flash_bwd_dkv": FK.flash_bwd_dkv,
             "xent_fwd": XK.xent_fwd, "xent_bwd": XK.xent_bwd,
-            "ssd_intra": SK.ssd_intra_kernel}
+            "ssd_intra": SK.ssd_intra_kernel,
+            "ssd_intra_bwd": SK.ssd_intra_bwd_kernel}
 # rows whose wrapper launches a different kernel per dtype: (wrapper, dtype)
 FA_BY_DTYPE = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
                "flash_bwd_dkv")
@@ -156,7 +167,7 @@ MAIN_PATHS = {
     "qwen3-1.7b": dict(seq=512, lr=0.02, kernels=(
         "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
     "mamba2-370m": dict(seq=2048, lr=MAMBA_LR, kernels=(
-        "ssd_intra", "xent_fwd", "xent_bwd")),
+        "ssd_intra", "ssd_intra_bwd", "xent_fwd", "xent_bwd")),
 }
 SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
 TRAIN_SAMPLES = 64
@@ -169,8 +180,8 @@ WARMUP = 3               # attention: untimed calls before them
 ITERS_XENT = 2
 ITERS_SSD = 10
 # kernels whose ptxas report the build phase prints: the xent tensor-core
-# kernels and the split pre-pass
-PTXAS_REPORT = ("xent_tc_", "xent_split_")
+# kernels, the split pre-pass and the SSD backward
+PTXAS_REPORT = ("xent_tc_", "xent_split_", "ssd_bwd_")
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # bf16 split backward: allowed difference from fused, in multiples of the
@@ -440,8 +451,10 @@ def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
 
 
 def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
-    """ssd_intra against its plain version; inputs as the model makes them
-    (softplus-range dt, A in [-16, -1], a_cum its in-chunk cumsum)."""
+    """ssd_intra and its backward against their plain versions, the
+    backward twice (no atomics: bit-identical); inputs as the model makes
+    them (softplus-range dt, A in [-16, -1], a_cum its in-chunk cumsum),
+    cotangents standard normal."""
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((B, nc, Q, H, P), generator=gen, device=dev)
     dt = torch.rand((B, nc, Q, H), generator=gen, device=dev) * 0.1 + 1e-3
@@ -449,10 +462,21 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     a_cum = torch.cumsum(dt * a, dim=2)
     bm, cm = (torch.randn((B, nc, Q, N), generator=gen, device=dev)
               for _ in range(2))
+    dy = torch.randn((B, nc, Q, H, P), generator=gen, device=dev)
+    ds = torch.randn((B, nc, H, P, N), generator=gen, device=dev)
     args = (x, dt, a_cum, bm, cm)
     tag = f"B{B} nc{nc} Q{Q} H{H} P{P} N{N}"
     err = check(f"ssd_intra {tag}", SK.ssd_intra_kernel(*args),
                 SK.ssd_intra_plain(*args), 1e-4)
+    got = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    bwd_err = check(f"ssd_intra_bwd {tag}", got,
+                    SK.ssd_intra_bwd_plain(*args, dy, ds), 1e-4)
+    again = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("check", kernel=f"ssd_intra_bwd repeat {tag}", bit_identical=same)
+    if not same:
+        raise AssertionError(f"ssd_intra_bwd {tag}: two calls differ")
+    del got, again
     if not library:
         return None
     BC, pairs = B * nc, Q * (Q + 1) // 2
@@ -462,12 +486,39 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     flops = BC * (2 * pairs * N + H * (3 * pairs + 2 * pairs * P)
                   + H * (Q * N + 2 * Q * P * N))
     nbytes = 4 * BC * (2 * Q * H * P + 2 * Q * H + 2 * Q * N + H * P * N)
-    return {"ssd_intra": dict(
+    # backward: per (b, chunk) C.B^T again and dC, dB against dCB (2 N a
+    # pair each); per head dA and A^T dy (2 P a pair each), the weights
+    # (L, G, A, E, their sums and dCB's: 10 ops a pair), U = B dS^T and
+    # (w x)^T dS (2 Q P N each) and Z (2 Q P)
+    bwd_flops = BC * (6 * pairs * N + H * (4 * pairs * P + 10 * pairs
+                                           + 4 * Q * P * N + 2 * Q * P))
+    # x, dy, dx; dS; dt, a_cum, ddt, da_cum; B, C, dB, dC
+    bwd_bytes = 4 * BC * (3 * Q * H * P + H * P * N + 4 * Q * H + 4 * Q * N)
+    leaves = [t.detach().requires_grad_(True) for t in args]
+
+    def replaced():
+        with torch.enable_grad():
+            return torch.autograd.grad(SR.ssd_intra_ref(*leaves), leaves,
+                                       (dy, ds))
+
+    res = {"ssd_intra": dict(
         max_abs_err=err,
         ms=time_ms(lambda: SK.ssd_intra_kernel(*args), iters),
         plain_ms=time_ms(lambda: SK.ssd_intra_plain(*args), iters),
         bound=bound_ms(nbytes, flops, torch.float32),
         library_ms=None)}
+    res["ssd_intra_bwd"] = dict(
+        max_abs_err=bwd_err,
+        ms=time_ms(lambda: SK.ssd_intra_bwd_kernel(*args, dy, ds), iters),
+        plain_ms=time_ms(lambda: SK.ssd_intra_bwd_plain(*args, dy, ds),
+                         iters),
+        replaced_ms=time_ms(replaced, iters),
+        bound=bound_ms(bwd_bytes, bwd_flops, torch.float32),
+        library_ms=None)
+    log("timing", case=tag, iters=iters,
+        **{name: {k: v for k, v in r.items() if k != "max_abs_err"}
+           for name, r in res.items()})
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -632,16 +683,18 @@ def profile_step(dev, arch):
     and PROFILE_STEPS steps timed without the profiler (CUDA events; the
     profiler's CPU tracing slows the host's ~10^4 launches a step, so its
     wall time overstates the step): device time by kernel name (the
-    PROFILE_TOP largest), the xent kernels' share, and the device busy
-    share, the union of kernel intervals over the unprofiled step's
+    PROFILE_TOP largest), the xent and SSD kernels' shares, the device
+    busy share, the union of kernel intervals over the unprofiled step's
     median time (kernel durations do not depend on the host), with the
-    share over the profiled step's wall time beside it."""
+    share over the profiled step's wall time beside it, and the peak
+    memory of the timed steps."""
     model, run_cfg, srv, batch = server_step_inputs(dev, arch)
     step = steps.make_server_train_step(model, run_cfg, impl="kernel")
     state = steps.init_server_state(model, run_cfg, srv)
     del srv
     state, _ = step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     step_ms = []
     for _ in range(PROFILE_STEPS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -651,6 +704,7 @@ def profile_step(dev, arch):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
     step_ms_med = float(np.median(step_ms))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -671,19 +725,23 @@ def profile_step(dev, arch):
     if device_ms <= 0:
         log("profile", arch=arch, wall_s=wall, loss=loss,
             step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
-            device_time="not measured", device_busy_share="not measured")
+            peak_mem_gib=peak_gib, device_time="not measured",
+            device_busy_share="not measured")
         return
     union_ms = _union_us([(e.time_range.start, e.time_range.end)
                           for e in kernels]) / 1e3
     xent_ms = sum(ms for name, (ms, _) in by_name.items() if "xent" in name)
+    ssd_ms = sum(ms for name, (ms, _) in by_name.items() if "ssd_" in name)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
     log("profile", arch=arch, seq=MAIN_PATHS[arch]["seq"], batch=8,
         step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
-        wall_s=wall, loss=loss, device_ms=device_ms, device_union_ms=union_ms,
+        wall_s=wall, loss=loss, peak_mem_gib=peak_gib, device_ms=device_ms,
+        device_union_ms=union_ms,
         device_busy_share=union_ms / step_ms_med,
         device_busy_share_profiled=union_ms / 1e3 / wall,
         kernels=len(kernels), xent_ms=xent_ms,
-        xent_share_of_step=xent_ms / step_ms_med,
+        xent_share_of_step=xent_ms / step_ms_med, ssd_ms=ssd_ms,
+        ssd_share_of_step=ssd_ms / step_ms_med,
         top=[{"name": name[:120], "ms": ms, "calls": n}
              for name, (ms, n) in ranked])
 
@@ -775,6 +833,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -851,8 +910,9 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms"),
                      **{k: r[k] for k in ("ms_range", "library_ms_range",
-                                          "at_mamba2_shape")
+                                          "replaced_ms", "at_mamba2_shape")
                         if k in r}})
+    log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

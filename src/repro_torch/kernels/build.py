@@ -43,7 +43,10 @@ SIGNATURES = {
     "rt_xent_fwd_tc": [_P] * 8 + [_I] * 4 + [_LL, _LL, _F, _I, _P],
     "rt_xent_bwd_tc": [_P] * 11 + [_I] * 4 + [_LL] * 4 + [_F, _I, _I, _P],
     "rt_ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
+    "rt_ssd_intra_bwd_scratch_floats": [_I] * 3,
+    "rt_ssd_intra_bwd": [_P] * 13 + [_LL] + [_I] * 5 + [_P],
 }
+RESTYPES = {"rt_ssd_intra_bwd_scratch_floats": _LL}   # others return int
 
 _lock = threading.Lock()
 _lib = None
@@ -123,7 +126,7 @@ def bind(lib):
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     return lib

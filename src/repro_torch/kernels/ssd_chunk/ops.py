@@ -2,21 +2,21 @@
 ``repro.kernels.ssd_chunk.ops``.
 
 The forward runs :func:`~repro_torch.kernels.ssd_chunk.kernel.
-ssd_intra_kernel` (the Hopper kernel on CUDA tensors, its plain version on
-CPU tensors) and saves only the inputs.  The backward is the reference's
-own design (``repro/kernels/ssd_chunk/ops.py::_bwd``), not a fallback: it
-differentiates the quadratic oracle, recomputing ``ref.ssd_intra_ref``
-from the saved inputs under autograd.  The JAX package has no backward
-kernel for SSD, so neither has the port; a hand-written one is later work
-(ROADMAP.md queue B).
+ssd_intra_kernel` and saves only the inputs.  The backward runs
+:func:`~repro_torch.kernels.ssd_chunk.kernel.ssd_intra_bwd_kernel`, which
+recomputes C.B^T and the decays from them: the hand-written Hopper kernel
+on CUDA tensors, its plain version (explicit formulas, not autograd) on
+CPU tensors.  It computes the VJP that the reference's ``_bwd`` takes by
+differentiating the quadratic oracle ``ref.ssd_intra_ref``, which stays
+as the tests' oracle and the ``impl="xla"`` route of ``models/mamba.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd_chunk.kernel import ssd_intra_kernel
-from repro_torch.kernels.ssd_chunk.ref import ssd_intra_ref
+from repro_torch.kernels.ssd_chunk.kernel import (ssd_intra_bwd_kernel,
+                                                  ssd_intra_kernel)
 
 
 class _SSDIntra(torch.autograd.Function):
@@ -28,10 +28,7 @@ class _SSDIntra(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = ssd_intra_ref(*inputs)
-        return torch.autograd.grad(outs, inputs, (dy, ds))
+        return ssd_intra_bwd_kernel(*ctx.saved_tensors, dy, ds)
 
 
 def ssd_intra(xf, dtf, a_cum, Bf, Cf):

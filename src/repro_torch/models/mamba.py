@@ -6,7 +6,8 @@ chunks of length Q; within a chunk the quadratic (dual) form computes the
 causal contribution, between chunks a linear recurrence carries the
 (H, P, N) state.  Everything is fp32 inside the scan.  ``impl="kernel"``
 routes the intra-chunk term through :mod:`repro_torch.kernels.ssd_chunk`
-(the Hopper kernel on CUDA tensors); ``impl="xla"`` computes it with the
+(the Hopper kernels, forward and backward, on CUDA tensors);
+``impl="xla"`` computes it, and autograd its gradient, with the
 einsums of the oracle ``ssd_chunk.ref``, as the reference's default.
 
 Decode and prefill (``ssd_decode_step``, the conv streaming state, the

@@ -77,6 +77,9 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     bc = torch.empty((1, 2, 16, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         SK.ssd_intra_kernel(x, dt, dt, bc, bc)
+    ds = torch.empty((1, 2, 4, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.ssd_intra_bwd_kernel(x, dt, dt, bc, bc, x, ds)
 
 
 def test_missing_toolchain_and_failed_launch_raise(monkeypatch, tmp_path):
@@ -95,3 +98,19 @@ def test_missing_toolchain_and_failed_launch_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="invalid configuration"):
         build.check(FailingLib, 9, "flash_fwd")
     build.check(FailingLib, 0, "flash_fwd")      # success is silent
+
+    class FailingSSDLib(FailingLib):
+        @staticmethod
+        def rt_ssd_intra_bwd_scratch_floats(bc, q, h):
+            return bc * q * (q + h)          # one head group, one j tile
+
+        @staticmethod
+        def rt_ssd_intra_bwd(*args):
+            return 9
+
+    x = torch.zeros((1, 1, 8, 2, 4))
+    dt = torch.zeros((1, 1, 8, 2))
+    bc = torch.zeros((1, 1, 8, 4))
+    with pytest.raises(RuntimeError, match="ssd_intra_bwd: CUDA error 9"):
+        SK._launch_bwd(FailingSSDLib, 0, x, dt, dt, bc, bc, x,
+                       torch.zeros((1, 1, 2, 4, 4)))

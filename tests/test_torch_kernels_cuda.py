@@ -8,8 +8,9 @@ fixture).  Needs no JAX, so it runs on a machine that has only PyTorch:
 Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
 versions and the fused backward takes dQ's kv-tile partials through
-atomics.  The split backward has no atomics and must repeat bit for
-bit.  TF32 is off for the plain versions' matmuls.
+atomics.  The split attention backward and the SSD backward have no
+atomics and must repeat bit for bit.  TF32 is off for the plain
+versions' matmuls.
 """
 
 import numpy as np
@@ -143,11 +144,31 @@ def test_ssd_kernel_matches_plain(cuda, case):
         _close(a, b, 1e-5)
 
 
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_bwd_kernel_matches_plain(cuda, case):
+    """The backward kernel within 1e-4 of each gradient's scale of its plain
+    version; no atomics, so two calls are bit-identical."""
+    args = _ssd_inputs(case, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dy = torch.randn(args[0].shape, generator=gen, device=cuda)
+    B, nc, Q, H, P = args[0].shape
+    ds = torch.randn((B, nc, H, P, args[3].shape[-1]), generator=gen,
+                     device=cuda)
+    n0 = SK.ssd_intra_bwd_kernel.launches
+    got = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    assert SK.ssd_intra_bwd_kernel.launches == n0 + 1
+    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args, dy, ds)):
+        _close(a, b, 1e-4)
+    again = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_ssd_autograd_on_cuda_matches_cpu(cuda):
-    """ops.ssd_intra through the kernel on the card equals the plain path
-    on the CPU, forward and grad (the backward is the oracle's autograd on
-    both)."""
+    """ops.ssd_intra through the kernels on the card (forward and the
+    hand-written backward) equals the plain path on the CPU (the forward's
+    and the backward's plain versions), forward and grad."""
     outs = []
+    n0 = SK.ssd_intra_bwd_kernel.launches
     for dev in (cuda, torch.device("cpu")):
         args = [t.to(dev).requires_grad_(True)
                 for t in _ssd_inputs((2, 2, 32, 4, 16, 16), cuda)]
@@ -155,6 +176,7 @@ def test_ssd_autograd_on_cuda_matches_cpu(cuda):
         g = torch.autograd.grad(torch.sum(torch.sin(y)) + torch.sum(s ** 2),
                                 args)
         outs.append([y, s] + list(g))
+    assert SK.ssd_intra_bwd_kernel.launches == n0 + 1
     for a, b in zip(*outs):
         _close(a, b, 1e-4)
 

@@ -11,7 +11,8 @@ dynamic ``extern __shared__`` array points at the stub's per-block
 buffer.  Each block runs as its launch's threads.  This checks the
 kernels' indexing, masking, tile skipping, online statistics, chunking,
 atomics, the tensor-core fragment layouts of the bf16 attention and
-cross-entropy kernels and the ragged edges of the SSD tiles here; the
+cross-entropy kernels and the ragged edges of the SSD tiles, forward and
+backward, here; the
 real compiler and the timings are checked on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
 Tolerances (fp32 accumulation in another order; on the tensor-core
@@ -165,6 +166,45 @@ def test_ssd_kernel_emulated(lib, case):
     want = SK.ssd_intra_plain(x, dt, a_cum, bm, cm)
     for a, b in zip(got, want):
         _close(a, b, 1e-5)
+
+
+def _ssd_bwd_inputs(case, seed=7, decay=1.0):
+    B, nc, Q, H, P, N = case
+    rng = np.random.default_rng(seed)
+    x, dy = (torch.tensor(rng.normal(0, 1, (B, nc, Q, H, P)),
+                          dtype=torch.float32) for _ in range(2))
+    dt = torch.tensor(np.abs(rng.normal(0, 0.1, (B, nc, Q, H))) * decay,
+                      dtype=torch.float32)
+    a_cum = torch.cumsum(dt * -torch.tensor(rng.uniform(0.5, 2.0, H),
+                                            dtype=torch.float32), dim=2)
+    bm, cm = (torch.tensor(rng.normal(0, 1, (B, nc, Q, N)),
+                           dtype=torch.float32) for _ in range(2))
+    ds = torch.tensor(rng.normal(0, 1, (B, nc, H, P, N)), dtype=torch.float32)
+    return x, dt, a_cum, bm, cm, dy, ds
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_bwd_kernel_emulated(lib, case):
+    """The hand-written backward against its plain version, each gradient
+    within 1e-4 of its scale; no atomics, so two calls are bit-identical."""
+    args = _ssd_bwd_inputs(case)
+    got = SK._launch_bwd(lib, 0, *args)
+    want = SK.ssd_intra_bwd_plain(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, 1e-4)
+    again = SK._launch_bwd(lib, 0, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_bwd_kernel_emulated_large_decays(lib):
+    """a_cum spanning ~1e3 within a chunk: the kernel masks before the
+    exponential, so every gradient stays finite and matches the plain one."""
+    args = _ssd_bwd_inputs((1, 1, 100, 3, 16, 8), decay=400.0)
+    got = SK._launch_bwd(lib, 0, *args)
+    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args)):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, 1e-4)
 
 
 XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),

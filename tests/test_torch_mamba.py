@@ -8,6 +8,11 @@
   output's scale (the dt gradient reaches ~80, where fp32 einsums summed
   in another order differ by ~2e-5 in absolute terms), and the kernel's
   plain version against the port's oracle;
+- ``ssd_chunk.kernel.ssd_intra_bwd_plain`` (the backward's plain version,
+  explicit formulas) against ``jax.vjp`` of the JAX ``ssd_intra`` and
+  against torch autograd of the port's oracle, from the same numpy inputs
+  and cotangents, on every ``SSD_CASES`` row and a ragged one (1e-5 of
+  each gradient's scale), and finite under large decays;
 - ``ssd_chunked`` with both impls (port ``"xla"``/``"kernel"`` against JAX
   ``"xla"``/``"pallas"``), including S % Q != 0 and S < chunk (fp32, 1e-5
   forward, 1e-4 of each gradient's scale: the inter-chunk recurrence adds
@@ -105,6 +110,50 @@ def test_ssd_intra_ref_grads_are_finite_with_large_decays():
     arrs[2] = np.cumsum(-arrs[1], axis=2).astype(np.float32)
     targs = [torch.tensor(a, requires_grad=True) for a in arrs]
     grads = torch.autograd.grad(_loss_t(t_ssd_ops.ssd_intra(*targs)), targs)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+SSD_BWD_CASES = SSD_CASES + [(1, 1, 100, 9, 40, 24)]
+
+
+def _ssd_cotangents(case, seed=5):
+    B, nc, Q, H, P, N = case
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (B, nc, Q, H, P)).astype(np.float32),
+            rng.normal(0, 1, (B, nc, H, P, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=str)
+def test_ssd_intra_bwd_plain_matches_jax_vjp(case):
+    arrs = _ssd_inputs(case, seed=3)
+    cots = _ssd_cotangents(case)
+    _, vjp = jax.vjp(j_ssd_ops.ssd_intra, *(jnp.asarray(a) for a in arrs))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    got = SK.ssd_intra_bwd_plain(*(torch.tensor(a) for a in arrs + cots))
+    for name, a, b in zip(("x", "dt", "a_cum", "B", "C"), got, want):
+        assert a.shape == b.shape, name
+        _close(a, b, 1e-5, f"d{name}", scaled=True)
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=str)
+def test_ssd_intra_bwd_plain_matches_oracle_autograd(case):
+    arrs = _ssd_inputs(case, seed=4)
+    dy, ds = (torch.tensor(c) for c in _ssd_cotangents(case, seed=6))
+    targs = [torch.tensor(a, requires_grad=True) for a in arrs]
+    want = torch.autograd.grad(ssd_intra_ref(*targs), targs, (dy, ds))
+    got = SK.ssd_intra_bwd_plain(*(t.detach() for t in targs), dy, ds)
+    for name, a, b in zip(("x", "dt", "a_cum", "B", "C"), got, want):
+        _close(a, b.numpy(), 1e-5, f"d{name}", scaled=True)
+
+
+def test_ssd_intra_bwd_plain_grads_are_finite_with_large_decays():
+    """The plain backward masks before the exponential too."""
+    arrs = list(_ssd_inputs((1, 1, 32, 2, 4, 8), seed=2))
+    arrs[1] = arrs[1] * 400.0                      # dt -> a_cum spans ~1e3
+    arrs[2] = np.cumsum(-arrs[1], axis=2).astype(np.float32)
+    cots = _ssd_cotangents((1, 1, 32, 2, 4, 8))
+    grads = SK.ssd_intra_bwd_plain(*(torch.tensor(a)
+                                     for a in arrs + list(cots)))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
