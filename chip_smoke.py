@@ -25,7 +25,9 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    (bit-identical); kernel, plain and library times with CUDA events
    (median of ``REPEATS`` timings after ``WARMUP`` calls, their range
    beside it; SSD one timing), and for the SSD backward the route it
-   replaced (autograd of the oracle ``ssd_intra_ref``, ``replaced_ms``).
+   replaced (autograd of the oracle ``ssd_intra_ref``, ``replaced_ms``)
+   and its bound restated for the tensor cores (3 bf16 passes; the
+   fp32-FMA bound beside it on the "timing" line).
    The build prints ptxas's registers, spills and static shared memory of
    the tensor-core xent kernels and the SSD backward kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
@@ -41,11 +43,11 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
 6. Profile: one server train step of each main path at its shape (8 x 512
    qwen3-1.7b, 8 x 2048 mamba2-370m) under ``torch.profiler`` after one
    untimed step and 3 steps timed without it (CUDA events): device time
-   by kernel name (top 10), the xent and SSD kernels' shares, the device
-   busy share (union of kernel intervals over the unprofiled step's median
-   time; over the profiled step's wall time beside it), or "not
-   measured" when the trace holds no device time, and the peak memory of
-   the timed steps.
+   by kernel name (top 10), the xent and SSD kernels' shares, each SSD
+   kernel's time and calls, the device busy share (union of kernel
+   intervals over the unprofiled step's median time; over the profiled
+   step's wall time beside it), or "not measured" when the trace holds no
+   device time, and the peak memory of the timed steps.
 7. Split backward: one server train step of full-width, full-depth
    qwen3-1.7b (8 x 512) from the same state and batch through
    ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
@@ -450,6 +452,29 @@ def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
     return res
 
 
+def ssd_bwd_bound(B, nc, Q, H, P, N):
+    """(bound ms, by, bf16 passes, fp32-FMA bound ms) of the SSD backward.
+    Products: per (b, chunk) C.B^T again and dC, dB against dCB (2 N a
+    pair each); per head dA and A^T dy (2 P a pair each), U = B dS^T and
+    (w x)^T dS (2 Q P N each).  They run on the tensor cores as 3 bf16
+    passes over fp32 operands split into hi + lo.  Elementwise work on the
+    CUDA cores in fp32: the weights (L, G, A, E, their sums and dCB's: 10
+    ops a pair) and Z (2 Q P).  The two units overlap, so the operations
+    take the longer of the two.  Bytes: x, dy, dx; dS; dt, a_cum, ddt,
+    da_cum; B, C, dB, dC, each read or written once."""
+    BC, pairs = B * nc, Q * (Q + 1) // 2
+    products = BC * (6 * pairs * N + H * (4 * pairs * P + 4 * Q * P * N))
+    elementwise = BC * H * (10 * pairs + 2 * Q * P)
+    nbytes = 4 * BC * (3 * Q * H * P + H * P * N + 4 * Q * H + 4 * Q * N)
+    passes = 3
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(passes * products / PEAK_FLOPS[torch.bfloat16],
+                elementwise / PEAK_FLOPS[torch.float32])
+    fma_ms = bound_ms(nbytes, products + elementwise, torch.float32)[0]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", passes, fma_ms)
+
+
 def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     """ssd_intra and its backward against their plain versions, the
     backward twice (no atomics: bit-identical); inputs as the model makes
@@ -486,14 +511,7 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     flops = BC * (2 * pairs * N + H * (3 * pairs + 2 * pairs * P)
                   + H * (Q * N + 2 * Q * P * N))
     nbytes = 4 * BC * (2 * Q * H * P + 2 * Q * H + 2 * Q * N + H * P * N)
-    # backward: per (b, chunk) C.B^T again and dC, dB against dCB (2 N a
-    # pair each); per head dA and A^T dy (2 P a pair each), the weights
-    # (L, G, A, E, their sums and dCB's: 10 ops a pair), U = B dS^T and
-    # (w x)^T dS (2 Q P N each) and Z (2 Q P)
-    bwd_flops = BC * (6 * pairs * N + H * (4 * pairs * P + 10 * pairs
-                                           + 4 * Q * P * N + 2 * Q * P))
-    # x, dy, dx; dS; dt, a_cum, ddt, da_cum; B, C, dB, dC
-    bwd_bytes = 4 * BC * (3 * Q * H * P + H * P * N + 4 * Q * H + 4 * Q * N)
+    bwd_ms, bwd_by, passes, fma_ms = ssd_bwd_bound(B, nc, Q, H, P, N)
     leaves = [t.detach().requires_grad_(True) for t in args]
 
     def replaced():
@@ -513,11 +531,13 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
         plain_ms=time_ms(lambda: SK.ssd_intra_bwd_plain(*args, dy, ds),
                          iters),
         replaced_ms=time_ms(replaced, iters),
-        bound=bound_ms(bwd_bytes, bwd_flops, torch.float32),
+        bound=(bwd_ms, bwd_by),
         library_ms=None)
     log("timing", case=tag, iters=iters,
         **{name: {k: v for k, v in r.items() if k != "max_abs_err"}
-           for name, r in res.items()})
+           for name, r in res.items()},
+        ssd_intra_bwd_bound=dict(bound_ms=bwd_ms, by=bwd_by, passes=passes,
+                                 bound_fp32_fma_ms=fma_ms))
     return res
 
 
@@ -683,11 +703,11 @@ def profile_step(dev, arch):
     and PROFILE_STEPS steps timed without the profiler (CUDA events; the
     profiler's CPU tracing slows the host's ~10^4 launches a step, so its
     wall time overstates the step): device time by kernel name (the
-    PROFILE_TOP largest), the xent and SSD kernels' shares, the device
-    busy share, the union of kernel intervals over the unprofiled step's
-    median time (kernel durations do not depend on the host), with the
-    share over the profiled step's wall time beside it, and the peak
-    memory of the timed steps."""
+    PROFILE_TOP largest), the xent and SSD kernels' shares, each SSD
+    kernel's time and calls, the device busy share, the union of kernel
+    intervals over the unprofiled step's median time (kernel durations do
+    not depend on the host), with the share over the profiled step's wall
+    time beside it, and the peak memory of the timed steps."""
     model, run_cfg, srv, batch = server_step_inputs(dev, arch)
     step = steps.make_server_train_step(model, run_cfg, impl="kernel")
     state = steps.init_server_state(model, run_cfg, srv)
@@ -731,7 +751,8 @@ def profile_step(dev, arch):
     union_ms = _union_us([(e.time_range.start, e.time_range.end)
                           for e in kernels]) / 1e3
     xent_ms = sum(ms for name, (ms, _) in by_name.items() if "xent" in name)
-    ssd_ms = sum(ms for name, (ms, _) in by_name.items() if "ssd_" in name)
+    ssd = {name: v for name, v in by_name.items() if "ssd_" in name}
+    ssd_ms = sum(ms for ms, _ in ssd.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
     log("profile", arch=arch, seq=MAIN_PATHS[arch]["seq"], batch=8,
         step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
@@ -742,6 +763,9 @@ def profile_step(dev, arch):
         kernels=len(kernels), xent_ms=xent_ms,
         xent_share_of_step=xent_ms / step_ms_med, ssd_ms=ssd_ms,
         ssd_share_of_step=ssd_ms / step_ms_med,
+        ssd_kernels=[{"name": name[:120], "ms": ms, "calls": n,
+                      "ms_per_call": ms / n}
+                     for name, (ms, n) in sorted(ssd.items())],
         top=[{"name": name[:120], "ms": ms, "calls": n}
              for name, (ms, n) in ranked])
 

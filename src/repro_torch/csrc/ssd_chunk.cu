@@ -47,32 +47,52 @@
 // dB = dCB^T C + sum_h (w x) dS.  Nothing new is saved by the forward: CB
 // and L are recomputed from the inputs.
 //
-// What bounds it: at the main shape the call does ~37 GFLOP (per head the
-// causal halves of dA and of A^T dy, the state products U and (w x)^T dS;
-// per (b·chunk) C.B^T once and dB, dC against dCB) and moves ~0.51 GB,
-// so fp32 operations bound it (~0.55 ms at 67 TFLOP/s), by ~3.6x over
-// bytes.  All of it runs as fp32 FMAs on the CUDA cores, as the forward.
-// What the design does about the bound:
+// Every product runs on the tensor cores (tensor_core.cuh): warp-level
+// mma.sync m16n8k16 bf16 -> fp32, each fp32 operand split into bf16 hi +
+// lo (rt::split_bf16x2) as it is staged in shared memory, three passes
+// (hi.hi, hi.lo, lo.hi) per k-step into a fresh fragment that is then
+// added in fp32 (the tensor cores round their sums toward zero, which
+// dB's K = H P chain would accumulate).  The elementwise work between the
+// products (L masked before the exponential, G, A, E, the dCB sum in head
+// order, the column sums) stays in fp32 on the CUDA cores.
+//
+// What bounds it: at the main shape (8, 8, 256, 32, 64, N 128) the
+// products are ~36 GFLOP (~108 at 3 passes, 0.109 ms at 989 TFLOP/s), the
+// elementwise work ~0.74 GFLOP, and the call moves ~0.51 GB (0.153 ms),
+// so bytes bound it on paper.  In practice neither does: cutting parts
+// of ssd_bwd_dx_kernel on the H100 (scripts/torch_ssd_bwd_probe.py,
+// PERF.md) saves about a quarter of its time for the fp32 elementwise
+// stage, another quarter for the dA and dx products together, a ninth
+// for the next head's loads; the rest is the other products, the loads
+// and hi/lo splits of the operand tiles and the barriers between them,
+// at 8 warps per SM (a CTA holds 231 KB of shared memory; 16 warps of
+// smaller tiles ran slower).  What the design does about it:
 // - ssd_bwd_dx_kernel: one CTA per (b·chunk, 64-column j tile, group of 8
-//   heads).  It computes the (Q - j0) x 64 strip of C.B^T once into shared
-//   memory and reuses it for its heads; per head it keeps x_j and the dx_j
-//   accumulator resident while it walks the q tiles on and below the
-//   diagonal (tiles above it are skipped), so each dA tile is formed once
-//   and feeds dx, ddt and dacum's column sums in registers.  dCB for the
-//   group is summed over its heads in shared memory, in head order, and
-//   written once to a (b·chunk, group, Q, Q) scratch; the rows of E are
-//   summed per j tile into a second scratch.  The CTAs of j tile 0 (the
-//   most q tiles) are scheduled first.
+//   heads), j tile 0 (the most q tiles) first.  C.B^T is computed once per
+//   CTA and kept, with the group's dCB, as fp32 fragments in shared
+//   memory that only their own thread reads (no barriers on them); B_j
+//   stays split for the whole CTA.  dA^T is formed with j as its rows, so
+//   that its accumulator fragment, weighted into A^T and split in
+//   registers, is the A operand of dx_j += A^T dy_q as it stands: A never
+//   goes through shared memory, the dy tiles are double-buffered, and a q
+//   tile needs one barrier.  Each warp sums dx over its q half; the two
+//   halves are added in a fixed order.  A head's x and dS load during the
+//   last q tile of the head before, the next dy tile during the current
+//   one; off-diagonal tiles skip the mask.
 // - ssd_bwd_dcb_sum_kernel: sums the groups' dCB partials, in group order,
 //   into group 0's slot, once, on and below the diagonal (with one group
 //   it is not launched).
 // - ssd_bwd_dbc_kernel: one CTA per (b·chunk, 64-row tile, 64-column N
-//   tile) forms dC and dB as products with that dCB sum and the state part
-//   of dB over (head, p); the CTAs of N tile 0 also add the row sums to
-//   dacum.
-// No atomics: every sum runs in a fixed order, so two calls give
-// bit-identical gradients.
+//   tile), 2 per SM: dC and dB as products with that dCB sum, then the
+//   state part of dB over (head, p), K = H P, head h + 1's tiles loading
+//   (and its w_j formed once per row) while head h multiplies; the CTAs
+//   of N tile 0 also add the row sums to dacum.
+// No atomics: every sum runs in a fixed order and mma.sync is
+// deterministic, so two calls give bit-identical gradients.
+#include <cstdint>
+
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -85,7 +105,7 @@ constexpr int kNK = 32;   // N chunk of the C.B^T product
 constexpr int kHG = 8;    // heads per CTA sharing one C.B^T strip
 constexpr int kBJ = 32;   // Q rows per tile (state part)
 constexpr int kLNK = kNK + 1, kLX = kMaxP + 1, kLA = kBK + 1;
-constexpr int kBT = 64;   // backward: q and j tile (= kBK)
+constexpr int kT = 64;    // backward: q, j, p and N tile
 constexpr int kBHG = 8;   // backward: heads per CTA sharing C.B^T and dCB
 
 __host__ __device__ constexpr int cb_stride(int Q) {
@@ -293,12 +313,160 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: every product on the tensor cores (tensor_core.cuh)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kLH = kT + 8;        // bf16 row stride of a split tile: 144 B
+constexpr int kTileH = kT * kLH;   // elements of one half (hi or lo)
+constexpr int kSplit = 2 * kTileH; // elements of a split tile
+constexpr int kFrag = 16;          // fp32 per thread of a 64 x 64 tile
+
+__device__ __forceinline__ int ksteps(int k) { return (min(k, kT) + 15) / 16; }
+
+__device__ __forceinline__ void zero_frag(float (&a)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
+}
+
+// This thread's share of a 64 x 64 fp32 tile: pair i is row
+// (tid + 256 i) / 32, columns 2 ((tid + 256 i) % 32) + (0, 1), so each
+// warp reads one 256-B row.  at(r, c) gives the element, or 0 outside
+// the data (the zero padding of ragged Q, P and N).
+template <class F>
+__device__ __forceinline__ void tile_load(float (&v)[kFrag], F at) {
+#pragma unroll
+  for (int i = 0; i < kFrag / 2; ++i) {
+    const int e = threadIdx.x + kThreads * i, r = e / 32, c = e % 32 * 2;
+    v[2 * i] = at(r, c);
+    v[2 * i + 1] = at(r, c + 1);
+  }
+}
+
+// rows [r0, r0 + 64) x columns [c0, c0 + 64) of a row-major fp32 matrix
+// (row stride ld) of nrows x ncols
+__device__ __forceinline__ void tile_load_rm(float (&v)[kFrag],
+                                             const float* m, size_t ld,
+                                             int r0, int c0, int nrows,
+                                             int ncols) {
+  tile_load(v, [&](int r, int c) {
+    return r0 + r < nrows && c0 + c < ncols
+               ? m[(size_t)(r0 + r) * ld + c0 + c]
+               : 0.f;
+  });
+}
+
+// The loaded share split into bf16 hi (at t) and lo (at t + kTileH),
+// rows of kLH elements: conflict-free stores and ldmatrix reads.
+__device__ __forceinline__ void tile_store(bf16* t, const float (&v)[kFrag]) {
+#pragma unroll
+  for (int i = 0; i < kFrag / 2; ++i) {
+    const int e = threadIdx.x + kThreads * i, r = e / 32, c = e % 32 * 2;
+    uint32_t hi, lo;
+    rt::split_bf16x2(v[2 * i], v[2 * i + 1], hi, lo);
+    *reinterpret_cast<uint32_t*>(t + r * kLH + c) = hi;
+    *reinterpret_cast<uint32_t*>(t + kTileH + r * kLH + c) = lo;
+  }
+}
+
+// acc += A B on this warp's 16 x 32 block at (m0, n0) of a 64 x 64
+// output, for k-step kk of split tiles A (stored [m][k], or [k][m] with
+// kAT) and B (stored [n][k], or [k][n] with kBT).  The passes hi.hi,
+// hi.lo and lo.hi (lo.lo, ~2^-16 relative, is dropped) go into a fresh
+// fragment, which is then added to acc in fp32: the tensor cores round
+// their sums toward zero, the fp32 add to nearest, so the long chain of
+// dB's state part (K = H P) does not drift.
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void mma3_kstep(float (&acc)[4][4], const bf16* A,
+                                           const bf16* B, int m0, int n0,
+                                           int kk) {
+  const int ao = kAT ? rt::tc_akm_off(16 * kk, m0, kLH)
+                     : rt::tc_a_off(m0, 16 * kk, kLH);
+  uint32_t ah[4], al[4], bh[2][4], bl[2][4];
+  if (kAT) {
+    rt::ldmatrix_x4_trans(ah, A + ao);
+    rt::ldmatrix_x4_trans(al, A + kTileH + ao);
+  } else {
+    rt::ldmatrix_x4(ah, A + ao);
+    rt::ldmatrix_x4(al, A + kTileH + ao);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int bo = kBT ? rt::tc_bkn_off(16 * kk, n0 + 16 * j, kLH)
+                       : rt::tc_bnk_off(n0 + 16 * j, 16 * kk, kLH);
+    if (kBT) {
+      rt::ldmatrix_x4_trans(bh[j], B + bo);
+      rt::ldmatrix_x4_trans(bl[j], B + kTileH + bo);
+    } else {
+      rt::ldmatrix_x4(bh[j], B + bo);
+      rt::ldmatrix_x4(bl[j], B + kTileH + bo);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const uint32_t* b = bh[n / 2] + 2 * (n % 2);
+    const uint32_t* c = bl[n / 2] + 2 * (n % 2);
+    float f[4];
+    rt::mma_bf16_zc(f, ah, b[0], b[1]);
+    rt::mma_bf16(f, ah, c[0], c[1]);
+    rt::mma_bf16(f, al, b[0], b[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += f[e];
+  }
+}
+
+// k-steps [0, ks) of mma3_kstep: unrolled (ks <= 4) for part 1, where the
+// independent k-steps overlap; a plain loop for part 2, whose 128
+// registers (2 CTAs per SM) leave no room for that.
+template <bool kAT, bool kBT, bool kUnrolled = true>
+__device__ __forceinline__ void warp_mma3(float (&acc)[4][4], const bf16* A,
+                                          const bf16* B, int m0, int n0,
+                                          int ks) {
+  if (kUnrolled) {
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      if (kk < ks) mma3_kstep<kAT, kBT>(acc, A, B, m0, n0, kk);
+  } else {
+    for (int kk = 0; kk < ks; ++kk)
+      mma3_kstep<kAT, kBT>(acc, A, B, m0, n0, kk);
+  }
+}
+
+// This warp's fragment of a 64 x 64 output tile at (r0, c0) of a
+// row-major fp32 matrix (row stride ld) of nrows x ncols.  Fragment
+// element (n, e) of lane (g, t) is row m0 + g + 8 (e / 2), column
+// n0 + 8 n + 2 t + e % 2 of the tile.
+__device__ __forceinline__ void frag_store(float* m, size_t ld, int r0,
+                                           int c0, int nrows, int ncols,
+                                           int m0, int n0,
+                                           const float (&acc)[4][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + m0 + g + 8 * (e / 2), c = c0 + n0 + 8 * n + 2 * t
+                                                   + e % 2;
+      if (r < nrows && c < ncols) m[(size_t)r * ld + c] = acc[n][e];
+    }
+}
+
 // Backward, part 1: grid (njt * nhg * BC) with the j tile slowest, so the
-// CTAs of j tile 0 (the most q tiles) run first; 256 threads as 16 x 16.
+// CTAs of j tile 0 (the most q tiles) run first.  8 warps: warp w owns j
+// rows m0 = 16 (w / 2) and the q half qh = 32 (w % 2) of every (j, q)
+// tile (dA^T, C.B^T, dCB), and so the p half qh of U.  dA^T is formed
+// with j as its rows so that its accumulator fragment, once weighted
+// into A^T and split, is already the A operand of dx_j += A^T dy_q: A
+// never goes through shared memory, and each warp sums dx over its q half
+// (the two halves are added in a fixed order at the head's end).
 // Writes dx, ddt, dacum's column and state parts, the group's dCB partial
 // (dcbp, (BC, nhg, Q, Q), rows q >= j0 of the tile's columns) and the
 // tile's row sums of E (rowp, (BC, njt, Q, H)).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ acum, const float* __restrict__ Bm,
                   const float* __restrict__ Cm, const float* __restrict__ dy,
@@ -306,258 +474,315 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   float* __restrict__ ddt, float* __restrict__ dacum,
                   float* __restrict__ dcbp, float* __restrict__ rowp, int BC,
                   int Q, int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int R = ((Q + kBT - 1) / kBT) * kBT;
-  float* sCB = smem;                  // R x kLA: C[j0 + i] . B[j0 + jj]
-  float* sDCB = sCB + R * kLA;        // R x kLA: sum over heads of G dt_j
-  float* work = sDCB + R * kLA;
-  float* sC = work;                   // C.B^T: kBT x kLNK each
-  float* sB = sC + kBT * kLNK;
-  float* sX = work;                   // per head: x_j, kBT x kLX
-  float* sDY = sX + kBT * kLX;        // dy_q tile, kBT x kLX
-  float* sA = sDY + kBT * kLX;        // A[q][j] tile, kBT x kLA
-  float* sBn = sDY;                   // state part: B_j chunk, kBT x kLNK
-  float* sDS = sA;                    // state part: dS chunk, kBT x kLNK
-  float* sRedG = sDY;                 // column sums: 16 x kBT each
-  float* sRedE = sA;
-  float* sAcJ = sA + kBT * kLA;       // kBT each
-  float* sDtJ = sAcJ + kBT;
-  float* sAcQ = sDtJ + kBT;
-  float* sWZ = sAcQ + kBT;
-  float* sDdt = sWZ + kBT;
-  float* sDac = sDdt + kBT;
+  extern __shared__ __align__(16) float smem[];
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  // this thread's fragments of C.B^T and of the group's dCB, per q tile
+  // on and below the diagonal: [qt - jt][4 n + e][tid], each element
+  // written and read by its own thread only
+  float* sCB = smem;
+  float* sDCB = sCB + njt * kFrag * kThreads;
+  // B_j's N chunks, split, for the whole CTA
+  bf16* sBj = reinterpret_cast<bf16*>(sDCB + njt * kFrag * kThreads);
+  bf16* sX = sBj + 2 * kSplit;
+  // two split tiles: C or dS chunks, or dy_q in turns; at a head's end the
+  // q half 1 warps' dx partials (32 x 128 floats)
+  bf16* sOp = sX + kSplit;
+  float* sXch = reinterpret_cast<float*>(sOp);
+  float* sAcJ = reinterpret_cast<float*>(sOp + 2 * kSplit);  // kT each
+  float* sDtJ = sAcJ + kT;
+  float* sAcQ = sDtJ + kT;      // 2 x kT, with dy_q's buffer
+  float* sWZ = sAcQ + 2 * kT;
+  float* sDdt = sWZ + kT;
+  float* sDac = sDdt + kT;
+  float* sZ = sDac + kT;        // 2 x kT: Z per p half
+  float* sRedG = sZ + 2 * kT;   // 2 x kT: G CB's row sums per q half
+  float* sRedE = sRedG + 2 * kT;
+  float* sRowP = sRedE + 2 * kT;  // njt x 4 x kT: E's column sums per j block
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int njt = (Q + kBT - 1) / kBT, nhg = (H + kBHG - 1) / kBHG;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = warp / 2 * 16, half = warp % 2, qh = half * 32;
   const int jt = (int)(blockIdx.x / (nhg * BC));
   const int rem = (int)(blockIdx.x % (nhg * BC));
   const size_t bc = rem / nhg;
   const int hg = rem % nhg;
   const int h0 = hg * kBHG, h1 = min(h0 + kBHG, H);
-  const int j0 = jt * kBT;
+  const int j0 = jt * kT;
+  const int nch = (N + kT - 1) / kT;  // N chunks: 1 or 2
+  const size_t HP = (size_t)H * P;
   const float* Cg = Cm + bc * Q * N;
   const float* Bg = Bm + bc * Q * N;
+  float v[kFrag], vc[kMaxN / kT][kFrag];
 
-  // sCB[q - j0][jj] = C[q] . B[j0 + jj] for the q tiles on and below the
-  // diagonal
-  for (int qt = jt; qt < njt; ++qt) {
-    const int q0 = qt * kBT;
-    float cb[4][4];
+  // C.B^T, transposed: (j rows, q columns) on the q tiles on and below the
+  // diagonal, both N chunks at once; the next q tile's C loads while this
+  // one multiplies
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cb[r][c] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += kNK) {
-      __syncthreads();  // previous chunk's reads done
-      for (int e = tid; e < kBT * kNK; e += kThreads) {
-        const int r = e / kNK, c = e % kNK;
-        const bool in = n0 + c < N;
-        sC[r * kLNK + c] =
-            (in && q0 + r < Q) ? Cg[(size_t)(q0 + r) * N + n0 + c] : 0.f;
-        sB[r * kLNK + c] =
-            (in && j0 + r < Q) ? Bg[(size_t)(j0 + r) * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < kNK; ++n) {
-        float bv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = sB[(tx + 16 * c) * kLNK + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float cv = sC[(ty * 4 + r) * kLNK + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) cb[r][c] += cv * bv[c];
-        }
-      }
+  for (int c = 0; c < kMaxN / kT; ++c)
+    if (c < nch) {
+      tile_load_rm(v, Bg, N, j0, c * kT, Q, N);
+      tile_load_rm(vc[c], Cg, N, j0, c * kT, Q, N);
+      tile_store(sBj + c * kSplit, v);
     }
+  for (int qt = jt; qt < njt; ++qt) {
+    if (qt > jt) __syncthreads();  // previous tile's reads done
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch) tile_store(sOp + c * kSplit, vc[c]);
+    __syncthreads();
+    if (qt + 1 < njt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        sCB[(q0 - j0 + ty * 4 + r) * kLA + tx + 16 * c] = cb[r][c];
+      for (int c = 0; c < kMaxN / kT; ++c)
+        if (c < nch) tile_load_rm(vc[c], Cg, N, (qt + 1) * kT, c * kT, Q, N);
+    float acc[4][4];
+    zero_frag(acc);
+#pragma unroll
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch)
+        warp_mma3<false, false>(acc, sBj + c * kSplit, sOp + c * kSplit, m0,
+                                qh, ksteps(N - c * kT));
+    float* cb = sCB + (qt - jt) * kFrag * kThreads + tid;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cb[(4 * n + e) * kThreads] = acc[n][e];
   }
 
+  // a head's x_j (v) and dS chunks (vc): the first head's here, each
+  // next one's during the last q tile of the head before
+  auto load_head = [&](int h) {
+#pragma unroll
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch)
+        tile_load_rm(vc[c], dS + (bc * H + h) * (size_t)P * N, N, 0, c * kT,
+                     P, N);
+    tile_load_rm(v, x + bc * Q * HP + (size_t)h * P, HP, j0, 0, Q, P);
+  };
+  load_head(h0);
   for (int h = h0; h < h1; ++h) {
     const float ac_last = acum[(bc * Q + Q - 1) * H + h];
+    const float* dyh = dy + bc * Q * HP + (size_t)h * P;  // row q at q HP
     __syncthreads();  // previous head's (or C.B^T's) reads done
-    for (int e = tid; e < kBT * kMaxP; e += kThreads) {
-      const int r = e / kMaxP, p = e % kMaxP;
-      sX[r * kLX + p] = (j0 + r < Q && p < P)
-                            ? x[((bc * Q + j0 + r) * H + h) * P + p]
-                            : 0.f;
-    }
-    if (tid < kBT) {
+    tile_store(sX, v);
+#pragma unroll
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch) tile_store(sOp + c * kSplit, vc[c]);
+    tile_load_rm(v, dyh, HP, j0, 0, Q, P);
+    if (tid < kT) {
       const bool in = j0 + tid < Q;
       const size_t i = (bc * Q + j0 + tid) * H + h;
       sAcJ[tid] = in ? acum[i] : 0.f;
       sDtJ[tid] = in ? dt[i] : 0.f;
     }
-
-    // state part: U[j][p] = B_j . dS[p] (thread: j = ty*4 + r, p = tx + 16c)
-    const float* dSg = dS + (bc * H + h) * (size_t)P * N;
-    float dxa[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dxa[r][c] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += kNK) {
-      __syncthreads();
-      for (int e = tid; e < kBT * kNK; e += kThreads) {
-        const int r = e / kNK, c = e % kNK;
-        const bool in = n0 + c < N;
-        sBn[r * kLNK + c] =
-            (in && j0 + r < Q) ? Bg[(size_t)(j0 + r) * N + n0 + c] : 0.f;
-        sDS[r * kLNK + c] =
-            (in && r < P) ? dSg[(size_t)r * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < kNK; ++n) {
-        float dv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dv[c] = sDS[(tx + 16 * c) * kLNK + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float bv = sBn[(ty * 4 + r) * kLNK + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dxa[r][c] += bv * dv[c];
-        }
-      }
-    }
-    // Z_j = x_j . U_j; dx starts as w_j U_j
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int jj = ty * 4 + r;
-      const float ed = j0 + jj < Q ? expf(ac_last - sAcJ[jj]) : 0.f;
-      const float w = ed * sDtJ[jj];
-      float z = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        z += sX[jj * kLX + tx + 16 * c] * dxa[r][c];
-        dxa[r][c] *= w;
-      }
-      z = rt::row_sum16(z);
-      if (tx == 0) {
-        sDdt[jj] = ed * z;
-        sDac[jj] = -w * z;
-        sWZ[jj] = w * z;
-      }
-    }
-
-    float colG[4], colE[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) colG[c] = colE[c] = 0.f;
-    for (int qt = jt; qt < njt; ++qt) {
-      const int q0 = qt * kBT;
-      __syncthreads();  // previous tile's (or the state part's) reads done
-      for (int e = tid; e < kBT * kMaxP; e += kThreads) {
-        const int r = e / kMaxP, p = e % kMaxP;
-        sDY[r * kLX + p] = (q0 + r < Q && p < P)
-                               ? dy[((bc * Q + q0 + r) * H + h) * P + p]
-                               : 0.f;
-      }
-      if (tid < kBT)
-        sAcQ[tid] = q0 + tid < Q ? acum[(bc * Q + q0 + tid) * H + h] : 0.f;
-      __syncthreads();
-      // dA[q][j] = dy_q . x_j (thread: q = ty*4 + r, j = tx + 16c)
-      float da[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) da[r][c] = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < P; ++p) {
-        float xv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) xv[c] = sX[(tx + 16 * c) * kLX + p];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float dv = sDY[(ty * 4 + r) * kLX + p];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) da[r][c] += dv * xv[c];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qq = ty * 4 + r, q = q0 + qq;
-        float rowE = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int jj = tx + 16 * c;
-          const int i = (q0 - j0 + qq) * kLA + jj;
-          float a = 0.f, g = 0.f;
-          // masked before the exponential: exp(-inf) = 0 above the diagonal
-          if (j0 + jj <= q && q < Q) {
-            const float l = expf(sAcQ[qq] - sAcJ[jj]);
-            const float cb = sCB[i];
-            g = da[r][c] * l;
-            a = cb * l * sDtJ[jj];
-            const float e = da[r][c] * a;
-            colG[c] += g * cb;
-            colE[c] += e;
-            rowE += e;
-          }
-          sA[qq * kLA + jj] = a;
-          const float dcb = g * sDtJ[jj];
-          sDCB[i] = h == h0 ? dcb : sDCB[i] + dcb;
-        }
-        rowE = rt::row_sum16(rowE);
-        if (tx == 0 && q < Q) {
-          if (q == Q - 1)  // dacum_last += sum_j w_j Z_j over this j tile
-            for (int k = 0; k < kBT; ++k) rowE += sWZ[k];
-          rowp[(((size_t)bc * njt + jt) * Q + q) * H + h] = rowE;
-        }
-      }
-      __syncthreads();  // sA complete
-      // dx[j][p] += sum_q A[q][j] dy[q][p] (thread: j = ty*4 + r, p = tx+16c)
-#pragma unroll 8
-      for (int qq = 0; qq < kBT; ++qq) {
-        float dv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dv[c] = sDY[qq * kLX + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float a = sA[qq * kLA + ty * 4 + r];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dxa[r][c] += a * dv[c];
-        }
-      }
-    }
-
-    __syncthreads();  // last tile's reads done: sDY, sA hold the column sums
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      sRedG[ty * kBT + tx + 16 * c] = colG[c];
-      sRedE[ty * kBT + tx + 16 * c] = colE[c];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty * 4 + r;
-      if (j >= Q) continue;
-      float* o = dx + ((bc * Q + j) * H + h) * P;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (tx + 16 * c < P) o[tx + 16 * c] = dxa[r][c];
-    }
     __syncthreads();
-    if (tid < kBT && j0 + tid < Q) {
-      float g = 0.f, e = 0.f;
-      for (int k = 0; k < 16; ++k) {
-        g += sRedG[k * kBT + tid];
-        e += sRedE[k * kBT + tid];
+    // this thread's rows' a_cum and dt
+    const float acj[2] = {sAcJ[m0 + g], sAcJ[m0 + g + 8]};
+    const float dtj[2] = {sDtJ[m0 + g], sDtJ[m0 + g + 8]};
+
+    // state part: U = B_j dS^T on this warp's p half
+    float u[4][4];
+    zero_frag(u);
+#pragma unroll
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch)
+        warp_mma3<false, false>(u, sBj + c * kSplit, sOp + c * kSplit, m0,
+                                qh, ksteps(N - c * kT));
+    // Z_j = x_j . U_j (x from its split halves); U becomes w_j U_j
+    float z[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = (m0 + g + 8 * (e / 2)) * kLH + qh + 8 * n + 2 * t
+                       + e % 2;
+        const float xv = __bfloat162float(sX[at]) +
+                         __bfloat162float(sX[kTileH + at]);
+        z[e / 2] += xv * u[n][e];
       }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int jj = m0 + g + 8 * hh;
+      z[hh] = rt::quad_sum(z[hh]);
+      if (t == 0) sZ[half * kT + jj] = z[hh];
+      const float w = j0 + jj < Q ? expf(ac_last - acj[hh]) * dtj[hh] : 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        u[n][2 * hh] *= w;
+        u[n][2 * hh + 1] *= w;
+      }
+    }
+    __syncthreads();  // sZ complete; every warp's reads of sOp done
+    if (tid < kT) {
+      const float zz = sZ[tid] + sZ[kT + tid];
+      const float ed = j0 + tid < Q ? expf(ac_last - sAcJ[tid]) : 0.f;
+      const float w = ed * sDtJ[tid];
+      sDdt[tid] = ed * zz;
+      sDac[tid] = -w * zz;
+      sWZ[tid] = w * zz;
+    }
+
+    // dx_j partial over this warp's q half (16 j rows x 64 p columns),
+    // starting from w U on this warp's p half
+    float dxa[8][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dxa[n][e] = half ? 0.f : u[n][e];
+        dxa[4 + n][e] = half ? u[n][e] : 0.f;
+      }
+    float colG[2] = {0.f, 0.f}, colE[2] = {0.f, 0.f};
+    for (int qt = jt; qt < njt; ++qt) {
+      const int q0 = qt * kT, b = (qt - jt) & 1;
+      // dy_q into buffer b: its readers two tiles ago are past the
+      // barrier of the tile between
+      bf16* sDY = sOp + b * kSplit;
+      tile_store(sDY, v);
+      if (tid < kT)
+        sAcQ[b * kT + tid] =
+            q0 + tid < Q ? acum[(bc * Q + q0 + tid) * H + h] : 0.f;
+      __syncthreads();
+      if (qt + 1 < njt) tile_load_rm(v, dyh, HP, q0 + kT, 0, Q, P);
+      else if (h + 1 < h1) load_head(h + 1);
+      // dA^T = x_j dy_q^T (j rows, q columns)
+      float da[4][4];
+      zero_frag(da);
+      warp_mma3<false, false>(da, sX, sDY, m0, qh, ksteps(P));
+      const float* cb = sCB + (qt - jt) * kFrag * kThreads + tid;
+      float* dcb = sDCB + (qt - jt) * kFrag * kThreads + tid;
+      const bool full = qt > jt && q0 + kT <= Q;  // no pair masked
+      float acq[4][2], rowE[4][2];  // this thread's columns' a_cum
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          acq[n][c] = sAcQ[b * kT + qh + 8 * n + 2 * t + c];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = m0 + g + 8 * (e / 2), qq = qh + 8 * n + 2 * t + e % 2;
+          const int q = q0 + qq;
+          float a = 0.f, gv = 0.f, ev = 0.f;
+          // masked before the exponential: exp(-inf) = 0 above the diagonal
+          if (full || (j0 + jj <= q && q < Q)) {
+            const float l = expf(acq[n][e % 2] - acj[e / 2]);
+            const float cbv = cb[(4 * n + e) * kThreads];
+            gv = da[n][e] * l;
+            a = cbv * l * dtj[e / 2];
+            ev = da[n][e] * a;
+            colG[e / 2] += gv * cbv;
+            colE[e / 2] += ev;
+          }
+          if (e < 2) rowE[n][e] = ev;
+          else rowE[n][e - 2] += ev;
+          da[n][e] = a;
+          const float d = gv * dtj[e / 2];
+          float& s = dcb[(4 * n + e) * kThreads];
+          s = h == h0 ? d : s + d;
+        }
+      // E's column sums (its rows q) over this warp's 16 j rows
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float s = rowE[n][c];
+          for (int o = 4; o < 32; o <<= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (g == 0)
+            sRowP[((qt - jt) * 4 + warp / 2) * kT + qh + 8 * n + 2 * t + c] =
+                s;
+        }
+      // dx_j += A^T dy_q over this warp's q half: A^T's fragment is the
+      // A operand of k-steps (n-tiles 2 kk, 2 kk + 1) as it stands
+      if (q0 + qh < Q) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t ah[4], al[4];
+          rt::split_bf16x2(da[2 * kk][0], da[2 * kk][1], ah[0], al[0]);
+          rt::split_bf16x2(da[2 * kk][2], da[2 * kk][3], ah[1], al[1]);
+          rt::split_bf16x2(da[2 * kk + 1][0], da[2 * kk + 1][1], ah[2],
+                           al[2]);
+          rt::split_bf16x2(da[2 * kk + 1][2], da[2 * kk + 1][3], ah[3],
+                           al[3]);
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb) {
+            const int bo = rt::tc_bkn_off(qh + 16 * kk, 16 * jb, kLH);
+            uint32_t bh[4], bl[4];
+            rt::ldmatrix_x4_trans(bh, sDY + bo);
+            rt::ldmatrix_x4_trans(bl, sDY + kTileH + bo);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              float f[4];
+              rt::mma_bf16_zc(f, ah, bh[2 * s], bh[2 * s + 1]);
+              rt::mma_bf16(f, ah, bl[2 * s], bl[2 * s + 1]);
+              rt::mma_bf16(f, al, bh[2 * s], bh[2 * s + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dxa[2 * jb + s][e] += f[e];
+            }
+          }
+        }
+      }
+    }
+
+    __syncthreads();  // every warp's reads of the dy buffers done
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float gs = rt::quad_sum(colG[hh]), es = rt::quad_sum(colE[hh]);
+      if (t == 0) {
+        sRedG[half * kT + m0 + g + 8 * hh] = gs;
+        sRedE[half * kT + m0 + g + 8 * hh] = es;
+      }
+    }
+    // dx = the q half 0 partial + the q half 1 partial
+    float* xch = sXch + (warp / 2) * 32 + lane;
+    if (half == 1)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[(4 * n + e) * 128] = dxa[n][e];
+    __syncthreads();
+    if (half == 0) {
+      float* dxh = dx + bc * Q * HP + (size_t)h * P;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + m0 + g + 8 * (e / 2), p = 8 * n + 2 * t + e % 2;
+          if (j < Q && p < P)
+            dxh[(size_t)j * HP + p] = dxa[n][e] + xch[(4 * n + e) * 128];
+        }
+    }
+    if (tid < kT && j0 + tid < Q) {
       const size_t i = (bc * Q + j0 + tid) * H + h;
-      ddt[i] = g + sDdt[tid];
-      dacum[i] = sDac[tid] - e;
+      ddt[i] = (sRedG[tid] + sRedG[kT + tid]) + sDdt[tid];
+      dacum[i] = sDac[tid] - (sRedE[tid] + sRedE[kT + tid]);
+    }
+    for (int k = tid; k < (njt - jt) * kT; k += kThreads) {
+      const int q = j0 + k;
+      if (q >= Q) break;
+      const float* rp = sRowP + (k / kT * 4) * kT + k % kT;
+      float r = ((rp[0] + rp[kT]) + rp[2 * kT]) + rp[3 * kT];
+      if (q == Q - 1)  // dacum_last += sum_j w_j Z_j over this j tile
+        for (int kk = 0; kk < kT; ++kk) r += sWZ[kk];
+      rowp[(((size_t)bc * njt + jt) * Q + q) * H + h] = r;
     }
   }
 
-  __syncthreads();  // sDCB complete
+  // the group's dCB, transposed back: element (n, e) is row
+  // q = qt 64 + qh + 8 n + 2 t + e % 2, column j0 + m0 + g + 8 (e / 2)
   float* dg = dcbp + (bc * nhg + hg) * (size_t)Q * Q;
-  for (int e = tid; e < (Q - j0) * kBT; e += kThreads) {
-    const int i = e / kBT, jj = e % kBT;
-    if (j0 + jj < Q) dg[(size_t)(j0 + i) * Q + j0 + jj] = sDCB[i * kLA + jj];
+  for (int qt = jt; qt < njt; ++qt) {
+    const float* dcb = sDCB + (qt - jt) * kFrag * kThreads + tid;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = qt * kT + qh + 8 * n + 2 * t + e % 2;
+        const int j = j0 + m0 + g + 8 * (e / 2);
+        if (q < Q && j < Q)
+          dg[(size_t)q * Q + j] = dcb[(4 * n + e) * kThreads];
+      }
   }
 }
 
@@ -575,9 +800,9 @@ ssd_bwd_dcb_sum_kernel(float* __restrict__ dcbp, int Q, int nhg) {
   dg[0] = s;
 }
 
-// Backward, part 2: grid (nrt * nnt, BC), 256 threads as 16 x 16; thread
-// (ty, tx) owns rows ty*4 + r and columns n0 + tx + 16c of its tile.
-__global__ void __launch_bounds__(kThreads)
+// Backward, part 2: grid (nrt * nnt, BC), one CTA per 64-row tile (r0)
+// and 64-column N tile (n0), 8 warps as in part 1; 2 CTAs per SM.
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ acum,
                    const float* __restrict__ Bm, const float* __restrict__ Cm,
@@ -586,144 +811,95 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ rowp, float* __restrict__ dacum,
                    float* __restrict__ dB, float* __restrict__ dC, int Q,
                    int H, int P, int N) {
-  extern __shared__ float smem[];
-  float* sL = smem;                // kBT x kLNK: dCB[q][j], w x[j][p]
-  float* sR = sL + kBT * kLNK;     // kNK x kLX: B[j][n], C[q][n], dS[p][n]
-  float* sT = sR + kNK * kLX;      // kNK x kLA: dCB[q chunk][j]
-  float* sW = sT + kNK * kLA;      // kBT: w_j
+  extern __shared__ __align__(16) float smem[];
+  bf16* sP = reinterpret_cast<bf16*>(smem);  // A: dCB, dCB^T, w x_h
+  bf16* sQ = sP + kSplit;                     // B: B, C, dS_h
+  float* sW = reinterpret_cast<float*>(sQ + kSplit);  // 2 x kT: w_j
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nnt = (N + kBT - 1) / kBT, nhg = (H + kBHG - 1) / kBHG;
-  const int t = (int)(blockIdx.x / nnt), nt = (int)(blockIdx.x % nnt);
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int m0 = warp / 2 * 16, n0 = warp % 2 * 32;
+  const int nnt = (N + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int rt_ = (int)(blockIdx.x / nnt), nt = (int)(blockIdx.x % nnt);
   const size_t bc = blockIdx.y;
-  const int r0 = t * kBT, n0 = nt * kBT;
+  const int r0 = rt_ * kT, c0 = nt * kT;
+  const size_t HP = (size_t)H * P;
   const float* Bg = Bm + bc * Q * N;
   const float* Cg = Cm + bc * Q * N;
   const float* dg = dcbp + bc * nhg * (size_t)Q * Q;  // group 0: the sum
-  float acc[4][4];
+  auto dcb_at = [&](int q, int j) {
+    return q < Q && j <= q ? dg[(size_t)q * Q + j] : 0.f;
+  };
+  float v[kFrag], acc[4][4];
 
   // dC[q] = sum_{j <= q} dCB[q][j] B[j]
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int jc = 0; jc < min(r0 + kBT, Q); jc += kNK) {
+  zero_frag(acc);
+  for (int jc = 0; jc < min(r0 + kT, Q); jc += kT) {
     __syncthreads();  // previous chunk's reads done
-    for (int e = tid; e < kBT * kNK; e += kThreads) {
-      const int r = e / kNK, c = e % kNK, q = r0 + r, j = jc + c;
-      sL[r * kLNK + c] = (q < Q && j <= q) ? dg[(size_t)q * Q + j] : 0.f;
-    }
-    for (int e = tid; e < kNK * kBT; e += kThreads) {
-      const int r = e / kBT, c = e % kBT, j = jc + r;
-      sR[r * kLX + c] =
-          (j < Q && n0 + c < N) ? Bg[(size_t)j * N + n0 + c] : 0.f;
-    }
+    tile_load(v, [&](int r, int c) { return dcb_at(r0 + r, jc + c); });
+    tile_store(sP, v);
+    tile_load_rm(v, Bg, N, jc, c0, Q, N);
+    tile_store(sQ, v);
     __syncthreads();
-#pragma unroll 8
-    for (int jj = 0; jj < kNK; ++jj) {
-      float bv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = sR[jj * kLX + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float d = sL[(ty * 4 + r) * kLNK + jj];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += d * bv[c];
-      }
-    }
+    warp_mma3<false, true, false>(acc, sP, sQ, m0, n0, ksteps(Q - jc));
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int q = r0 + ty * 4 + r;
-    if (q >= Q) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (n0 + tx + 16 * c < N)
-        dC[(bc * Q + q) * N + n0 + tx + 16 * c] = acc[r][c];
-  }
+  frag_store(dC + bc * Q * N, N, r0, c0, Q, N, m0, n0, acc);
 
   // dB[j] = sum_{q >= j} dCB[q][j] C[q] + sum_h w_hj sum_p x_h[j][p] dS_h[p]
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int qc = r0; qc < Q; qc += kNK) {
+  zero_frag(acc);
+  for (int qc = r0; qc < Q; qc += kT) {
     __syncthreads();
-    for (int e = tid; e < kNK * kBT; e += kThreads) {
-      const int r = e / kBT, c = e % kBT, q = qc + r, j = r0 + c;
-      sT[r * kLA + c] = (q < Q && j <= q) ? dg[(size_t)q * Q + j] : 0.f;
-      sR[r * kLX + c] =
-          (q < Q && n0 + c < N) ? Cg[(size_t)q * N + n0 + c] : 0.f;
-    }
+    tile_load(v, [&](int r, int c) { return dcb_at(qc + r, r0 + c); });
+    tile_store(sP, v);
+    tile_load_rm(v, Cg, N, qc, c0, Q, N);
+    tile_store(sQ, v);
     __syncthreads();
-#pragma unroll 8
-    for (int qq = 0; qq < kNK; ++qq) {
-      float cv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cv[c] = sR[qq * kLX + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float d = sT[qq * kLA + ty * 4 + r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += d * cv[c];
-      }
-    }
+    warp_mma3<true, true, false>(acc, sP, sQ, m0, n0, ksteps(Q - qc));
   }
+  // the state part, K = H P: head h + 1's tiles load (and its w_j is
+  // formed, once per row) while h's multiply
+  float vs[kFrag];
+  auto load_head = [&](int h) {
+    if (tid < kT) {
+      const int j = r0 + tid;
+      float w = 0.f;
+      if (j < Q) {
+        const size_t k = (bc * Q + j) * H + h;
+        w = expf(acum[(bc * Q + Q - 1) * H + h] - acum[k]) * dt[k];
+      }
+      sW[(h & 1) * kT + tid] = w;
+    }
+    tile_load_rm(v, x + bc * Q * HP + (size_t)h * P, HP, r0, 0, Q, P);
+    tile_load_rm(vs, dS + (bc * H + h) * (size_t)P * N, N, 0, c0, P, N);
+  };
+  load_head(0);
   for (int h = 0; h < H; ++h) {
-    const float ac_last = acum[(bc * Q + Q - 1) * H + h];
-    __syncthreads();  // previous reads of sW, sL, sR done
-    if (tid < kBT) {
-      const size_t i = (bc * Q + r0 + tid) * H + h;
-      sW[tid] = r0 + tid < Q ? expf(ac_last - acum[i]) * dt[i] : 0.f;
+    // previous head's (or dCB's) reads done; w_j formed: its buffer's
+    // readers two heads ago are past the barrier of the head between
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kFrag / 2; ++i) {  // x_h [j][p] times w_j
+      const float w = sW[(h & 1) * kT + (tid + kThreads * i) / 32];
+      v[2 * i] *= w;
+      v[2 * i + 1] *= w;
     }
-    for (int pc = 0; pc < P; pc += kNK) {
-      __syncthreads();  // sW written / previous chunk's reads done
-      for (int e = tid; e < kBT * kNK; e += kThreads) {
-        const int r = e / kNK, c = e % kNK, j = r0 + r, p = pc + c;
-        sL[r * kLNK + c] =
-            (j < Q && p < P) ? x[((bc * Q + j) * H + h) * P + p] * sW[r] : 0.f;
-      }
-      const float* dSg = dS + ((bc * H + h) * (size_t)P + pc) * N;
-      for (int e = tid; e < kNK * kBT; e += kThreads) {
-        const int r = e / kBT, c = e % kBT;
-        sR[r * kLX + c] =
-            (pc + r < P && n0 + c < N) ? dSg[(size_t)r * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int pp = 0; pp < kNK; ++pp) {
-        float dv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dv[c] = sR[pp * kLX + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float xw = sL[(ty * 4 + r) * kLNK + pp];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += xw * dv[c];
-        }
-      }
-    }
+    tile_store(sP, v);
+    tile_store(sQ, vs);
+    __syncthreads();
+    if (h + 1 < H) load_head(h + 1);
+    warp_mma3<false, true, false>(acc, sP, sQ, m0, n0, ksteps(P));
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = r0 + ty * 4 + r;
-    if (j >= Q) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (n0 + tx + 16 * c < N)
-        dB[(bc * Q + j) * N + n0 + tx + 16 * c] = acc[r][c];
-  }
+  frag_store(dB + bc * Q * N, N, r0, c0, Q, N, m0, n0, acc);
 
   // dacum += the row sums of E over the j tiles on and left of the diagonal
   if (nt != 0) return;
-  const int njt = (Q + kBT - 1) / kBT;
+  const int njt = (Q + kT - 1) / kT;
   const float* rp = rowp + bc * njt * (size_t)Q * H;
-  for (int e = tid; e < kBT * H; e += kThreads) {
+  for (int e = tid; e < kT * H; e += kThreads) {
     const int k = r0 + e / H, h = e % H;
     if (k >= Q) break;
     const size_t i = (bc * Q + k) * H + h;
     float s = dacum[i];
-    for (int jt = 0; jt <= t; ++jt) s += rp[((size_t)jt * Q + k) * H + h];
+    for (int jt = 0; jt <= rt_; ++jt) s += rp[((size_t)jt * Q + k) * H + h];
     dacum[i] = s;
   }
 }
@@ -760,7 +936,7 @@ extern "C" int rt_ssd_intra(const void* x, const void* dt, const void* acum,
 // The backward's fp32 scratch: dcbp (BC, nhg, Q, Q) then rowp
 // (BC, njt, Q, H).  The caller allocates this many floats.
 extern "C" long long rt_ssd_intra_bwd_scratch_floats(int BC, int Q, int H) {
-  const int njt = (Q + kBT - 1) / kBT, nhg = (H + kBHG - 1) / kBHG;
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
   return (long long)BC * Q * ((long long)nhg * Q + (long long)njt * H);
 }
 
@@ -775,17 +951,20 @@ extern "C" int rt_ssd_intra_bwd(const void* x, const void* dt,
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || P < 1 || P > kMaxP ||
       H < 1 || BC < 1)
     return (int)cudaErrorInvalidValue;
-  const int njt = (Q + kBT - 1) / kBT, nhg = (H + kBHG - 1) / kBHG;
-  const int nnt = (N + kBT - 1) / kBT;
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int nnt = (N + kT - 1) / kT;
   const long long dcb_floats = (long long)BC * nhg * Q * Q;
   if (scratch_floats < rt_ssd_intra_bwd_scratch_floats(BC, Q, H))
     return (int)cudaErrorInvalidValue;
   float* dcbp = (float*)scratch;
   float* rowp = dcbp + dcb_floats;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem_dx =
-      ((size_t)2 * njt * kBT * kLA + 2 * kBT * kLX + kBT * kLA + 6 * kBT) *
-      sizeof(float);
+  // the C.B^T and dCB fragments, five split tiles (B_j's two N chunks,
+  // x_j, two operands) and 13 + 4 njt vectors of kT floats: 230,656 B at
+  // Q 256, within the 232,448 B a block may have
+  const size_t smem_dx = (size_t)2 * njt * kFrag * kThreads * sizeof(float) +
+                         (size_t)5 * kSplit * sizeof(bf16) +
+                         (size_t)(13 + 4 * njt) * kT * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_dx);
@@ -804,7 +983,7 @@ extern "C" int rt_ssd_intra_bwd(const void* x, const void* dt,
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem_bc =
-      ((size_t)kBT * kLNK + kNK * kLX + kNK * kLA + kBT) * sizeof(float);
+      (size_t)2 * kSplit * sizeof(bf16) + (size_t)2 * kT * sizeof(float);
   ssd_bwd_dbc_kernel<<<dim3(njt * nnt, BC), kThreads, smem_bc, st>>>(
       (const float*)x, (const float*)dt, (const float*)acum,
       (const float*)Bm, (const float*)Cm, (const float*)dS, dcbp, rowp,

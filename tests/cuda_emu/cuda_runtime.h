@@ -7,6 +7,10 @@
 // becomes a warp-wide one (each warp of 32 threads has a barrier of its
 // own), valid because every kernel calls it with all lanes of the warp; so
 // do the warp-level tensor-core helpers of csrc/tensor_core.cuh (ptx_emu.h).
+// A warp-wide exchange posts into one of two slot sets, alternating per
+// call, and waits at the warp's barrier once: a lane writes a set again
+// only two calls later, after every lane of its warp has passed the
+// barrier of the call between, so no lane still reads it.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -37,11 +41,12 @@ inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
 inline thread_local std::barrier<>* emu_bar;
 inline thread_local std::barrier<>* emu_warp_bar;  // this thread's warp
-inline thread_local float* emu_fslots;
+inline thread_local float* emu_fslots;        // 2 sets of 1 per thread
 inline thread_local int* emu_islots;
 inline thread_local char* emu_dyn;
-inline thread_local uint32_t* emu_uslots;     // 6 words per thread
-inline thread_local const void** emu_pslots;  // 1 pointer per thread
+inline thread_local uint32_t* emu_uslots;     // 2 sets of 6 per thread
+inline thread_local const void** emu_pslots;  // 2 sets of 1 per thread
+inline thread_local unsigned emu_calls;       // warp-wide exchanges so far
 typedef int cudaError_t;
 const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
@@ -54,12 +59,13 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 inline void emu_syncwarp() { emu_warp_bar->arrive_and_wait(); }
+// the first slot of this call's set, in slots of one thread's width
+inline unsigned emu_set() { return (emu_calls++ & 1u) * blockDim.x; }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
-  emu_fslots[threadIdx.x] = v;
+  float* s = emu_fslots + emu_set();
+  s[threadIdx.x] = v;
   emu_syncwarp();
-  const float r = emu_fslots[threadIdx.x ^ o];
-  emu_syncwarp();
-  return r;
+  return s[threadIdx.x ^ o];
 }
 inline int __syncthreads_or(int p) {
   emu_islots[threadIdx.x] = p ? 1 : 0;
@@ -82,10 +88,10 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::vector<char> dyn(smem + 16);
-      std::vector<float> fs(block.x);
+      std::vector<float> fs(2 * block.x);
       std::vector<int> is(block.x);
-      std::vector<uint32_t> us(6 * block.x);
-      std::vector<const void*> ps(block.x);
+      std::vector<uint32_t> us(2 * 6 * block.x);
+      std::vector<const void*> ps(2 * block.x);
       std::barrier<> bar(block.x);
       std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
       for (unsigned w = 0; w < block.x; w += 32)
@@ -105,6 +111,7 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
           emu_dyn = dyn.data();
           emu_uslots = us.data();
           emu_pslots = ps.data();
+          emu_calls = 0;
           kern(args...);
         });
       for (auto& th : ts) th.join();

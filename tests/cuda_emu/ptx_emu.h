@@ -1,10 +1,11 @@
 // Host versions of the PTX helpers in src/repro_torch/csrc/tensor_core.cuh
 // (test scaffolding: nvcc never sees this file).  A warp-level instruction
-// becomes a warp-wide slot exchange: every lane posts its operands, waits
-// at its warp's barrier, reads its warp's operands back in the PTX ISA's
-// fragment layout and waits again before the slots are reused.  That is
-// valid because every kernel calls these helpers with all lanes of the
-// warp, the same number of times.  cp.async copies at once, so its
+// becomes a warp-wide slot exchange: every lane posts its operands into
+// this call's slot set, waits at its warp's barrier and reads its warp's
+// operands back in the PTX ISA's fragment layout (two sets alternate, so
+// one barrier a call suffices: cuda_runtime.h).  That is valid because
+// every kernel calls these helpers with all lanes of the warp, the same
+// number of times.  cp.async copies at once, so its
 // commit and wait are no-ops.
 #pragma once
 #define RT_HOST_EMULATION 1
@@ -23,13 +24,14 @@ inline unsigned emu_warp0() { return threadIdx.x & ~31u; }
 // d += A B: this lane's four D elements from the warp's A and B fragments
 inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                      uint32_t b1) {
-  uint32_t* mine = emu_uslots + 6 * threadIdx.x;
+  uint32_t* set = emu_uslots + 6 * emu_set();
+  uint32_t* mine = set + 6 * threadIdx.x;
   for (int i = 0; i < 4; ++i) mine[i] = a[i];
   mine[4] = b0;
   mine[5] = b1;
   emu_syncwarp();
   const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t* w = emu_uslots + 6 * emu_warp0();
+  const uint32_t* w = set + 6 * emu_warp0();
   float arow[2][16], bcol[2][16];  // A rows g, g+8; B columns 2t, 2t+1
   for (unsigned tt = 0; tt < 4; ++tt) {
     const uint32_t* f = w + 6 * (4 * g + tt);  // lane (g, tt) holds row g
@@ -48,7 +50,6 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
         bcol[c][2 * tt + 8 + h] = emu_bf16(f[5], h);
       }
   }
-  emu_syncwarp();
   for (int i = 0; i < 4; ++i) {
     float s = 0.f;
     for (int k = 0; k < 16; ++k) s += arow[i >> 1][k] * bcol[i & 1][k];
@@ -63,10 +64,11 @@ inline void mma_bf16_zc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
 }
 
 inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
-  emu_pslots[threadIdx.x] = p;
+  const void** set = emu_pslots + emu_set();
+  set[threadIdx.x] = p;
   emu_syncwarp();
   const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const void* const* w = emu_pslots + emu_warp0();
+  const void* const* w = set + emu_warp0();
   for (int i = 0; i < 4; ++i) {
     uint16_t e[2];
     for (int h = 0; h < 2; ++h) {
@@ -75,7 +77,6 @@ inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
     }
     r[i] = uint32_t(e[0]) | (uint32_t(e[1]) << 16);
   }
-  emu_syncwarp();
 }
 
 inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

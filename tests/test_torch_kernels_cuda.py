@@ -9,8 +9,11 @@ Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
 versions and the fused backward takes dQ's kv-tile partials through
 atomics.  The split attention backward and the SSD backward have no
-atomics and must repeat bit for bit.  TF32 is off for the plain
-versions' matmuls.
+atomics and must repeat bit for bit.  The SSD backward runs every product
+on the tensor cores (bf16 ``mma.sync``, each fp32 operand split into bf16
+hi + lo, three passes), so it is also checked with operands far from 1,
+each gradient against its own scale.  TF32 is off for the plain versions'
+matmuls.
 """
 
 import numpy as np
@@ -144,22 +147,47 @@ def test_ssd_kernel_matches_plain(cuda, case):
         _close(a, b, 1e-5)
 
 
-@pytest.mark.parametrize("case", SSD, ids=str)
+def _ssd_bwd_args(case, dev):
+    args = _ssd_inputs(case, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(args[0].shape, generator=gen, device=dev)
+    B, nc, Q, H, P = args[0].shape
+    ds = torch.randn((B, nc, H, P, args[3].shape[-1]), generator=gen,
+                     device=dev)
+    return (*args, dy, ds)
+
+
+# + the mamba2-370m server shape (8 x 2048 tokens: 8 chunks of 256)
+@pytest.mark.parametrize("case", SSD + [(8, 8, 256, 32, 64, 128)], ids=str)
 def test_ssd_bwd_kernel_matches_plain(cuda, case):
     """The backward kernel within 1e-4 of each gradient's scale of its plain
     version; no atomics, so two calls are bit-identical."""
-    args = _ssd_inputs(case, cuda)
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    dy = torch.randn(args[0].shape, generator=gen, device=cuda)
-    B, nc, Q, H, P = args[0].shape
-    ds = torch.randn((B, nc, H, P, args[3].shape[-1]), generator=gen,
-                     device=cuda)
+    args = _ssd_bwd_args(case, cuda)
     n0 = SK.ssd_intra_bwd_kernel.launches
-    got = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    got = SK.ssd_intra_bwd_kernel(*args)
     assert SK.ssd_intra_bwd_kernel.launches == n0 + 1
-    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args, dy, ds)):
+    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args)):
         _close(a, b, 1e-4)
-    again = SK.ssd_intra_bwd_kernel(*args, dy, ds)
+    again = SK.ssd_intra_bwd_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", [(1, 2, 100, 9, 40, 24),
+                                  (2, 8, 256, 32, 64, 128)], ids=str)
+def test_ssd_bwd_kernel_matches_plain_scaled_operands(cuda, case):
+    """Operands far from 1 (x 1e3, dy 1e-3, B 1e-2, dS 1e2): the hi/lo
+    split keeps each operand to ~2^-17 of its own magnitude, so every
+    gradient stays within 1e-4 of its own largest magnitude (no floor at
+    1); two calls are bit-identical."""
+    x, dt, a_cum, bm, cm, dy, ds = _ssd_bwd_args(case, cuda)
+    args = (x * 1e3, dt, a_cum, bm * 1e-2, cm, dy * 1e-3, ds * 1e2)
+    got = SK.ssd_intra_bwd_kernel(*args)
+    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * scale, \
+            f"max abs err {err:.3e} > 1e-4 * {scale:.3e}"
+    again = SK.ssd_intra_bwd_kernel(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -11,14 +11,16 @@ dynamic ``extern __shared__`` array points at the stub's per-block
 buffer.  Each block runs as its launch's threads.  This checks the
 kernels' indexing, masking, tile skipping, online statistics, chunking,
 atomics, the tensor-core fragment layouts of the bf16 attention and
-cross-entropy kernels and the ragged edges of the SSD tiles, forward and
-backward, here; the
+cross-entropy kernels and of the SSD backward (its fp32 operands split
+into bf16 hi/lo, dA^T's accumulator reused as an A operand in registers)
+and the ragged edges of the SSD tiles, forward and backward, here; the
 real compiler and the timings are checked on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
 Tolerances (fp32 accumulation in another order; on the tensor-core
 routes each fp32 operand also carries the ~2^-17 relative residual of its
 bf16 hi/lo split): 1e-5 forward, 1e-4 grads, relative to the output's
-scale.
+scale (and to its own scale, with no floor at 1, for the SSD backward's
+operands far from 1).
 """
 
 import ctypes
@@ -183,7 +185,9 @@ def _ssd_bwd_inputs(case, seed=7, decay=1.0):
     return x, dt, a_cum, bm, cm, dy, ds
 
 
-@pytest.mark.parametrize("case", SSD, ids=str)
+# + mamba2-370m's full head count (H 32: four head groups of 8 through the
+# dCB sum kernel) at Q 256, P 64, N 128, one chunk
+@pytest.mark.parametrize("case", SSD + [(1, 1, 256, 32, 64, 128)], ids=str)
 def test_ssd_bwd_kernel_emulated(lib, case):
     """The hand-written backward against its plain version, each gradient
     within 1e-4 of its scale; no atomics, so two calls are bit-identical."""
@@ -205,6 +209,23 @@ def test_ssd_bwd_kernel_emulated_large_decays(lib):
     for a, b in zip(got, SK.ssd_intra_bwd_plain(*args)):
         assert bool(torch.isfinite(a).all())
         _close(a, b, 1e-4)
+
+
+def test_ssd_bwd_kernel_emulated_scaled_operands(lib):
+    """Operands far from 1 (x 1e3, dy 1e-3, B 1e-2, dS 1e2): every
+    fp32 operand is split into bf16 hi + lo, which keeps ~2^-17 of its
+    own magnitude at any scale, so each gradient stays within 1e-4 of its
+    own largest magnitude (no floor at 1); two calls are bit-identical."""
+    x, dt, a_cum, bm, cm, dy, ds = _ssd_bwd_inputs((1, 2, 100, 9, 40, 24))
+    args = (x * 1e3, dt, a_cum, bm * 1e-2, cm, dy * 1e-3, ds * 1e2)
+    got = SK._launch_bwd(lib, 0, *args)
+    for a, b in zip(got, SK.ssd_intra_bwd_plain(*args)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * scale, \
+            f"max abs err {err:.3e} > 1e-4 * {scale:.3e}"
+    again = SK._launch_bwd(lib, 0, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),
