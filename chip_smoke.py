@@ -182,8 +182,13 @@ WARMUP = 3               # attention: untimed calls before them
 ITERS_XENT = 2
 ITERS_SSD = 10
 # kernels whose ptxas report the build phase prints: the xent tensor-core
-# kernels, the split pre-pass and the SSD backward
-PTXAS_REPORT = ("xent_tc_", "xent_split_", "ssd_bwd_")
+# kernels, the split pre-pass and the SSD forward and backward
+PTXAS_REPORT = ("xent_tc_", "xent_split_", "ssd_y_", "ssd_state_",
+                "ssd_bwd_")
+# bf16 mma passes a product of the SSD kernels takes: the forward splits
+# each fp32 operand into three bf16 planes (held to 1e-5), the backward
+# into two (held to 1e-4); csrc/ssd_chunk.cu
+SSD_FWD_PASSES, SSD_BWD_PASSES = 6, 3
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # bf16 split backward: allowed difference from fused, in multiples of the
@@ -452,27 +457,47 @@ def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
     return res
 
 
-def ssd_bwd_bound(B, nc, Q, H, P, N):
-    """(bound ms, by, bf16 passes, fp32-FMA bound ms) of the SSD backward.
-    Products: per (b, chunk) C.B^T again and dC, dB against dCB (2 N a
-    pair each); per head dA and A^T dy (2 P a pair each), U = B dS^T and
-    (w x)^T dS (2 Q P N each).  They run on the tensor cores as 3 bf16
-    passes over fp32 operands split into hi + lo.  Elementwise work on the
-    CUDA cores in fp32: the weights (L, G, A, E, their sums and dCB's: 10
-    ops a pair) and Z (2 Q P).  The two units overlap, so the operations
-    take the longer of the two.  Bytes: x, dy, dx; dS; dt, a_cum, ddt,
-    da_cum; B, C, dB, dC, each read or written once."""
-    BC, pairs = B * nc, Q * (Q + 1) // 2
-    products = BC * (6 * pairs * N + H * (4 * pairs * P + 4 * Q * P * N))
-    elementwise = BC * H * (10 * pairs + 2 * Q * P)
-    nbytes = 4 * BC * (3 * Q * H * P + H * P * N + 4 * Q * H + 4 * Q * N)
-    passes = 3
+def split_bound(products, elementwise, nbytes, passes):
+    """(bound ms, by, bf16 passes, fp32-FMA bound ms) of a kernel whose
+    products run on the tensor cores as ``passes`` bf16 passes over fp32
+    operands split into bf16 planes, beside fp32 elementwise work on the
+    CUDA cores.  The two units overlap, so the operations take the longer
+    of the two; bytes are read or written once."""
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(passes * products / PEAK_FLOPS[torch.bfloat16],
                 elementwise / PEAK_FLOPS[torch.float32])
     fma_ms = bound_ms(nbytes, products + elementwise, torch.float32)[0]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", passes, fma_ms)
+
+
+def ssd_fwd_bound(B, nc, Q, H, P, N):
+    """``split_bound`` of the SSD forward.  Products: C.B^T once per (b,
+    chunk) over the causal pairs (2 N a pair), per head A x (2 P a pair)
+    and the state (w x)^T B (2 Q P N).  Elementwise: the weights (exp and
+    two products: 3 ops a pair) and w folded into x (Q P a head).  Bytes:
+    x, y; S; dt, a_cum; B, C."""
+    BC, pairs = B * nc, Q * (Q + 1) // 2
+    return split_bound(
+        BC * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N)),
+        BC * H * (3 * pairs + Q * P),
+        4 * BC * (2 * Q * H * P + H * P * N + 2 * Q * H + 2 * Q * N),
+        SSD_FWD_PASSES)
+
+
+def ssd_bwd_bound(B, nc, Q, H, P, N):
+    """``split_bound`` of the SSD backward.  Products: per (b, chunk)
+    C.B^T again and dC, dB against dCB (2 N a pair each); per head dA and
+    A^T dy (2 P a pair each), U = B dS^T and (w x)^T dS (2 Q P N each).
+    Elementwise: the weights (L, G, A, E, their sums and dCB's: 10 ops a
+    pair) and Z (2 Q P).  Bytes: x, dy, dx; dS; dt, a_cum, ddt, da_cum;
+    B, C, dB, dC."""
+    BC, pairs = B * nc, Q * (Q + 1) // 2
+    return split_bound(
+        BC * (6 * pairs * N + H * (4 * pairs * P + 4 * Q * P * N)),
+        BC * H * (10 * pairs + 2 * Q * P),
+        4 * BC * (3 * Q * H * P + H * P * N + 4 * Q * H + 4 * Q * N),
+        SSD_BWD_PASSES)
 
 
 def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
@@ -491,8 +516,13 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     ds = torch.randn((B, nc, H, P, N), generator=gen, device=dev)
     args = (x, dt, a_cum, bm, cm)
     tag = f"B{B} nc{nc} Q{Q} H{H} P{P} N{N}"
-    err = check(f"ssd_intra {tag}", SK.ssd_intra_kernel(*args),
-                SK.ssd_intra_plain(*args), 1e-4)
+    got = SK.ssd_intra_kernel(*args)
+    err = check(f"ssd_intra {tag}", got, SK.ssd_intra_plain(*args), 1e-4)
+    again = SK.ssd_intra_kernel(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("check", kernel=f"ssd_intra repeat {tag}", bit_identical=same)
+    if not same:
+        raise AssertionError(f"ssd_intra {tag}: two calls differ")
     got = SK.ssd_intra_bwd_kernel(*args, dy, ds)
     bwd_err = check(f"ssd_intra_bwd {tag}", got,
                     SK.ssd_intra_bwd_plain(*args, dy, ds), 1e-4)
@@ -504,13 +534,7 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     del got, again
     if not library:
         return None
-    BC, pairs = B * nc, Q * (Q + 1) // 2
-    # C.B^T once per (b, chunk) over the causal pairs; per head the weights
-    # (3 ops a pair) and the (pairs x P) product; the state: B * w and the
-    # (P, Q) x (Q, N) product
-    flops = BC * (2 * pairs * N + H * (3 * pairs + 2 * pairs * P)
-                  + H * (Q * N + 2 * Q * P * N))
-    nbytes = 4 * BC * (2 * Q * H * P + 2 * Q * H + 2 * Q * N + H * P * N)
+    fwd_ms, fwd_by, fwd_passes, fwd_fma_ms = ssd_fwd_bound(B, nc, Q, H, P, N)
     bwd_ms, bwd_by, passes, fma_ms = ssd_bwd_bound(B, nc, Q, H, P, N)
     leaves = [t.detach().requires_grad_(True) for t in args]
 
@@ -523,7 +547,7 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
         max_abs_err=err,
         ms=time_ms(lambda: SK.ssd_intra_kernel(*args), iters),
         plain_ms=time_ms(lambda: SK.ssd_intra_plain(*args), iters),
-        bound=bound_ms(nbytes, flops, torch.float32),
+        bound=(fwd_ms, fwd_by),
         library_ms=None)}
     res["ssd_intra_bwd"] = dict(
         max_abs_err=bwd_err,
@@ -536,6 +560,8 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
     log("timing", case=tag, iters=iters,
         **{name: {k: v for k, v in r.items() if k != "max_abs_err"}
            for name, r in res.items()},
+        ssd_intra_bound=dict(bound_ms=fwd_ms, by=fwd_by, passes=fwd_passes,
+                             bound_fp32_fma_ms=fwd_fma_ms),
         ssd_intra_bwd_bound=dict(bound_ms=bwd_ms, by=bwd_by, passes=passes,
                                  bound_fp32_fma_ms=fma_ms))
     return res

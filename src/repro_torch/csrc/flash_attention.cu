@@ -562,18 +562,7 @@ using rt::tc_a_off;
 using rt::tc_akm_off;
 using rt::tc_bkn_off;
 using rt::tc_bnk_off;
-
-// The A fragments (hi, lo) of k-step kk of a 16-row C tile held as n-tiles
-// of 8 columns: columns [16 kk, 16 kk + 16) are n-tiles 2 kk and 2 kk + 1.
-template <int N>
-__device__ __forceinline__ void tc_c_to_a(const float (&c)[N][4], int kk,
-                                          uint32_t (&hi)[4],
-                                          uint32_t (&lo)[4]) {
-  rt::split_bf16x2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
-  rt::split_bf16x2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
-  rt::split_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
-  rt::split_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
-}
+using rt::tc_c_to_a;
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 

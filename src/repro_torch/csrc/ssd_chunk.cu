@@ -5,34 +5,67 @@
 // with the same math, per (b·chunk, head):
 //   y[q] = sum_{j<=q} (C_q . B_j) * exp(acum_q - acum_j) * dt_j * x_j
 //   S    = sum_j x_j (x) (B_j * exp(acum_last - acum_j) * dt_j)
-// in fp32 throughout (the model casts to fp32 before the kernel), with the
-// mask applied before the exponential as in the reference.
+// on fp32 inputs and outputs (the model casts to fp32 before the kernel),
+// with the mask applied before the exponential as in the reference.
 //
 // Layouts, as the reference's public ones (the TPU wrapper transposed them
 // head-major; here the kernels read them in place with strides):
 // x, y (BC, Q, H, P); dt, acum (BC, Q, H); B, C (BC, Q, N); S (BC, H, P, N);
 // BC = batch * chunks.  Q <= 256, N <= 128, P <= 64.
 //
-// What bounds it on the H100: at the main path's shape (BC 64, Q 256, H 32,
-// P 64, N 128) the call moves ~0.36 GB and does ~18 GFLOP (C.B^T once per
-// (b·chunk), the causal half of the (Q, Q) x (Q, P) products, and the
-// (P, Q) x (Q, N) state products), so it is bound by fp32 operations
-// (~0.27 ms at 67 TFLOP/s) more than by bytes (~0.11 ms).  This first
-// version runs every product as fp32 FMAs on the CUDA cores (TF32 tensor
-// cores would change the rounding).  What its design does about the bound:
-// - The (Q, Q) score tile (256 KB at Q 256) does not fit a block, so the y
-//   part tiles q into 64-row tiles against 64-column j tiles and skips the
-//   tiles above the diagonal, which the TPU kernel computed and masked.
-// - C.B^T is shared by all heads of a (b·chunk): a CTA computes its 64-row
-//   strip of it once (N streamed in chunks of 32) into shared memory and
-//   reuses it for a group of 8 heads, so the product is recomputed H / 8
-//   times instead of H times.
-// - Diagonal-heavy q tiles (more j tiles) are scheduled first.
-// - The chunk state S is a second, small kernel: one CTA per (b·chunk,
-//   head) keeps the (P, N) sum in registers (4 x 8 per thread) while it
-//   streams Q in 32-row tiles of x and of B scaled by its decay weight.
-// rt_ssd_intra launches both kernels, one after the other, on the
-// caller's stream; the Python wrapper counts that as one launch.
+// Every product, forward and backward, runs on the tensor cores
+// (tensor_core.cuh): warp-level mma.sync m16n8k16 bf16 -> fp32, each fp32
+// operand split into bf16 planes as it is staged in shared memory or, for
+// an operand formed in registers, where it is formed; each k-step's
+// passes go into a fresh fragment that is then added in fp32 (the tensor
+// cores round their sums toward zero, which a long K chain would
+// accumulate).  The backward splits into hi + lo (rt::split_bf16x2) and
+// runs three passes (hi.hi, hi.lo, lo.hi); the forward, held to 1e-5 of
+// scale where the backward is held to 1e-4, splits into hi + mid + lo
+// (rt::split_bf16x3, exact) and runs six (i + j <= 2): with two planes its
+// chain of two products missed 1e-5 (1.4e-5 of scale; each operand's
+// hi + lo keeps ~2^-17 of it).  The elementwise work between the products
+// (the decays, masked before the exponential, dt, w) stays in fp32 on the
+// CUDA cores.
+//
+// Forward (rt_ssd_intra: ssd_y_kernel, then ssd_state_kernel).  What
+// bounds it: at the main path's shape (BC 64, Q 256, H 32, P 64, N 128)
+// the products are ~17.8 GFLOP (C.B^T once per b·chunk over the causal
+// pairs, A x per head, the state product; ~107 at 6 passes, 0.108 ms at
+// 989 TFLOP/s), the elementwise work ~0.24 GFLOP, and the call moves
+// ~0.36 GB (0.106 ms), so the passes bound it on paper.  In practice
+// mma.sync runs the passes at about half that rate, and at 8 warps per SM
+// (the C.B^T strip and the split tiles fill a block's shared memory) the
+// phases between barriers add up rather than overlap: cutting parts on
+// the H100 (scripts/torch_ssd_probe.py, PERF.md) saves about two fifths
+// of ssd_y_kernel's time for the A x products, a fifth for the x tiles'
+// loads and splits, a fifth for forming A, and two fifths of
+// ssd_state_kernel's for its product.  What the design does about it:
+// - ssd_y_kernel: one CTA per (b·chunk, 64-row q tile, group of 8 heads),
+//   the heaviest q tiles (most j tiles) first, the j tiles above the
+//   diagonal skipped.  Part 1: the CTA's 64-row strip of C.B^T (C_q split
+//   once, B_j split per j tile, the next B_j loading while this one
+//   multiplies), kept as fp32 fragments in shared memory in the layout of
+//   part 2's accumulators.  Part 2 is flash-attention's forward without
+//   the softmax: the two halves of the CTA (4 warps each) take two heads
+//   at a time, each warp 16 q rows and all P columns, so A = CB L dt_j is
+//   formed once per (q, j, head), masked only on the diagonal tile, in
+//   the accumulator layout, and split in registers into the A operand of
+//   y_q += A x_j (rt::tc_c_to_a3): A never goes through shared memory.
+//   Each phase multiplies one x_j tile while the next is split into the
+//   other buffer and the one after loads into registers (the next head's
+//   first during the current one's last), so a j tile needs one barrier;
+//   on the diagonal tile each warp stops at its own last row.
+// - ssd_state_kernel: S_h = (w x_h)^T B with K = Q, one CTA per (b·chunk,
+//   64-column N tile, group of 8 heads).  B's N tile is split once and
+//   serves the group's heads, two at a time (warp tiles of 32 x 32, so
+//   one B fragment serves two m-tiles); w_j is formed once per row (by a
+//   lane of the warp that stages the row, handed on by shuffle) and folded
+//   into x as x is split; phases as above.
+// The passes of a k-step run pass by pass over its n-tiles, so that
+// consecutive mma's are independent.  rt_ssd_intra launches both kernels,
+// one after the other, on the caller's stream; the Python wrapper counts
+// that as one launch.
 //
 // Backward (rt_ssd_intra_bwd): the VJP that the reference takes by
 // differentiating the quadratic oracle (repro/kernels/ssd_chunk/ops.py::
@@ -45,22 +78,15 @@
 //   dacum  = rowsum(E) - colsum(E) - w Z, plus sum_j w_j Z_j at the last row
 // and, summed over the heads, dCB = sum_h G dt_j, dC = dCB B,
 // dB = dCB^T C + sum_h (w x) dS.  Nothing new is saved by the forward: CB
-// and L are recomputed from the inputs.
-//
-// Every product runs on the tensor cores (tensor_core.cuh): warp-level
-// mma.sync m16n8k16 bf16 -> fp32, each fp32 operand split into bf16 hi +
-// lo (rt::split_bf16x2) as it is staged in shared memory, three passes
-// (hi.hi, hi.lo, lo.hi) per k-step into a fresh fragment that is then
-// added in fp32 (the tensor cores round their sums toward zero, which
-// dB's K = H P chain would accumulate).  The elementwise work between the
-// products (L masked before the exponential, G, A, E, the dCB sum in head
-// order, the column sums) stays in fp32 on the CUDA cores.
+// and L are recomputed from the inputs.  Its elementwise work: L masked
+// before the exponential, G, A, E, the dCB sum in head order, the column
+// sums.
 //
 // What bounds it: at the main shape (8, 8, 256, 32, 64, N 128) the
 // products are ~36 GFLOP (~108 at 3 passes, 0.109 ms at 989 TFLOP/s), the
 // elementwise work ~0.74 GFLOP, and the call moves ~0.51 GB (0.153 ms),
 // so bytes bound it on paper.  In practice neither does: cutting parts
-// of ssd_bwd_dx_kernel on the H100 (scripts/torch_ssd_bwd_probe.py,
+// of ssd_bwd_dx_kernel on the H100 (scripts/torch_ssd_probe.py,
 // PERF.md) saves about a quarter of its time for the fp32 elementwise
 // stage, another quarter for the dA and dx products together, a ninth
 // for the next head's loads; the rest is the other products, the loads
@@ -87,8 +113,9 @@
 //   state part of dB over (head, p), K = H P, head h + 1's tiles loading
 //   (and its w_j formed once per row) while head h multiplies; the CTAs
 //   of N tile 0 also add the row sums to dacum.
-// No atomics: every sum runs in a fixed order and mma.sync is
-// deterministic, so two calls give bit-identical gradients.
+// No atomics in either direction: every sum runs in a fixed order and
+// mma.sync is deterministic, so two calls give bit-identical outputs and
+// gradients.
 #include <cstdint>
 
 #include "common.cuh"
@@ -97,232 +124,22 @@
 namespace {
 
 using rt::kThreads;
-
-constexpr int kMaxQ = 256, kMaxN = 128, kMaxP = 64;
-constexpr int kBQ = 64;   // q rows per CTA (y part)
-constexpr int kBK = 64;   // j columns per tile (y part)
-constexpr int kNK = 32;   // N chunk of the C.B^T product
-constexpr int kHG = 8;    // heads per CTA sharing one C.B^T strip
-constexpr int kBJ = 32;   // Q rows per tile (state part)
-constexpr int kLNK = kNK + 1, kLX = kMaxP + 1, kLA = kBK + 1;
-constexpr int kT = 64;    // backward: q, j, p and N tile
-constexpr int kBHG = 8;   // backward: heads per CTA sharing C.B^T and dCB
-
-__host__ __device__ constexpr int cb_stride(int Q) {
-  return ((Q + kBK - 1) / kBK) * kBK + 1;
-}
-
-// y part: grid (nqt * nhg, BC), 256 threads as a 16 x 16 grid.
-__global__ void __launch_bounds__(kThreads)
-ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-             const float* __restrict__ acum, const float* __restrict__ Bm,
-             const float* __restrict__ Cm, float* __restrict__ y, int Q,
-             int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int LCB = cb_stride(Q);
-  float* sCB = smem;                      // kBQ x LCB: C.B^T strip
-  float* work = sCB + kBQ * LCB;          // phase 1: sC, sB; phase 2: sX, sA
-  float* sC = work;                       // kBQ x kLNK
-  float* sB = sC + kBQ * kLNK;            // kBK x kLNK
-  float* sX = work;                       // kBK x kLX
-  float* sA = sX + kBK * kLX;             // kBQ x kLA
-  float* sAcQ = work + kBK * kLX + kBQ * kLA;  // kBQ
-  float* sAcJ = sAcQ + kBQ;               // kBK
-  float* sDtJ = sAcJ + kBK;               // kBK
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nqt = (Q + kBQ - 1) / kBQ;
-  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);   // heavy tiles first
-  const int h0 = (int)(blockIdx.x / nqt) * kHG;
-  const int h1 = min(h0 + kHG, H);
-  const size_t bc = blockIdx.y;
-  const int q0 = qt * kBQ;
-  const int nkt = (min(q0 + kBQ, Q) - 1) / kBK + 1;  // j tiles to the diagonal
-  const float* Cg = Cm + bc * Q * N;
-  const float* Bg = Bm + bc * Q * N;
-
-  // phase 1: sCB[r][j] = C[q0 + r] . B[j] for j < nkt * kBK
-  for (int jt = 0; jt < nkt; ++jt) {
-    const int j0 = jt * kBK;
-    float cb[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cb[r][c] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += kNK) {
-      __syncthreads();  // previous chunk's reads done
-      for (int e = tid; e < kBQ * kNK; e += kThreads) {
-        const int r = e / kNK, c = e % kNK;
-        const bool in = n0 + c < N;
-        sC[r * kLNK + c] =
-            (in && q0 + r < Q) ? Cg[(size_t)(q0 + r) * N + n0 + c] : 0.f;
-        sB[r * kLNK + c] =
-            (in && j0 + r < Q) ? Bg[(size_t)(j0 + r) * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < kNK; ++n) {
-        float bv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = sB[(tx + 16 * c) * kLNK + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float cv = sC[(ty * 4 + r) * kLNK + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) cb[r][c] += cv * bv[c];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        sCB[(ty * 4 + r) * LCB + j0 + tx + 16 * c] = cb[r][c];
-  }
-
-  // phase 2, per head: y = (C.B^T * decay * dt) x, over the j tiles <= q
-  for (int h = h0; h < h1; ++h) {
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int jt = 0; jt < nkt; ++jt) {
-      const int j0 = jt * kBK;
-      __syncthreads();  // sCB written / previous tile's sX, sA reads done
-      for (int e = tid; e < kBK * kMaxP; e += kThreads) {
-        const int r = e / kMaxP, p = e % kMaxP;
-        sX[r * kLX + p] = (j0 + r < Q && p < P)
-                              ? x[((bc * Q + j0 + r) * H + h) * P + p]
-                              : 0.f;
-      }
-      if (tid < kBK) {
-        const bool in = j0 + tid < Q;
-        const size_t i = (bc * Q + j0 + tid) * H + h;
-        sAcJ[tid] = in ? acum[i] : 0.f;
-        sDtJ[tid] = in ? dt[i] : 0.f;
-      } else if (tid < kBK + kBQ) {
-        const int r = tid - kBK;
-        sAcQ[r] = q0 + r < Q ? acum[(bc * Q + q0 + r) * H + h] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int rr = ty * 4 + r, q = q0 + rr;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int cc = tx + 16 * c, j = j0 + cc;
-          // masked before the exponential: exp(-inf) = 0 above the diagonal
-          sA[rr * kLA + cc] =
-              (j <= q && q < Q)
-                  ? sCB[rr * LCB + j] * expf(sAcQ[rr] - sAcJ[cc]) * sDtJ[cc]
-                  : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int jj = 0; jj < kBK; ++jj) {
-        float xv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) xv[c] = sX[jj * kLX + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float a = sA[(ty * 4 + r) * kLA + jj];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += a * xv[c];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int q = q0 + ty * 4 + r;
-      if (q >= Q) continue;
-      float* yg = y + ((bc * Q + q) * H + h) * P;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (tx + 16 * c < P) yg[tx + 16 * c] = acc[r][c];
-    }
-  }
-}
-
-// state part: grid (H, BC), 256 threads; thread (ty, tx) owns
-// S[p = ty + 16 r][n = tx + 16 c], r < 4, c < 8.
-__global__ void __launch_bounds__(kThreads)
-ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ acum, const float* __restrict__ Bm,
-                 float* __restrict__ S, int Q, int H, int P, int N) {
-  extern __shared__ float smem[];
-  float* sX = smem;                   // kBJ x kMaxP
-  float* sBw = sX + kBJ * kMaxP;      // kBJ x kMaxN: B_j * w_j
-  float* sW = sBw + kBJ * kMaxN;      // kBJ
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.x;
-  const size_t bc = blockIdx.y;
-  const float* Bg = Bm + bc * Q * N;
-  const float ac_last = acum[(bc * Q + Q - 1) * H + h];
-
-  float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  for (int j0 = 0; j0 < Q; j0 += kBJ) {
-    __syncthreads();  // previous tile's reads done
-    for (int e = tid; e < kBJ * kMaxP; e += kThreads) {
-      const int r = e / kMaxP, p = e % kMaxP;
-      sX[e] = (j0 + r < Q && p < P) ? x[((bc * Q + j0 + r) * H + h) * P + p]
-                                    : 0.f;
-    }
-    if (tid < kBJ) {
-      const size_t i = (bc * Q + j0 + tid) * H + h;
-      sW[tid] = j0 + tid < Q ? expf(ac_last - acum[i]) * dt[i] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kBJ * kMaxN; e += kThreads) {
-      const int r = e / kMaxN, n = e % kMaxN;
-      sBw[e] = (j0 + r < Q && n < N) ? Bg[(size_t)(j0 + r) * N + n] * sW[r]
-                                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kBJ; ++jj) {
-      float xv[4], bv[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = sX[jj * kMaxP + ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) bv[c] = sBw[jj * kMaxN + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] += xv[r] * bv[c];
-    }
-  }
-
-  float* Sg = S + (bc * H + h) * (size_t)P * N;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = ty + 16 * r;
-    if (p >= P) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = tx + 16 * c;
-      if (n < N) Sg[(size_t)p * N + n] = acc[r][c];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: every product on the tensor cores (tensor_core.cuh)
-// ---------------------------------------------------------------------------
-
 using bf16 = __nv_bfloat16;
 
+constexpr int kMaxQ = 256, kMaxN = 128, kMaxP = 64;
+constexpr int kT = 64;             // q, j, p and N tile
+constexpr int kHG = 8;             // heads per CTA sharing C.B^T (and dCB)
 constexpr int kLH = kT + 8;        // bf16 row stride of a split tile: 144 B
-constexpr int kTileH = kT * kLH;   // elements of one half (hi or lo)
-constexpr int kSplit = 2 * kTileH; // elements of a split tile
+constexpr int kTileH = kT * kLH;   // elements of one plane (hi, mid or lo)
 constexpr int kFrag = 16;          // fp32 per thread of a 64 x 64 tile
+constexpr int kHalf = kThreads / 2;  // the forward's y part: threads a head
+constexpr float kLog2e = 1.4426950408889634f;
+// The forward splits each fp32 operand into three bf16 planes (six
+// passes), the backward into two (three passes): the forward is held to
+// 1e-5 of scale, which two planes miss on its two-product chain
+// (split_bf16x3), the backward to 1e-4.
+constexpr int kFwd = 3, kBwd = 2;
+constexpr int kSplit = kBwd * kTileH;  // elements of a backward split tile
 
 __device__ __forceinline__ int ksteps(int k) { return (min(k, kT) + 15) / 16; }
 
@@ -333,15 +150,22 @@ __device__ __forceinline__ void zero_frag(float (&a)[4][4]) {
     for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
 }
 
-// This thread's share of a 64 x 64 fp32 tile: pair i is row
-// (tid + 256 i) / 32, columns 2 ((tid + 256 i) % 32) + (0, 1), so each
-// warp reads one 256-B row.  at(r, c) gives the element, or 0 outside
-// the data (the zero padding of ragged Q, P and N).
-template <class F>
-__device__ __forceinline__ void tile_load(float (&v)[kFrag], F at) {
+// this thread's index among the NT threads that share a tile
+template <int NT>
+__device__ __forceinline__ int tile_tid() {
+  return NT == kThreads ? (int)threadIdx.x : (int)threadIdx.x % NT;
+}
+
+// This thread's share of a 64 x 64 fp32 tile, which NT threads load
+// together: pair i is row (tid + NT i) / 32, columns 2 ((tid + NT i) % 32)
+// + (0, 1) with tid = threadIdx.x % NT, so each warp reads one 256-B row.
+// at(r, c) gives the element, or 0 outside the data (the zero padding of
+// ragged Q, P and N).
+template <int NT = kThreads, class F>
+__device__ __forceinline__ void tile_load(float (&v)[kT * kT / NT], F at) {
 #pragma unroll
-  for (int i = 0; i < kFrag / 2; ++i) {
-    const int e = threadIdx.x + kThreads * i, r = e / 32, c = e % 32 * 2;
+  for (int i = 0; i < kT * kT / NT / 2; ++i) {
+    const int e = tile_tid<NT>() + NT * i, r = e / 32, c = e % 32 * 2;
     v[2 * i] = at(r, c);
     v[2 * i + 1] = at(r, c + 1);
   }
@@ -349,90 +173,111 @@ __device__ __forceinline__ void tile_load(float (&v)[kFrag], F at) {
 
 // rows [r0, r0 + 64) x columns [c0, c0 + 64) of a row-major fp32 matrix
 // (row stride ld) of nrows x ncols
-__device__ __forceinline__ void tile_load_rm(float (&v)[kFrag],
+template <int NT = kThreads>
+__device__ __forceinline__ void tile_load_rm(float (&v)[kT * kT / NT],
                                              const float* m, size_t ld,
                                              int r0, int c0, int nrows,
                                              int ncols) {
-  tile_load(v, [&](int r, int c) {
+  tile_load<NT>(v, [&](int r, int c) {
     return r0 + r < nrows && c0 + c < ncols
                ? m[(size_t)(r0 + r) * ld + c0 + c]
                : 0.f;
   });
 }
 
-// The loaded share split into bf16 hi (at t) and lo (at t + kTileH),
+// The loaded share split into NP bf16 planes (plane i at t + i kTileH),
 // rows of kLH elements: conflict-free stores and ldmatrix reads.
-__device__ __forceinline__ void tile_store(bf16* t, const float (&v)[kFrag]) {
+template <int NT = kThreads, int NP = kBwd>
+__device__ __forceinline__ void tile_store(bf16* t,
+                                           const float (&v)[kT * kT / NT]) {
 #pragma unroll
-  for (int i = 0; i < kFrag / 2; ++i) {
-    const int e = threadIdx.x + kThreads * i, r = e / 32, c = e % 32 * 2;
-    uint32_t hi, lo;
-    rt::split_bf16x2(v[2 * i], v[2 * i + 1], hi, lo);
-    *reinterpret_cast<uint32_t*>(t + r * kLH + c) = hi;
-    *reinterpret_cast<uint32_t*>(t + kTileH + r * kLH + c) = lo;
+  for (int i = 0; i < kT * kT / NT / 2; ++i) {
+    const int e = tile_tid<NT>() + NT * i, r = e / 32, c = e % 32 * 2;
+    uint32_t w[NP];
+    if constexpr (NP == 2)
+      rt::split_bf16x2(v[2 * i], v[2 * i + 1], w[0], w[1]);
+    else
+      rt::split_bf16x3(v[2 * i], v[2 * i + 1], w[0], w[1], w[2]);
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      *reinterpret_cast<uint32_t*>(t + k * kTileH + r * kLH + c) = w[k];
   }
 }
 
+// f[n] = A B_n for the 2 NB n-tiles of 16 x 8 of one k-step, from
+// NP-plane fragments (B_n: registers 2 (n % 2), 2 (n % 2) + 1 of
+// b[n / 2][plane], one ldmatrix.x4 per plane): the passes (i, j) with
+// i + j < NP, largest first, each over all n-tiles before the next, so
+// that consecutive mma's are independent.  Each f is a fresh fragment
+// that the caller adds in fp32: the tensor cores round their sums toward
+// zero, the fp32 add to nearest, so the long chain of dB's state part
+// (K = H P) does not drift.  Two planes: hi.hi, hi.lo, lo.hi (lo.lo,
+// ~2^-16 relative, is dropped); three: the six passes of split_bf16x3.
+template <int NP, int NB>
+__device__ __forceinline__ void mma_passes(float (&f)[2 * NB][4],
+                                           const uint32_t (&a)[NP][4],
+                                           const uint32_t (&b)[NB][NP][4]) {
+#pragma unroll
+  for (int n = 0; n < 2 * NB; ++n)
+    rt::mma_bf16_zc(f[n], a[0], b[n / 2][0][2 * (n % 2)],
+                    b[n / 2][0][2 * (n % 2) + 1]);
+#pragma unroll
+  for (int s = 1; s < NP; ++s)
+#pragma unroll
+    for (int i = 0; i <= s; ++i)
+#pragma unroll
+      for (int n = 0; n < 2 * NB; ++n)
+        rt::mma_bf16(f[n], a[i], b[n / 2][s - i][2 * (n % 2)],
+                     b[n / 2][s - i][2 * (n % 2) + 1]);
+}
+
 // acc += A B on this warp's 16 x 32 block at (m0, n0) of a 64 x 64
-// output, for k-step kk of split tiles A (stored [m][k], or [k][m] with
-// kAT) and B (stored [n][k], or [k][n] with kBT).  The passes hi.hi,
-// hi.lo and lo.hi (lo.lo, ~2^-16 relative, is dropped) go into a fresh
-// fragment, which is then added to acc in fp32: the tensor cores round
-// their sums toward zero, the fp32 add to nearest, so the long chain of
-// dB's state part (K = H P) does not drift.
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void mma3_kstep(float (&acc)[4][4], const bf16* A,
-                                           const bf16* B, int m0, int n0,
-                                           int kk) {
+// output, for k-step kk of NP-plane split tiles A (stored [m][k], or
+// [k][m] with kAT) and B (stored [n][k], or [k][n] with kBT).
+template <bool kAT, bool kBT, int NP>
+__device__ __forceinline__ void mma_kstep(float (&acc)[4][4], const bf16* A,
+                                          const bf16* B, int m0, int n0,
+                                          int kk) {
   const int ao = kAT ? rt::tc_akm_off(16 * kk, m0, kLH)
                      : rt::tc_a_off(m0, 16 * kk, kLH);
-  uint32_t ah[4], al[4], bh[2][4], bl[2][4];
-  if (kAT) {
-    rt::ldmatrix_x4_trans(ah, A + ao);
-    rt::ldmatrix_x4_trans(al, A + kTileH + ao);
-  } else {
-    rt::ldmatrix_x4(ah, A + ao);
-    rt::ldmatrix_x4(al, A + kTileH + ao);
+  uint32_t a[NP][4], b[2][NP][4];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    if (kAT) rt::ldmatrix_x4_trans(a[k], A + k * kTileH + ao);
+    else rt::ldmatrix_x4(a[k], A + k * kTileH + ao);
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int bo = kBT ? rt::tc_bkn_off(16 * kk, n0 + 16 * j, kLH)
                        : rt::tc_bnk_off(n0 + 16 * j, 16 * kk, kLH);
-    if (kBT) {
-      rt::ldmatrix_x4_trans(bh[j], B + bo);
-      rt::ldmatrix_x4_trans(bl[j], B + kTileH + bo);
-    } else {
-      rt::ldmatrix_x4(bh[j], B + bo);
-      rt::ldmatrix_x4(bl[j], B + kTileH + bo);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      if (kBT) rt::ldmatrix_x4_trans(b[j][k], B + k * kTileH + bo);
+      else rt::ldmatrix_x4(b[j][k], B + k * kTileH + bo);
     }
   }
+  float f[4][4];
+  mma_passes<NP, 2>(f, a, b);
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const uint32_t* b = bh[n / 2] + 2 * (n % 2);
-    const uint32_t* c = bl[n / 2] + 2 * (n % 2);
-    float f[4];
-    rt::mma_bf16_zc(f, ah, b[0], b[1]);
-    rt::mma_bf16(f, ah, c[0], c[1]);
-    rt::mma_bf16(f, al, b[0], b[1]);
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += f[e];
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] += f[n][e];
 }
 
-// k-steps [0, ks) of mma3_kstep: unrolled (ks <= 4) for part 1, where the
-// independent k-steps overlap; a plain loop for part 2, whose 128
+// k-steps [0, ks) of mma_kstep: unrolled (ks <= 4) where the independent
+// k-steps overlap; a plain loop for the backward's dbc kernel, whose 128
 // registers (2 CTAs per SM) leave no room for that.
-template <bool kAT, bool kBT, bool kUnrolled = true>
-__device__ __forceinline__ void warp_mma3(float (&acc)[4][4], const bf16* A,
-                                          const bf16* B, int m0, int n0,
-                                          int ks) {
+template <bool kAT, bool kBT, int NP = kBwd, bool kUnrolled = true>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4], const bf16* A,
+                                         const bf16* B, int m0, int n0,
+                                         int ks) {
   if (kUnrolled) {
 #pragma unroll
     for (int kk = 0; kk < kT / 16; ++kk)
-      if (kk < ks) mma3_kstep<kAT, kBT>(acc, A, B, m0, n0, kk);
+      if (kk < ks) mma_kstep<kAT, kBT, NP>(acc, A, B, m0, n0, kk);
   } else {
     for (int kk = 0; kk < ks; ++kk)
-      mma3_kstep<kAT, kBT>(acc, A, B, m0, n0, kk);
+      mma_kstep<kAT, kBT, NP>(acc, A, B, m0, n0, kk);
   }
 }
 
@@ -455,6 +300,336 @@ __device__ __forceinline__ void frag_store(float* m, size_t ld, int r0,
     }
 }
 
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// y part: grid (njt * nhg, BC), the q tile fastest and heaviest first.
+// Part 1, warp w a 16 x 32 block (m0, n0) of each C_q B_j^T tile, stored
+// as part 2 reads it: [jt][n8][tq][e], part 2's n-tile n8 of 8 columns,
+// thread tq of a half and fragment element e (a float4 a thread).
+// Part 2: half hf = warp / 4 takes heads h0 + 2 i + hf, its warp 16 q
+// rows (r0) and all P columns.
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ acum, const float* __restrict__ Bm,
+             const float* __restrict__ Cm, float* __restrict__ y, int Q,
+             int H, int P, int N) {
+  constexpr int kTile = kFwd * kTileH;  // a split tile
+  extern __shared__ __align__(16) float smem[];
+  const int njt = (Q + kT - 1) / kT;
+  float* sCB = smem;  // njt * kFrag * kThreads floats
+  // four split tiles: part 1's C_q and B_j N chunks, part 2's x_j tiles
+  // [half][buffer]
+  bf16* sOp = reinterpret_cast<bf16*>(sCB + njt * kFrag * kThreads);
+  // a_cum_j, dt_j, a_cum_q of the step: [half][buffer][3][kT]
+  float* sVec = reinterpret_cast<float*>(sOp + 4 * kTile);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qt = njt - 1 - (int)(blockIdx.x % njt);
+  const int h0 = (int)(blockIdx.x / njt) * kHG, h1 = min(h0 + kHG, H);
+  const size_t bc = blockIdx.y;
+  const int q0 = qt * kT, nch = (N + kT - 1) / kT;
+  const size_t HP = (size_t)H * P;
+
+  // part 1: C_q B_j^T for the j tiles 0..qt, both N chunks at once
+  {
+    const float* Cg = Cm + bc * Q * N;
+    const float* Bg = Bm + bc * Q * N;
+    const int m0 = warp % 4 * 16, n0 = warp / 4 * 32;
+    float v[kMaxN / kT][kFrag];
+#pragma unroll
+    for (int c = 0; c < kMaxN / kT; ++c)
+      if (c < nch) {
+        tile_load_rm(v[c], Cg, N, q0, c * kT, Q, N);
+        tile_store<kThreads, kFwd>(sOp + c * kTile, v[c]);
+        tile_load_rm(v[c], Bg, N, 0, c * kT, Q, N);
+      }
+    for (int jt = 0; jt <= qt; ++jt) {
+      if (jt > 0) __syncthreads();  // previous tile's reads done
+#pragma unroll
+      for (int c = 0; c < kMaxN / kT; ++c)
+        if (c < nch) tile_store<kThreads, kFwd>(sOp + (2 + c) * kTile, v[c]);
+      __syncthreads();
+      if (jt < qt)
+#pragma unroll
+        for (int c = 0; c < kMaxN / kT; ++c)
+          if (c < nch) tile_load_rm(v[c], Bg, N, (jt + 1) * kT, c * kT, Q, N);
+      float acc[4][4];
+      zero_frag(acc);
+#pragma unroll
+      for (int c = 0; c < kMaxN / kT; ++c)
+        if (c < nch)
+          warp_mma<false, false, kFwd>(acc, sOp + c * kTile,
+                                       sOp + (2 + c) * kTile, m0, n0,
+                                       ksteps(N - c * kT));
+      float4* cb = reinterpret_cast<float4*>(sCB + jt * kFrag * kThreads) +
+                   (n0 / 8) * kHalf + (warp % 4) * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        cb[n * kHalf] = make_float4(acc[n][0], acc[n][1], acc[n][2],
+                                    acc[n][3]);
+    }
+  }
+
+  // part 2: steps s = (head pair i, j tile jt).  Phase s multiplies step
+  // s (buffer s & 1), stages step s + 1 into the other buffer (its last
+  // readers, step s - 1's products, are past the barrier of the phase
+  // between) and loads step s + 2 into registers, so the split stores
+  // overlap the products; one barrier a phase.
+  const int hf = warp / 4, tq = tid % kHalf, r0 = warp % 4 * 16;
+  const int nst = (qt + 1) * ((h1 - h0 + 1) / 2);
+  // a half with no head left (an odd group's last pair) runs on its
+  // group's last head and stores nothing
+  auto head = [&](int s) {
+    return min(h0 + 2 * (s / (qt + 1)) + hf, h1 - 1);
+  };
+  // x_j, and (tq < kT) a_cum_j, dt_j and a_cum_q of row tq
+  float v[2 * kFrag], acj = 0.f, dtj = 0.f, acq = 0.f;
+  auto load_step = [&](int s) {
+    const int h = head(s), j0 = s % (qt + 1) * kT;
+    tile_load_rm<kHalf>(v, x + bc * Q * HP + (size_t)h * P, HP, j0, 0, Q, P);
+    if (tq < kT) {
+      const size_t i = (bc * Q + j0 + tq) * H + h;
+      const bool in = j0 + tq < Q;
+      acj = in ? acum[i] : 0.f;
+      dtj = in ? dt[i] : 0.f;
+      acq = q0 + tq < Q ? acum[(bc * Q + q0 + tq) * H + h] : 0.f;
+    }
+  };
+  auto store_step = [&](int s) {
+    const int b = s & 1;
+    tile_store<kHalf, kFwd>(sOp + (2 * hf + b) * kTile, v);
+    if (tq < kT) {
+      float* vec = sVec + (2 * hf + b) * 3 * kT;
+      vec[tq] = acj;
+      vec[kT + tq] = dtj;
+      vec[2 * kT + tq] = acq;
+    }
+  };
+  load_step(0);
+  __syncthreads();  // part 1's reads of the staging tiles done
+  store_step(0);
+  if (nst > 1) load_step(1);
+  __syncthreads();
+  float acc[8][4];
+  for (int s = 0; s < nst; ++s) {
+    const int jt = s % (qt + 1), b = s & 1, h = head(s);
+    const bf16* sX = sOp + (2 * hf + b) * kTile;
+    const float* aj = sVec + (2 * hf + b) * 3 * kT;  // then dt_j, a_cum_q
+    const float* dj = aj + kT;
+    const float acq2[2] = {aj[2 * kT + r0 + g], aj[2 * kT + r0 + g + 8]};
+    if (jt == 0)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const int j0 = jt * kT;
+    const bool full = jt < qt && q0 + kT <= Q;  // no pair masked
+    // k-steps within Q and, on the diagonal tile, up to this warp's rows
+    const int ks = jt < qt ? ksteps(Q - j0) : min(ksteps(Q - j0), r0 / 16 + 1);
+    const float4* cb =
+        reinterpret_cast<const float4*>(sCB + jt * kFrag * kThreads) + tq;
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk) {
+      if (kk >= ks) break;
+      // A = CB L dt_j on columns [16 kk, 16 kk + 16): n-tiles 2 kk + u
+      float a[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int n8 = 2 * kk + u, jj = 8 * n8 + 2 * t;
+        const float2 ac = *reinterpret_cast<const float2*>(aj + jj);
+        const float2 dv = *reinterpret_cast<const float2*>(dj + jj);
+        const float4 c4 = cb[n8 * kHalf];
+        const float cbv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qq = r0 + g + 8 * (e / 2);
+          float av = 0.f;
+          // masked before the exponential: exp(-inf) = 0 above the diagonal
+          if (full || (j0 + jj + e % 2 <= q0 + qq && q0 + qq < Q))
+            av = cbv[e] *
+                 exp2f((acq2[e / 2] - (e % 2 ? ac.y : ac.x)) * kLog2e) *
+                 (e % 2 ? dv.y : dv.x);
+          a[u][e] = av;
+        }
+      }
+      uint32_t af[kFwd][4];
+      rt::tc_c_to_a3(a, 0, af);
+      // y += A x_j over the P columns, 32 at a time
+#pragma unroll
+      for (int c = 0; c < kMaxP / 32; ++c) {
+        if (32 * c >= P) break;
+        uint32_t bf[2][kFwd][4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int k = 0; k < kFwd; ++k)
+            rt::ldmatrix_x4_trans(
+                bf[nb][k],
+                sX + k * kTileH + rt::tc_bkn_off(16 * kk, 32 * c + 16 * nb,
+                                                 kLH));
+        float f[4][4];
+        mma_passes<kFwd, 2>(f, af, bf);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * c + n][e] += f[n][e];
+      }
+    }
+    if (jt == qt && h0 + 2 * (s / (qt + 1)) + hf < h1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = q0 + r0 + g + 8 * r;
+        if (q >= Q) continue;
+        float* yr = y + (bc * Q + q) * HP + (size_t)h * P;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int p = 8 * n + 2 * t;
+          if (p < P) yr[p] = acc[n][2 * r];
+          if (p + 1 < P) yr[p + 1] = acc[n][2 * r + 1];
+        }
+      }
+    }
+    if (s + 1 < nst) {
+      store_step(s + 1);
+      if (s + 2 < nst) load_step(s + 2);
+    }
+    __syncthreads();
+  }
+}
+
+// acc[mt] += A B on this warp's block of m-tiles m0 + 16 mt (mt < mts, at
+// most 2) x 32 columns at n0, k-steps [0, ks) of three-plane split tiles
+// A [k][m] and B [k][n]: B's fragments serve both m-tiles.
+__device__ __forceinline__ void warp_mma_2x(float (&acc)[2][4][4],
+                                            const bf16* A, const bf16* B,
+                                            int m0, int n0, int ks,
+                                            int mts) {
+  for (int kk = 0; kk < ks; ++kk) {
+    uint32_t b[2][kFwd][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < kFwd; ++k)
+        rt::ldmatrix_x4_trans(
+            b[j][k], B + k * kTileH + rt::tc_bkn_off(16 * kk, n0 + 16 * j,
+                                                     kLH));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt >= mts) break;
+      uint32_t a[kFwd][4];
+#pragma unroll
+      for (int k = 0; k < kFwd; ++k)
+        rt::ldmatrix_x4_trans(
+            a[k], A + k * kTileH + rt::tc_akm_off(16 * kk, m0 + 16 * mt,
+                                                  kLH));
+      float f[4][4];
+      mma_passes<kFwd, 2>(f, a, b);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] += f[n][e];
+    }
+  }
+}
+
+// state part: grid (nnt * nhg, BC), the N tile fastest.  Steps s = (head
+// pair i, j tile) in phases as in the y part; a step's output is S of
+// heads h0 + 2 i + k (k < 2) at N column c0 as one 128 x 64 tile, 8 warps
+// of 32 x 32: warp w takes head k = w / 4, p rows p0 = 32 ((w / 2) % 2),
+// columns n0 = 32 (w % 2).
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ acum, const float* __restrict__ Bm,
+                 float* __restrict__ S, int Q, int H, int P, int N) {
+  constexpr int kTile = kFwd * kTileH;
+  extern __shared__ __align__(16) float smem[];
+  const int njt = (Q + kT - 1) / kT, nnt = (N + kT - 1) / kT;
+  bf16* sB = reinterpret_cast<bf16*>(smem);  // njt split tiles: B [j][n]
+  bf16* sX = sB + njt * kTile;  // [buffer][k] split tiles: w x [j][p]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hk = warp / 4, p0 = warp / 2 % 2 * 32, n0 = warp % 2 * 32;
+  const int c0 = (int)(blockIdx.x % nnt) * kT;
+  const int h0 = (int)(blockIdx.x / nnt) * kHG, h1 = min(h0 + kHG, H);
+  const size_t bc = blockIdx.y;
+  const size_t HP = (size_t)H * P;
+  const int nst = (h1 - h0 + 1) / 2 * njt;
+  // this warp's m-tiles inside P (warp-uniform)
+  const int mts = c0 + n0 < N ? max(0, min(2, (P - p0 + 15) / 16)) : 0;
+  // head k of step s's pair (an odd group's last pair has one: its second
+  // half runs on the group's last head and stores nothing)
+  auto head = [&](int s, int k) {
+    return min(h0 + 2 * (s / njt) + k, h1 - 1);
+  };
+
+  // step s's two x tiles and, for w_j of this thread's rows j0 + warp +
+  // 8 i (i < 8), lane l's row j0 + warp + 8 (l % 8): a_cum_last, a_cum_j
+  // and dt_j of each head
+  float v[2][kFrag], al[2], ajl[2], dtl[2];
+  auto load_step = [&](int s) {
+    const int j0 = s % njt * kT, j = j0 + warp + 8 * (lane % 8);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int h = head(s, k);
+      tile_load_rm(v[k], x + bc * Q * HP + (size_t)h * P, HP, j0, 0, Q, P);
+      al[k] = acum[(bc * Q + Q - 1) * H + h];
+      ajl[k] = j < Q ? acum[(bc * Q + j) * H + h] : al[k];
+      dtl[k] = j < Q ? dt[(bc * Q + j) * H + h] : 0.f;
+    }
+  };
+  // w x into buffer s & 1, split: w_j formed once per row (four lanes
+  // each), handed on by lane i
+  auto store_step = [&](int s) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float w = exp2f((al[k] - ajl[k]) * kLog2e) * dtl[k];
+#pragma unroll
+      for (int i = 0; i < kFrag / 2; ++i) {
+        const float wi = __shfl_sync(0xffffffffu, w, i);
+        v[k][2 * i] *= wi;
+        v[k][2 * i + 1] *= wi;
+      }
+      tile_store<kThreads, kFwd>(sX + (2 * (s & 1) + k) * kTile, v[k]);
+    }
+  };
+  for (int jt = 0; jt < njt; ++jt) {
+    tile_load_rm(v[0], Bm + bc * Q * N, N, jt * kT, c0, Q, N);
+    tile_store<kThreads, kFwd>(sB + jt * kTile, v[0]);
+  }
+  load_step(0);
+  store_step(0);
+  if (nst > 1) load_step(1);
+  __syncthreads();
+  float acc[2][4][4];
+  for (int s = 0; s < nst; ++s) {
+    const int jt = s % njt;
+    if (jt == 0)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) zero_frag(acc[mt]);
+    warp_mma_2x(acc, sX + (2 * (s & 1) + hk) * kTile, sB + jt * kTile, p0,
+                n0, ksteps(Q - jt * kT), mts);
+    const int h = h0 + 2 * (s / njt) + hk;
+    if (jt == njt - 1 && h < h1)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (mt < mts)
+          frag_store(S + (bc * H + h) * (size_t)P * N, N, 0, c0, P, N,
+                     p0 + 16 * mt, n0, acc[mt]);
+    if (s + 1 < nst) {
+      store_step(s + 1);
+      if (s + 2 < nst) load_step(s + 2);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
 // Backward, part 1: grid (njt * nhg * BC) with the j tile slowest, so the
 // CTAs of j tile 0 (the most q tiles) run first.  8 warps: warp w owns j
 // rows m0 = 16 (w / 2) and the q half qh = 32 (w % 2) of every (j, q)
@@ -475,7 +650,7 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   float* __restrict__ dcbp, float* __restrict__ rowp, int BC,
                   int Q, int H, int P, int N) {
   extern __shared__ __align__(16) float smem[];
-  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kHG - 1) / kHG;
   // this thread's fragments of C.B^T and of the group's dCB, per q tile
   // on and below the diagonal: [qt - jt][4 n + e][tid], each element
   // written and read by its own thread only
@@ -506,7 +681,7 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int rem = (int)(blockIdx.x % (nhg * BC));
   const size_t bc = rem / nhg;
   const int hg = rem % nhg;
-  const int h0 = hg * kBHG, h1 = min(h0 + kBHG, H);
+  const int h0 = hg * kHG, h1 = min(h0 + kHG, H);
   const int j0 = jt * kT;
   const int nch = (N + kT - 1) / kT;  // N chunks: 1 or 2
   const size_t HP = (size_t)H * P;
@@ -539,7 +714,7 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int c = 0; c < kMaxN / kT; ++c)
       if (c < nch)
-        warp_mma3<false, false>(acc, sBj + c * kSplit, sOp + c * kSplit, m0,
+        warp_mma<false, false>(acc, sBj + c * kSplit, sOp + c * kSplit, m0,
                                 qh, ksteps(N - c * kT));
     float* cb = sCB + (qt - jt) * kFrag * kThreads + tid;
 #pragma unroll
@@ -585,7 +760,7 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int c = 0; c < kMaxN / kT; ++c)
       if (c < nch)
-        warp_mma3<false, false>(u, sBj + c * kSplit, sOp + c * kSplit, m0,
+        warp_mma<false, false>(u, sBj + c * kSplit, sOp + c * kSplit, m0,
                                 qh, ksteps(N - c * kT));
     // Z_j = x_j . U_j (x from its split halves); U becomes w_j U_j
     float z[2] = {0.f, 0.f};
@@ -647,7 +822,7 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       // dA^T = x_j dy_q^T (j rows, q columns)
       float da[4][4];
       zero_frag(da);
-      warp_mma3<false, false>(da, sX, sDY, m0, qh, ksteps(P));
+      warp_mma<false, false>(da, sX, sDY, m0, qh, ksteps(P));
       const float* cb = sCB + (qt - jt) * kFrag * kThreads + tid;
       float* dcb = sDCB + (qt - jt) * kFrag * kThreads + tid;
       const bool full = qt > jt && q0 + kT <= Q;  // no pair masked
@@ -698,28 +873,20 @@ ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       if (q0 + qh < Q) {
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
-          uint32_t ah[4], al[4];
-          rt::split_bf16x2(da[2 * kk][0], da[2 * kk][1], ah[0], al[0]);
-          rt::split_bf16x2(da[2 * kk][2], da[2 * kk][3], ah[1], al[1]);
-          rt::split_bf16x2(da[2 * kk + 1][0], da[2 * kk + 1][1], ah[2],
-                           al[2]);
-          rt::split_bf16x2(da[2 * kk + 1][2], da[2 * kk + 1][3], ah[3],
-                           al[3]);
+          uint32_t a[kBwd][4];
+          rt::tc_c_to_a(da, kk, a[0], a[1]);
 #pragma unroll
           for (int jb = 0; jb < 4; ++jb) {
             const int bo = rt::tc_bkn_off(qh + 16 * kk, 16 * jb, kLH);
-            uint32_t bh[4], bl[4];
-            rt::ldmatrix_x4_trans(bh, sDY + bo);
-            rt::ldmatrix_x4_trans(bl, sDY + kTileH + bo);
+            uint32_t b[1][kBwd][4];
+            rt::ldmatrix_x4_trans(b[0][0], sDY + bo);
+            rt::ldmatrix_x4_trans(b[0][1], sDY + kTileH + bo);
+            float f[2][4];
+            mma_passes<kBwd, 1>(f, a, b);
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
-              float f[4];
-              rt::mma_bf16_zc(f, ah, bh[2 * s], bh[2 * s + 1]);
-              rt::mma_bf16(f, ah, bl[2 * s], bl[2 * s + 1]);
-              rt::mma_bf16(f, al, bh[2 * s], bh[2 * s + 1]);
+            for (int s = 0; s < 2; ++s)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) dxa[2 * jb + s][e] += f[e];
-            }
+              for (int e = 0; e < 4; ++e) dxa[2 * jb + s][e] += f[s][e];
           }
         }
       }
@@ -818,7 +985,7 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
   const int tid = threadIdx.x, warp = tid / 32;
   const int m0 = warp / 2 * 16, n0 = warp % 2 * 32;
-  const int nnt = (N + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int nnt = (N + kT - 1) / kT, nhg = (H + kHG - 1) / kHG;
   const int rt_ = (int)(blockIdx.x / nnt), nt = (int)(blockIdx.x % nnt);
   const size_t bc = blockIdx.y;
   const int r0 = rt_ * kT, c0 = nt * kT;
@@ -840,7 +1007,7 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     tile_load_rm(v, Bg, N, jc, c0, Q, N);
     tile_store(sQ, v);
     __syncthreads();
-    warp_mma3<false, true, false>(acc, sP, sQ, m0, n0, ksteps(Q - jc));
+    warp_mma<false, true, kBwd, false>(acc, sP, sQ, m0, n0, ksteps(Q - jc));
   }
   frag_store(dC + bc * Q * N, N, r0, c0, Q, N, m0, n0, acc);
 
@@ -853,7 +1020,7 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     tile_load_rm(v, Cg, N, qc, c0, Q, N);
     tile_store(sQ, v);
     __syncthreads();
-    warp_mma3<true, true, false>(acc, sP, sQ, m0, n0, ksteps(Q - qc));
+    warp_mma<true, true, kBwd, false>(acc, sP, sQ, m0, n0, ksteps(Q - qc));
   }
   // the state part, K = H P: head h + 1's tiles load (and its w_j is
   // formed, once per row) while h's multiply
@@ -886,7 +1053,7 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     tile_store(sQ, vs);
     __syncthreads();
     if (h + 1 < H) load_head(h + 1);
-    warp_mma3<false, true, false>(acc, sP, sQ, m0, n0, ksteps(P));
+    warp_mma<false, true, kBwd, false>(acc, sP, sQ, m0, n0, ksteps(P));
   }
   frag_store(dB + bc * Q * N, N, r0, c0, Q, N, m0, n0, acc);
 
@@ -914,20 +1081,29 @@ extern "C" int rt_ssd_intra(const void* x, const void* dt, const void* acum,
       H < 1 || BC < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem_y =
-      ((size_t)kBQ * cb_stride(Q) + kBK * kLX + kBQ * kLA + kBQ + 2 * kBK) *
-      sizeof(float);
+  const int njt = (Q + kT - 1) / kT, nnt = (N + kT - 1) / kT;
+  const int nhg = (H + kHG - 1) / kHG;
+  // the C.B^T strip's fragments, four three-plane split tiles and 12
+  // vectors of kT floats: 179,200 B at Q 256, one CTA per SM
+  const size_t smem_y = (size_t)njt * kFrag * kThreads * sizeof(float) +
+                        (size_t)4 * kFwd * kTileH * sizeof(bf16) +
+                        (size_t)12 * kT * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_y_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_y);
   if (err != cudaSuccess) return (int)err;
-  const int nqt = (Q + kBQ - 1) / kBQ, nhg = (H + kHG - 1) / kHG;
-  ssd_y_kernel<<<dim3(nqt * nhg, BC), kThreads, smem_y, st>>>(
+  ssd_y_kernel<<<dim3(njt * nhg, BC), kThreads, smem_y, st>>>(
       (const float*)x, (const float*)dt, (const float*)acum,
       (const float*)Bm, (const float*)Cm, (float*)y, Q, H, P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_s = ((size_t)kBJ * (kMaxP + kMaxN) + kBJ) * sizeof(float);
-  ssd_state_kernel<<<dim3(H, BC), kThreads, smem_s, st>>>(
+  // B's N tile over Q and two buffers of a head pair's w x tiles, split
+  // in three planes: 221,184 B at Q 256, one CTA per SM
+  const size_t smem_s = (size_t)(njt + 4) * kFwd * kTileH * sizeof(bf16);
+  err = cudaFuncSetAttribute(ssd_state_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_s);
+  if (err != cudaSuccess) return (int)err;
+  ssd_state_kernel<<<dim3(nnt * nhg, BC), kThreads, smem_s, st>>>(
       (const float*)x, (const float*)dt, (const float*)acum,
       (const float*)Bm, (float*)S, Q, H, P, N);
   return (int)cudaGetLastError();
@@ -936,7 +1112,7 @@ extern "C" int rt_ssd_intra(const void* x, const void* dt, const void* acum,
 // The backward's fp32 scratch: dcbp (BC, nhg, Q, Q) then rowp
 // (BC, njt, Q, H).  The caller allocates this many floats.
 extern "C" long long rt_ssd_intra_bwd_scratch_floats(int BC, int Q, int H) {
-  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kHG - 1) / kHG;
   return (long long)BC * Q * ((long long)nhg * Q + (long long)njt * H);
 }
 
@@ -951,7 +1127,7 @@ extern "C" int rt_ssd_intra_bwd(const void* x, const void* dt,
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || P < 1 || P > kMaxP ||
       H < 1 || BC < 1)
     return (int)cudaErrorInvalidValue;
-  const int njt = (Q + kT - 1) / kT, nhg = (H + kBHG - 1) / kBHG;
+  const int njt = (Q + kT - 1) / kT, nhg = (H + kHG - 1) / kHG;
   const int nnt = (N + kT - 1) / kT;
   const long long dcb_floats = (long long)BC * nhg * Q * Q;
   if (scratch_floats < rt_ssd_intra_bwd_scratch_floats(BC, Q, H))

@@ -41,6 +41,63 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
   lo = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
+__device__ __forceinline__ uint32_t f32_bits(float x) {
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  return u;
+}
+
+__device__ __forceinline__ float bits_f32(uint32_t u) {
+  float x;
+  memcpy(&x, &u, 4);
+  return x;
+}
+
+// (a, b) = hi + mid + lo exactly, each term bf16: hi keeps the top 8
+// significant bits (the upper half of the fp32 pattern), mid the top 8 of
+// what is left, lo the rest (at most 8 bits); each difference is exact in
+// fp32.  Bit masks and fp32 adds only, no conversions (2-3% faster in
+// the SSD forward than rounding to nearest: scripts/torch_ssd_probe.py's
+// split_rn).  The six mma passes with i + j <= 2 of (hi, mid, lo) x
+// (hi, mid, lo) then carry an fp32 product to ~2^-21 relative (the
+// dropped mid.lo, lo.mid, lo.lo), where hi + lo leaves ~2^-17 (~1e-5 of
+// scale on a two-product chain).
+__device__ __forceinline__ void split_bf16x3(float a, float b, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  constexpr uint32_t kTop = 0xffff0000u;
+  const uint32_t ua = f32_bits(a), ub = f32_bits(b);
+  hi = (ua >> 16) | (ub & kTop);
+  const float ra = a - bits_f32(ua & kTop), rb = b - bits_f32(ub & kTop);
+  const uint32_t va = f32_bits(ra), vb = f32_bits(rb);
+  mid = (va >> 16) | (vb & kTop);
+  const float sa = ra - bits_f32(va & kTop), sb = rb - bits_f32(vb & kTop);
+  lo = (f32_bits(sa) >> 16) | (f32_bits(sb) & kTop);
+}
+
+// The A fragments (hi, lo) of k-step kk of a 16-row C tile held as n-tiles
+// of 8 columns: columns [16 kk, 16 kk + 16) are n-tiles 2 kk and 2 kk + 1.
+// An accumulator becomes the A operand of the next product in registers.
+template <int N>
+__device__ __forceinline__ void tc_c_to_a(const float (&c)[N][4], int kk,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_bf16x2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  split_bf16x2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  split_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  split_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// The same split into three planes (split_bf16x3): a[plane][register].
+template <int N>
+__device__ __forceinline__ void tc_c_to_a3(const float (&c)[N][4], int kk,
+                                           uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* v = c[2 * kk + r / 2] + 2 * (r % 2);
+    split_bf16x3(v[0], v[1], a[0][r], a[1][r], a[2][r]);
+  }
+}
+
 // reductions over the 4 lanes of a quad (the lanes that share a C row)
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

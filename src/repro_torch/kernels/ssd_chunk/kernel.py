@@ -5,11 +5,12 @@
 ``ssd_intra_bwd_kernel`` computes its VJP, which the reference takes by
 differentiating the quadratic oracle (``repro/kernels/ssd_chunk/ops.py::
 _bwd``).  On a CUDA tensor each launches its hand-written Hopper kernel
-(``csrc/ssd_chunk.cu``: the forward in fp32 on the CUDA cores, every
-product of the backward on the tensor cores over bf16 hi/lo splits of its
-fp32 operands; the source says what bounds them and what their design
-does about that) or raises; on a CPU tensor it runs its plain
-PyTorch version below, written head-major as batched products.
+(``csrc/ssd_chunk.cu``: every product on the tensor cores over bf16
+splits of its fp32 operands, three planes and six passes forward, hi/lo
+and three passes backward; the elementwise work in fp32; the source says
+what bounds them and what their design does about that) or raises; on a
+CPU tensor it runs its plain PyTorch version below, written head-major as
+batched products.
 
 Layouts, as the reference (no transposes: the kernels read x, dt and a_cum
 in place with strides): xf (B, nc, Q, H, P), dtf and a_cum (B, nc, Q, H),

@@ -6,6 +6,10 @@ struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 inline float __bfloat162float(__nv_bfloat16 b) {
   const uint32_t u = uint32_t(b.x) << 16;
   float f;

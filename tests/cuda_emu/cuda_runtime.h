@@ -4,9 +4,10 @@
 // std::threads sharing one barrier, blocks run one after another.
 // __syncthreads_or becomes a block-wide barrier exchange, valid because
 // every kernel calls it with all threads of the block; __shfl_xor_sync
-// becomes a warp-wide one (each warp of 32 threads has a barrier of its
-// own), valid because every kernel calls it with all lanes of the warp; so
-// do the warp-level tensor-core helpers of csrc/tensor_core.cuh (ptx_emu.h).
+// and __shfl_sync (a broadcast from one lane) become warp-wide ones (each
+// warp of 32 threads has a barrier of its own), valid because every kernel
+// calls them with all lanes of the warp; so do the warp-level tensor-core
+// helpers of csrc/tensor_core.cuh (ptx_emu.h).
 // A warp-wide exchange posts into one of two slot sets, alternating per
 // call, and waits at the warp's barrier once: a lane writes a set again
 // only two calls later, after every lane of its warp has passed the
@@ -66,6 +67,12 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   s[threadIdx.x] = v;
   emu_syncwarp();
   return s[threadIdx.x ^ o];
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  float* s = emu_fslots + emu_set();
+  s[threadIdx.x] = v;
+  emu_syncwarp();
+  return s[(threadIdx.x & ~31u) + (src & 31)];
 }
 inline int __syncthreads_or(int p) {
   emu_islots[threadIdx.x] = p ? 1 : 0;

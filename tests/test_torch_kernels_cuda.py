@@ -9,11 +9,12 @@ Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
 versions and the fused backward takes dQ's kv-tile partials through
 atomics.  The split attention backward and the SSD backward have no
-atomics and must repeat bit for bit.  The SSD backward runs every product
-on the tensor cores (bf16 ``mma.sync``, each fp32 operand split into bf16
-hi + lo, three passes), so it is also checked with operands far from 1,
-each gradient against its own scale.  TF32 is off for the plain versions'
-matmuls.
+atomics and must repeat bit for bit, as must the SSD forward.  Both SSD
+kernels run every product on the tensor cores (bf16 ``mma.sync``, each
+fp32 operand split into bf16 planes: three planes and six passes
+forward, two and three backward), so they are also checked with operands
+far from 1, each output against its own scale.  TF32 is off for the
+plain versions' matmuls.
 """
 
 import numpy as np
@@ -139,12 +140,35 @@ def _ssd_inputs(case, dev):
 
 @pytest.mark.parametrize("case", SSD, ids=str)
 def test_ssd_kernel_matches_plain(cuda, case):
+    """The forward kernel within 1e-5 of each output's scale of its plain
+    version; no atomics, so two calls are bit-identical."""
     args = _ssd_inputs(case, cuda)
     n0 = SK.ssd_intra_kernel.launches
     got = SK.ssd_intra_kernel(*args)
     assert SK.ssd_intra_kernel.launches == n0 + 1
     for a, b in zip(got, SK.ssd_intra_plain(*args)):
         _close(a, b, 1e-5)
+    again = SK.ssd_intra_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", [(1, 2, 100, 9, 40, 24),
+                                  (2, 8, 256, 32, 64, 128)], ids=str)
+def test_ssd_kernel_matches_plain_scaled_operands(cuda, case):
+    """Operands far from 1 (x 1e3, B 1e-2): the three-plane bf16 split
+    keeps each operand to ~2^-24 of its own magnitude, so y and S stay
+    within 1e-5 of their own largest magnitude (no floor at 1); two calls
+    are bit-identical."""
+    x, dt, a_cum, bm, cm = _ssd_inputs(case, cuda)
+    args = (x * 1e3, dt, a_cum, bm * 1e-2, cm)
+    got = SK.ssd_intra_kernel(*args)
+    for a, b in zip(got, SK.ssd_intra_plain(*args)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * scale, \
+            f"max abs err {err:.3e} > 1e-5 * {scale:.3e}"
+    again = SK.ssd_intra_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _ssd_bwd_args(case, dev):

@@ -11,15 +11,16 @@ dynamic ``extern __shared__`` array points at the stub's per-block
 buffer.  Each block runs as its launch's threads.  This checks the
 kernels' indexing, masking, tile skipping, online statistics, chunking,
 atomics, the tensor-core fragment layouts of the bf16 attention and
-cross-entropy kernels and of the SSD backward (its fp32 operands split
-into bf16 hi/lo, dA^T's accumulator reused as an A operand in registers)
-and the ragged edges of the SSD tiles, forward and backward, here; the
+cross-entropy kernels and of the SSD forward and backward (their fp32
+operands split into three or two bf16 planes, an accumulator reused as
+an A operand in registers) and the ragged edges of the SSD tiles,
+forward and backward, here; the
 real compiler and the timings are checked on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
 Tolerances (fp32 accumulation in another order; on the tensor-core
 routes each fp32 operand also carries the ~2^-17 relative residual of its
 bf16 hi/lo split): 1e-5 forward, 1e-4 grads, relative to the output's
-scale (and to its own scale, with no floor at 1, for the SSD backward's
+scale (and to its own scale, with no floor at 1, for the SSD kernels'
 operands far from 1).
 """
 
@@ -153,8 +154,12 @@ SSD = [  # B, nc, Q, H, P, N: SSD_CASES, the smoke widths, ragged tiles
 ]
 
 
-@pytest.mark.parametrize("case", SSD, ids=str)
+# + mamba2-370m's full head count (H 32: four head groups of 8) at Q 256,
+# P 64, N 128, one chunk
+@pytest.mark.parametrize("case", SSD + [(1, 1, 256, 32, 64, 128)], ids=str)
 def test_ssd_kernel_emulated(lib, case):
+    """The tensor-core forward against its plain version within 1e-5 of
+    each output's scale; no atomics, so two calls are bit-identical."""
     B, nc, Q, H, P, N = case
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.normal(0, 1, (B, nc, Q, H, P)), dtype=torch.float32)
@@ -168,6 +173,35 @@ def test_ssd_kernel_emulated(lib, case):
     want = SK.ssd_intra_plain(x, dt, a_cum, bm, cm)
     for a, b in zip(got, want):
         _close(a, b, 1e-5)
+    again = SK._launch(lib, 0, x, dt, a_cum, bm, cm)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_kernel_emulated_large_decays(lib):
+    """a_cum spanning ~1e3 within a chunk: the forward masks before the
+    exponential, so y and S stay finite and match the plain ones."""
+    args = _ssd_bwd_inputs((1, 2, 100, 9, 40, 24), decay=400.0)[:5]
+    assert float(args[2].min()) < -500.0
+    for a, b in zip(SK._launch(lib, 0, *args), SK.ssd_intra_plain(*args)):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, 1e-5)
+
+
+def test_ssd_kernel_emulated_scaled_operands(lib):
+    """Operands far from 1 (x 1e3, B 1e-2): every fp32 operand is split
+    into three bf16 planes, which keep ~2^-24 of its own magnitude at any
+    scale, so y and S stay within 1e-5 of their own largest magnitude (no
+    floor at 1); two calls are bit-identical."""
+    x, dt, a_cum, bm, cm = _ssd_bwd_inputs((1, 2, 100, 9, 40, 24))[:5]
+    args = (x * 1e3, dt, a_cum, bm * 1e-2, cm)
+    got = SK._launch(lib, 0, *args)
+    for a, b in zip(got, SK.ssd_intra_plain(*args)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * scale, \
+            f"max abs err {err:.3e} > 1e-5 * {scale:.3e}"
+    again = SK._launch(lib, 0, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _ssd_bwd_inputs(case, seed=7, decay=1.0):
