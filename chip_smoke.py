@@ -21,7 +21,8 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    tied auxiliary shape (T 2044), gemma2's softcap case (T 1024, V 256000)
    and the mamba2-370m server shape (T 16376, D 1024, V 50280, tied), and
    on the CUDA cores (fp32 h) at the qwen3 shape, each backward twice
-   (bit-identical); the SSD backward on all three SSD cases, twice
+   (bit-identical; the attention backwards too, fused and split, in both
+   dtypes); the SSD backward on all three SSD cases, twice
    (bit-identical); kernel, plain and library times with CUDA events
    (median of ``REPEATS`` timings after ``WARMUP`` calls, their range
    beside it; SSD one timing), and for the SSD backward the route it
@@ -39,7 +40,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    seed, 4 clients, cohort 2, H 2, device batch 4, 2 device rounds, server
    batch 8, one server epoch over 64 samples, 8 eval samples; each path's
    kernels must have launched, every loss be finite, and the merged
-   model's validation loss end below ln V.
+   model's validation loss end below ln V.  The accounting must hold at
+   full width: the store holds ``bytes_received`` = 64 x (seq x d_model x
+   4 + seq x 4) (fp32 activations and int32 labels), ``comm_bytes`` =
+   rounds x 2K(s_d + s_aux) + bytes_received with the sizes from
+   ``repro_torch.core.comm_model``, and ``sim_time`` = the rounds'
+   slowest clients + bytes_received / BANDWIDTH_BPS + epochs x
+   ``ampere_server_epoch_time``, summed in the Runner's order.
 6. Profile: one server train step of each main path at its shape (8 x 512
    qwen3-1.7b, 8 x 2048 mamba2-370m) under ``torch.profiler`` after one
    untimed step and 3 steps timed without it (CUDA events): device time
@@ -52,10 +59,21 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    qwen3-1.7b (8 x 512) from the same state and batch through
    ``steps.make_server_train_step``, twice with ``impl="kernel"`` and
    twice with ``impl="kernel:split"``, in fp32 and in the config's bf16
-   compute: the losses agree, in fp32 every gradient agrees within 1e-4
-   of its scale, in bf16 split differs from fused by at most 3x as much
-   as fused from itself, the two split runs give bit-identical gradients,
-   and every attention kernel launched in both dtypes.
+   compute: the losses agree, two fused runs and two split runs each give
+   bit-identical gradients, split differs from fused by at most 1e-4 of
+   each leaf's scale in fp32 and 0.05 in bf16 (the two routes sum dQ in
+   different orders, and 27 layers of bf16 backward carry the last-bit
+   difference into every gradient), and every attention kernel launched
+   in both dtypes.
+8. Experiment: ``repro_torch.experiments.run_experiment`` on the
+   qwen3-1.7b smoke spec (4 clients, cohort 2, H 2, 2 rounds, 2 server
+   epochs, seq 32, checkpoints after every round and epoch in a temporary
+   workdir), on the card and on the CPU from the same (CPU-seeded) init:
+   losses within 1e-4 relative, next-token accuracy within 1e-2,
+   ``comm_bytes`` and ``sim_time`` equal; then a card run killed after
+   round 0 and rerun from its workdir matches the uninterrupted card run
+   within the same tolerances (torch's own CUDA backward ops are not all
+   deterministic, so not bit for bit).
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -64,11 +82,11 @@ fixed random injection drawn from the seed; model, head and xent still run
 over the full vocabulary.
 
 Tolerances: each kernel output within 1e-4 of its largest magnitude (fp32
-accumulation in another order; dQ through atomics in the fused backward).
+accumulation in another order).
 
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
-sum over the three path runs of 5 and 7, ``launches_by_path`` each run's
+sum over the path runs of 5, 7 and 8, ``launches_by_path`` each run's
 count; the attention and xent rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 CUDA-core ones behind the same wrappers, counted by
 dtype; the xent rows add their bf16 pass count, the fp32-FMA bound for
@@ -88,6 +106,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,10 +116,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core import splitting, steps  # noqa: E402
+from repro_torch.configs.base import (FedConfig, OptimConfig,  # noqa: E402
+                                      RunConfig)
+from repro_torch.core import (aggregation, comm_model, splitting,  # noqa: E402
+                              steps)
 from repro_torch.core.uit import AmpereTrainer  # noqa: E402
 from repro_torch.data import (ActivationStore, Dataset, federate,  # noqa: E402
                               make_dataset_for_model, make_lm_dataset)
+from repro_torch.experiments import (AmpereSystem, DataSpec,  # noqa: E402
+                                     ExperimentSpec, SystemContext,
+                                     resolve_setup, run_experiment)
 from repro_torch.interop import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
@@ -191,9 +216,8 @@ PTXAS_REPORT = ("xent_tc_", "xent_split_", "ssd_y_", "ssd_state_",
 SSD_FWD_PASSES, SSD_BWD_PASSES = 6, 3
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
-# bf16 split backward: allowed difference from fused, in multiples of the
-# fused kernel's run-to-run spread (its dQ atomics) measured in the same run
-BF16_SPREAD = 3.0
+# split backward against fused, relative to each gradient leaf's scale
+SPLIT_TOL = {"float32": 1e-4, "bfloat16": 0.05}
 
 
 def log(phase: str, **kv):
@@ -306,8 +330,10 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
            "flash_bwd_dkv": (FK.flash_bwd_dkv, FK.flash_bwd_dkv_plain,
                              split_args)}
     for name, (fn, plain, bargs) in bwd.items():
-        errs[name] = check(f"{name} {tag}", fn(*bargs, **kw),
-                           plain(*bargs, **kw), 1e-4)
+        got = fn(*bargs, **kw)
+        errs[name] = check(f"{name} {tag}", got, plain(*bargs, **kw), 1e-4)
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(*bargs, **kw))):
+            raise AssertionError(f"{name} {tag}: two calls differ")
     if not library:
         return None
     pairs = BH * _valid_pairs(S, S, True, window)
@@ -644,19 +670,24 @@ def main_path(dev, arch):
     largs = launch_train.make_parser().parse_args(argv)
     train = full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
     evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    run_cfg = launch_train.build_run_cfg(largs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     out = launch_train.run_training(
-        cfg, launch_train.build_run_cfg(largs), train, evald, device=dev,
+        cfg, run_cfg, train, evald, device=dev,
         device_rounds=DEVICE_ROUNDS, server_epochs=SERVER_EPOCHS)
     launches = read_launches()
     hist = out["history"]
+    nbytes = out["store"].bytes_received
     log("main_path", arch=cfg.name, layers=cfg.num_layers,
         d_model=cfg.d_model, vocab=cfg.vocab_size, seq=seq, lr=lr,
         seconds=out["seconds"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-        device=hist["device"], server=hist["server"], launches=launches)
+        device=hist["device"], server=hist["server"], launches=launches,
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        bytes_received=nbytes)
+    check_accounting(cfg, run_cfg, seq, hist, out["store"])
     losses = [r[k] for ph in ("device", "server") for r in hist[ph]
               for k in ("loss", "val_loss")]
     if len(hist["device"]) != DEVICE_ROUNDS or \
@@ -675,6 +706,108 @@ def main_path(dev, arch):
               out["merged_params"]["embed"].items()}
     if shapes != {"table": (cfg.vocab_size, cfg.d_model)}:
         raise AssertionError(f"merged params: unexpected {shapes}")
+    return launches
+
+
+def check_accounting(cfg, run_cfg, seq, hist, store):
+    """The main path's bytes and simulated time, recomputed from the
+    port's comm model at full width (analytic: no device number)."""
+    nbytes = store.bytes_received
+    want_bytes = TRAIN_SAMPLES * (seq * cfg.d_model * 4 + seq * 4)
+    sizes = comm_model.split_sizes(build_model(cfg), run_cfg.split,
+                                   seq_len=seq)
+    K = run_cfg.fed.clients_per_round
+    want_comm = DEVICE_ROUNDS * 2 * K * (sizes.device + sizes.aux) + nbytes
+    rng = np.random.default_rng(run_cfg.fed.seed)
+    want_time = 0.0              # summed in the Runner's order
+    for rnd in range(DEVICE_ROUNDS):
+        want_time += aggregation.sample_cohort(rng, run_cfg.fed,
+                                               rnd)["round_time"]
+    want_time += nbytes / comm_model.BANDWIDTH_BPS
+    epoch_s = comm_model.ampere_server_epoch_time(
+        build_model(cfg), run_cfg.split, comm_model.TimeModel(),
+        n_samples=store.num_samples(), seq_len=seq, sizes=sizes)
+    for _ in range(SERVER_EPOCHS):
+        want_time += epoch_s
+    got = (nbytes, hist["comm_bytes"], hist["sim_time"])
+    want = (want_bytes, want_comm, want_time)
+    log("accounting", arch=cfg.name, device_bytes=sizes.device,
+        aux_bytes=sizes.aux, server_bytes=sizes.server,
+        bytes_received=nbytes, comm_bytes=hist["comm_bytes"],
+        sim_time_s=hist["sim_time"], server_epoch_s=epoch_s,
+        ok=got == want)
+    if got != want:
+        raise AssertionError(f"{cfg.name} accounting: (bytes_received, "
+                             f"comm_bytes, sim_time) {got} != {want}")
+
+
+EXPERIMENT_FED = dict(num_clients=4, clients_per_round=2, local_steps=2,
+                      device_batch_size=4, server_batch_size=8, seed=0)
+
+
+def experiment_spec(results_dir) -> ExperimentSpec:
+    """The qwen3-1.7b smoke experiment, checkpointed after every round and
+    epoch under ``results_dir``."""
+    run = RunConfig(arch="qwen3-1.7b", fed=FedConfig(**EXPERIMENT_FED),
+                    optim=OptimConfig(name="momentum", lr=0.2,
+                                      schedule="inverse_time",
+                                      decay_gamma=0.005),
+                    checkpoint_every=1)
+    return ExperimentSpec(
+        name="chip_smoke", arch="qwen3-1.7b", run=run,
+        data=DataSpec(train_samples=64, eval_samples=16, seq_len=32),
+        max_rounds=2, max_server_epochs=2, patience=50, persist=True,
+        results_dir=str(results_dir))
+
+
+def _histories_close(a, b, what):
+    for phase, n in (("device", 2), ("server", 2)):
+        if not len(a[phase]) == len(b[phase]) == n:
+            raise AssertionError(f"{what}: {phase} {a[phase]} vs {b[phase]}")
+        for x, y in zip(a[phase], b[phase]):
+            for key in ("loss", "val_loss"):
+                if not abs(x[key] - y[key]) <= 1e-4 * abs(y[key]):
+                    raise AssertionError(f"{what} {phase} {key}: {x} vs {y}")
+            if not abs(x["val_acc"] - y["val_acc"]) <= 1e-2:
+                raise AssertionError(f"{what} {phase} val_acc: {x} vs {y}")
+
+
+def experiment(dev):
+    """run_experiment on the card and on the CPU, then a card run killed
+    after round 0 and resumed from its workdir."""
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        card = run_experiment(experiment_spec(os.path.join(tmp, "card")),
+                              device=dev)
+        launches = read_launches()
+        cpu = run_experiment(experiment_spec(os.path.join(tmp, "cpu")),
+                             device="cpu")
+        spec, model, clients, evald = resolve_setup(
+            experiment_spec(os.path.join(tmp, "resumed")))
+        ctx = SystemContext(model=model, run_cfg=spec.run, clients=clients,
+                            eval_data=evald,
+                            workdir=os.path.join(spec.results_dir, "ampere"),
+                            patience=spec.patience, device=dev)
+        dev_state, _ = AmpereSystem().init_state(ctx)
+        ctx.trainer.run_device_phase(dev_state, 1)      # killed here
+        ctx.trainer.runner.close()
+        resumed = run_experiment(spec, device=dev)
+    h_card, h_cpu, h_res = (o["results"]["ampere"]["history"]
+                            for o in (card, cpu, resumed))
+    log("experiment", arch="qwen3-1.7b", card=h_card, cpu=h_cpu,
+        resumed=h_res, summary=card["summary"]["ampere"], rel_tol=1e-4,
+        launches=launches)
+    _histories_close(h_card, h_cpu, "experiment card vs cpu")
+    _histories_close(h_res, h_card, "experiment resumed vs uninterrupted")
+    for h in (h_cpu, h_res):
+        for key in ("comm_bytes", "sim_time"):
+            if h[key] != h_card[key]:
+                raise AssertionError(f"experiment {key}: {h[key]} vs "
+                                     f"{h_card[key]}")
+    # the smoke config computes in fp32: its rows are the *_fp32 ones
+    for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
+        if launches[f"{name}_fp32"] <= 0:
+            raise AssertionError(f"experiment never launched {name}")
     return launches
 
 
@@ -820,13 +953,12 @@ def split_backward(dev):
     is the launcher's momentum from a zero buffer, so after one step its
     buffer holds the gradient exactly.
 
-    In fp32 compute the split gradients must match the fused ones within
-    1e-4 of each leaf's scale.  In the config's bf16 compute a last-bit
-    difference in dQ (the fused kernel's atomics) flips bf16 roundings
-    that 27 layers of backward carry into every gradient, so there split
-    against fused must stay within ``BF16_SPREAD`` times fused against
-    itself in the same run.  In both, two split steps must give
-    bit-identical gradients."""
+    Neither backward has atomics, so in both dtypes two fused steps and
+    two split steps must each give bit-identical gradients.  The split
+    gradients must match the fused ones within ``SPLIT_TOL`` of each
+    leaf's scale: 1e-4 in fp32; 0.05 in the config's bf16 compute, where
+    the two routes' different dQ summation orders flip bf16 roundings
+    that 27 layers of backward carry into every gradient."""
     arch = "qwen3-1.7b"
     cfg = registry.get_config(arch)
     seq = MAIN_PATHS[arch]["seq"]
@@ -851,27 +983,29 @@ def split_backward(dev):
         del g_s2
         l_f2, g_f2 = run("kernel")
         fused_rel, fused_leaf = _max_rel(g_f2, g_f)
+        fused_same = l_f2 == l_f and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g_f2),
+                                              tree_leaves(g_f)))
         del g_f, g_s, g_f2
         result[dtype] = dict(
             loss_fused=l_f, loss_split=l_s, split_vs_fused=rel,
             split_vs_fused_leaf=leaf, split_bit_identical=split_same,
-            fused_vs_fused=fused_rel, fused_vs_fused_leaf=fused_leaf)
-        if not split_same:
-            raise AssertionError(f"{dtype}: split backward grads differ "
-                                 "between two runs")
-        if not abs(l_s - l_f) <= 1e-5 * abs(l_f):
-            raise AssertionError(f"{dtype}: split loss {l_s} vs fused {l_f}")
+            fused_vs_fused=fused_rel, fused_vs_fused_leaf=fused_leaf,
+            fused_bit_identical=fused_same, split_tol=SPLIT_TOL[dtype])
     launches = read_launches()
-    log("split_backward", arch=arch, seq=seq, batch=8, rel_tol=1e-4,
-        launches=launches, **result)
-    if not result["float32"]["split_vs_fused"] <= 1e-4:
-        raise AssertionError(f"split grads differ from fused: {result}")
-    if cfg.dtype != "float32":
-        r = result[cfg.dtype]
-        if not r["split_vs_fused"] <= BF16_SPREAD * r["fused_vs_fused"]:
-            raise AssertionError(f"{cfg.dtype} split grads differ from fused "
-                                 f"beyond {BF16_SPREAD}x fused's own spread:"
-                                 f" {r}")
+    log("split_backward", arch=arch, seq=seq, batch=8, launches=launches,
+        **result)
+    for dtype, r in result.items():
+        if not (r["split_bit_identical"] and r["fused_bit_identical"]
+                and r["fused_vs_fused"] == 0.0):
+            raise AssertionError(f"{dtype}: a backward's grads differ "
+                                 f"between two runs: {r}")
+        if not r["split_vs_fused"] <= SPLIT_TOL[dtype]:
+            raise AssertionError(f"{dtype}: split grads differ from fused "
+                                 f"beyond {SPLIT_TOL[dtype]}: {r}")
+        if not abs(r["loss_split"] - r["loss_fused"]) <= \
+                1e-5 * abs(r["loss_fused"]):
+            raise AssertionError(f"{dtype}: split loss vs fused: {r}")
     for name in BY_DTYPE:
         if launches[name] <= 0:
             raise AssertionError(f"split step never launched {name}")
@@ -941,6 +1075,8 @@ def main() -> int:
     for arch in MAIN_PATHS:
         smoke_reference(dev, arch)
     by_path = {arch: main_path(dev, arch) for arch in MAIN_PATHS}
+    torch.cuda.empty_cache()
+    by_path["experiment"] = experiment(dev)
     torch.cuda.empty_cache()
     for arch in MAIN_PATHS:
         profile_step(dev, arch)

@@ -78,8 +78,9 @@ def main(argv=None) -> int:
                            federate(train, fed.num_clients,
                                     fed.dirichlet_alpha, seed=run_cfg.seed),
                            evald, device=dev)
+        # the launcher's init: a CPU generator seeded as the run
         dp, sp, ap = tr._init_states(
-            torch.Generator(device=dev).manual_seed(run_cfg.seed))
+            torch.Generator().manual_seed(run_cfg.seed))
         dev_state = {"device": dp, "aux": ap}
         if lr == LRS[0]:
             print(json.dumps({"init": merged_eval(tr, dev_state, sp)}),

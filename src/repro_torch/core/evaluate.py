@@ -1,6 +1,7 @@
 """Evaluation of the merged model (validation metrics of the server
 phase), as ``repro.core.evaluate`` for the LM path: full (B, S, V) logits,
-next-token loss and accuracy."""
+next-token loss and accuracy; and :class:`EarlyStopper`, the paper's
+patience rule on those metrics."""
 
 from __future__ import annotations
 
@@ -34,3 +35,44 @@ def evaluate(model, params, dataset, device, batch_size: int = 64,
             break
     return {"loss": float(np.mean(ls)) if ls else float("nan"),
             "acc": float(np.mean(accs)) if accs else float("nan")}
+
+
+class EarlyStopper:
+    """Paper §5.2.1: stop when no validation improvement for ``patience``
+    consecutive epochs."""
+
+    def __init__(self, patience: int = 15, mode: str = "max",
+                 min_delta: float = 1e-4):
+        self.patience = patience
+        self.mode = mode
+        self.min_delta = min_delta
+        self.best = -np.inf if mode == "max" else np.inf
+        self.bad = 0
+        self.best_round = 0
+        self.round = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True when training should STOP."""
+        self.round += 1
+        better = (value > self.best + self.min_delta if self.mode == "max"
+                  else value < self.best - self.min_delta)
+        if better:
+            self.best = value
+            self.bad = 0
+            self.best_round = self.round
+        else:
+            self.bad += 1
+        return self.bad >= self.patience
+
+    # checkpointable state: a resumed run must stop at the same round an
+    # uninterrupted one would have (the Runner keeps it in the checkpoint
+    # metadata; json carries the +-inf sentinel)
+    def state_dict(self) -> dict:
+        return {"best": float(self.best), "bad": int(self.bad),
+                "best_round": int(self.best_round), "round": int(self.round)}
+
+    def load_state_dict(self, state: dict):
+        self.best = float(state["best"])
+        self.bad = int(state["bad"])
+        self.best_round = int(state["best_round"])
+        self.round = int(state["round"])

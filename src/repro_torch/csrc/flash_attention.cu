@@ -15,8 +15,9 @@
 //
 // Layouts (as the reference kernels): q, dout, dq (BH, Sq, hd) with
 // BH = B * Hkv * G, kv-major; k, v, dk, dv (BKV, Skv, hd).  o, lse, dq, dk,
-// dv and delta are fp32; q, k, v are fp32 or bf16; dout is fp32 for the
-// fused backward and in q's dtype for the two sweeps.
+// dv and delta are fp32; q, k, v are
+// fp32 or bf16; dout is fp32 for the fused backward and in q's dtype for
+// the two sweeps.
 //
 // What bounds it on the H100: at the main path's shapes (S = 512, hd = 128)
 // attention does ~2*S*hd flops per loaded q/k/v element, so its floor is
@@ -69,13 +70,18 @@
 // arrives, as in the reference.
 //
 // Fused backward: one CTA per (bkv, kv tile), looping over the group's G
-// heads and all q tiles with dK/dV accumulated in registers.  The TPU kernel
-// carried dQ across kv tiles through an aliased HBM buffer that relies on
-// the sequential grid; here the kv tiles of one q tile run in different
-// CTAs, so dQ is accumulated with fp32 atomicAdd into a zeroed buffer (each
-// dQ element receives at most nk = ceil(Skv / BK) adds).  It recomputes no
-// P tile twice; the cost is run-to-run nondeterminism of dQ in the last
-// bits (the summation order of the nk adds).
+// heads and all q tiles with dK/dV accumulated in registers.  The kv tiles
+// of one q tile run in different CTAs, and their dQ contributions are
+// summed in place, in kv-tile order, as the reference's dq_strategy="alias"
+// carries dQ through its sequential grid: each (bh, q tile) has a turn
+// counter (zeroed by the caller, as dQ is), and the CTA of kv tile j waits
+// until it reads j's place among the tiles the mask leaves that q tile,
+// adds its dS K to dQ with plain loads and stores, and hands the turn on
+// (tensor_core.cuh::wait_turn / pass_turn).  The kv tile is the slowest
+// dimension of the grid's block order, so every CTA waits only for CTAs
+// dispatched before it.  It recomputes no P tile twice, has no atomics and
+// needs no scratch: dQ repeats bit for bit (0 + c_0 + c_1 + ... in fp32,
+// the sum the reference's partials strategy forms).
 //
 // Two-sweep backward, deterministic: the dK/dV sweep is the fused kernel
 // without its dQ (kDQ = false; for bf16 also without the dS^T tiles, and
@@ -120,6 +126,26 @@ __device__ __forceinline__ bool fa_tile_masked(int qa, int qb, int ka, int kb,
   if (causal && ka > qb) return true;
   if (window && qa - kb >= window) return true;
   return false;
+}
+
+// Work item u of a (bkv, kv tile) backward CTA: q tile nq - 1 - u / group,
+// head u % group.  From the last q tile down, the group's heads inside,
+// every kv tile meets a given item at the same place in its own order (a
+// later kv tile, with fewer q tiles under the causal mask, at the same
+// place or later), so in the fused kernel the tile before has taken its
+// dQ turn there about one item earlier: a CTA waits about one item once,
+// not at every item.
+__device__ __forceinline__ int fa_bwd_item_q(int u, int group, int nq) {
+  return nq - 1 - u / group;
+}
+
+// kv tile j's turn on the q tile starting at row q0 in the fused backward:
+// the mask leaves a q tile one run of kv tiles (causal and kv_len cut its
+// end, the window its start), so the turn is j less the run's first tile,
+// the first one whose last key kb = (j + 1) BK - 1 passes the window
+// (kb > q0 - window)
+__device__ __forceinline__ int fa_dq_turn(int q0, int j, int BK, int window) {
+  return window ? j - max(0, (q0 - window + 1) / BK) : j;
 }
 
 // true when query row q has no valid key in [0, Skv)
@@ -325,9 +351,10 @@ __global__ void __launch_bounds__(kThreads)
 fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, float* __restrict__ dk,
-              float* __restrict__ dv, int Sq, int Skv, int group, int causal,
-              int window, float softcap, float scale, int kv_len) {
+              float* __restrict__ dq, int* __restrict__ turns,
+              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+              int group, int causal, int window, float softcap, float scale,
+              int kv_len) {
   constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
   constexpr int LD = HD + 1, LP = BK + 1;
   constexpr int RQ = BQ / 16, RK = BK / 16, CD = HD / 16;
@@ -361,74 +388,86 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < CD; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
 
   const int nq = (Sq + BQ - 1) / BQ;
-  for (int g = 0; g < group; ++g) {
+  for (int u = 0; u < group * nq; ++u) {
+    const int g = u % group, iq = fa_bwd_item_q(u, group, nq);
+    const int q0 = iq * BQ;
+    if (fa_tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, kb, causal, window,
+                       kv_len))
+      continue;  // uniform over the block; the tile adds exact zeros
     const size_t bh = (size_t)bkv * group + g;
     const T* qg = q + bh * Sq * HD;
     const float* og = dout + bh * Sq * HD;
     float* dqg = kDQ ? dq + bh * Sq * HD : nullptr;
-    for (int iq = 0; iq < nq; ++iq) {
-      const int q0 = iq * BQ;
-      if (fa_tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, kb, causal, window,
-                         kv_len))
-        continue;  // uniform over the block; the tile adds exact zeros
-      __syncthreads();  // previous smem reads done (and sK/sV loaded)
-      for (int e = tid; e < BQ * HD; e += kThreads) {
-        const int r = e / HD, c = e % HD;
-        const bool in = q0 + r < Sq;
-        sQ[r * LD + c] = in ? to_f32(qg[(size_t)(q0 + r) * HD + c]) : 0.f;
-        sO[r * LD + c] = in ? og[(size_t)(q0 + r) * HD + c] : 0.f;
-      }
-      if (tid < BQ) {
-        const bool in = q0 + tid < Sq;
-        sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
-        sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+    __syncthreads();  // previous smem reads done (and sK/sV loaded)
+    for (int e = tid; e < BQ * HD; e += kThreads) {
+      const int r = e / HD, c = e % HD;
+      const bool in = q0 + r < Sq;
+      sQ[r * LD + c] = in ? to_f32(qg[(size_t)(q0 + r) * HD + c]) : 0.f;
+      sO[r * LD + c] = in ? og[(size_t)(q0 + r) * HD + c] : 0.f;
+    }
+    if (tid < BQ) {
+      const bool in = q0 + tid < Sq;
+      sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
+      sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
+    }
+    __syncthreads();
 
-      bwd_p_ds<HD, BQ, BK>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, causal,
-                           window, kv_len, softcap, scale);
-      __syncthreads();  // sP, sS complete
+    bwd_p_ds<HD, BQ, BK>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, causal,
+                         window, kv_len, softcap, scale);
+    __syncthreads();  // sP, sS complete
 
-      // dV += P^T dO ; dK += dS^T Q
-      for (int i = 0; i < BQ; ++i) {
-        float ov[CD], qv[CD];
+    // dV += P^T dO ; dK += dS^T Q
+    for (int i = 0; i < BQ; ++i) {
+      float ov[CD], qv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        ov[c] = sO[i * LD + tx + 16 * c];
+        qv[c] = sQ[i * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        const float pv = sP[i * LP + ty * RK + r];
+        const float sv = sS[i * LP + ty * RK + r];
 #pragma unroll
         for (int c = 0; c < CD; ++c) {
-          ov[c] = sO[i * LD + tx + 16 * c];
-          qv[c] = sQ[i * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < RK; ++r) {
-          const float pv = sP[i * LP + ty * RK + r];
-          const float sv = sS[i * LP + ty * RK + r];
-#pragma unroll
-          for (int c = 0; c < CD; ++c) {
-            dv_acc[r][c] += pv * ov[c];
-            dk_acc[r][c] += sv * qv[c];
-          }
-        }
-      }
-
-      if (!kDQ) continue;  // the dK/dV sweep of the two-sweep backward
-      // dQ += dS K, summed across the kv-tile CTAs with atomics
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        const int rl = ty * RQ + r;
-        float dqv[CD];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) dqv[c] = 0.f;
-        for (int kk = 0; kk < BK; ++kk) {
-          const float sv = sS[rl * LP + kk];
-#pragma unroll
-          for (int c = 0; c < CD; ++c) dqv[c] += sv * sK[kk * LD + tx + 16 * c];
-        }
-        if (q0 + rl < Sq) {
-#pragma unroll
-          for (int c = 0; c < CD; ++c)
-            atomicAdd(&dqg[(size_t)(q0 + rl) * HD + tx + 16 * c], dqv[c]);
+          dv_acc[r][c] += pv * ov[c];
+          dk_acc[r][c] += sv * qv[c];
         }
       }
     }
+
+    if (!kDQ) continue;  // the dK/dV sweep of the two-sweep backward
+    // this kv tile's dQ contribution dS K, added to dQ in its turn
+    float dqv[RQ][CD];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int rl = ty * RQ + r;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) dqv[r][c] = 0.f;
+      for (int kk = 0; kk < BK; ++kk) {
+        const float sv = sS[rl * LP + kk];
+#pragma unroll
+        for (int c = 0; c < CD; ++c)
+          dqv[r][c] += sv * sK[kk * LD + tx + 16 * c];
+      }
+    }
+    int* turn = turns + bh * nq + iq;
+    const int mine = fa_dq_turn(q0, blockIdx.x, BK, window);
+    if (tid == 0) rt::wait_turn(turn, mine);
+    __syncthreads();  // the earlier kv tiles' sums are in dQ
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int rl = ty * RQ + r;
+      if (q0 + rl < Sq) {
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          float* d = dqg + (size_t)(q0 + rl) * HD + tx + 16 * c;
+          __stcg(d, __ldcg(d) + dqv[r][c]);
+        }
+      }
+    }
+    __syncthreads();  // every thread's sum stored
+    if (tid == 0) rt::pass_turn(turn, mine + 1);
   }
 
 #pragma unroll
@@ -784,18 +823,19 @@ template <int HD> struct TcBwd {
   }
 };
 
-// TO float, kDQ: the fused backward (fp32 dO split into hi + lo, dQ by
-// atomics).  TO bf16, !kDQ: the dK/dV sweep of the two-sweep backward (dO
-// read as it is; no dS^T tiles, no dQ).
+// TO float, kDQ: the fused backward (fp32 dO split into hi + lo, dQ summed
+// in kv-tile order through the turn counters).  TO bf16, !kDQ: the dK/dV
+// sweep of the two-sweep backward (dO read as it is; no dS^T tiles, no dQ).
 template <int HD, typename TO, bool kDQ>
 __global__ void __launch_bounds__(TcBwd<HD>::THREADS)
 fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const TO* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
-                 float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                 int Skv, int group, int causal, int window, float softcap,
-                 float scale, int kv_len) {
+                 int* __restrict__ turns, float* __restrict__ dk,
+                 float* __restrict__ dv, int Sq, int Skv, int group,
+                 int causal, int window, float softcap, float scale,
+                 int kv_len) {
   using C = TcBwd<HD>;
   constexpr bool kSplitO = std::is_same_v<TO, float>;
   static_assert(kSplitO || std::is_same_v<TO, bf16>, "dO is fp32 or bf16");
@@ -826,10 +866,11 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   tc_load_rows<BK, HD, LD, NT>(sK, k + (size_t)bkv * Skv * HD, k0, Skv);
   tc_load_rows<BK, HD, LD, NT>(sV, v + (size_t)bkv * Skv * HD, k0, Skv);
-  // work items u = g * nq + q tile, skipping the tiles the mask removes
+  // work items (fa_bwd_item_q), skipping the tiles the mask removes
+  auto item_q = [&](int u) { return fa_bwd_item_q(u, group, nq); };
   auto next_item = [&](int u) {
     for (; u < nu; ++u) {
-      const int q0 = u % nq * BQ;
+      const int q0 = item_q(u) * BQ;
       if (!fa_tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, kb, causal, window,
                           kv_len))
         break;
@@ -837,8 +878,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return u;
   };
   auto load_q = [&](int u, int stage) {
-    const size_t bh = (size_t)bkv * group + u / nq;
-    const int q0 = u % nq * BQ;
+    const size_t bh = (size_t)bkv * group + u % group;
+    const int q0 = item_q(u) * BQ;
     tc_load_rows<BQ, HD, LD, NT>(sQ + stage * BQ * LD, q + bh * Sq * HD, q0,
                                  Sq);
     const TO* og = dout + bh * Sq * HD;
@@ -872,8 +913,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (u < nu) load_q(u, 0);
   rt::cp_async_commit();
   while (u < nu) {
-    const size_t bh = (size_t)bkv * group + u / nq;
-    const int q0 = u % nq * BQ;
+    const size_t bh = (size_t)bkv * group + u % group;
+    const int q0 = item_q(u) * BQ;
     rt::cp_async_wait<0>();
     if constexpr (kSplitO) {
       __syncthreads();  // this item's tiles landed; the last item is done
@@ -1022,8 +1063,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (kDQ) {
       __syncthreads();  // dS^T complete
 
-      // dQ += dS K for the warp's 16 q rows x DQW columns, summed across
-      // the kv-tile CTAs with fp32 atomics
+      // this kv tile's dQ contribution dS K for the warp's 16 q rows x DQW
+      // columns, added to dQ in its turn
       float dqa[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -1044,17 +1085,26 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           rt::mma_bf16(dqa[n + 1], al, b[2], b[3]);
         }
       }
+      int* turn = turns + bh * nq + item_q(u);
+      const int mine = fa_dq_turn(q0, blockIdx.y, BK, window);
+      if (threadIdx.x == 0) rt::wait_turn(turn, mine);
+      __syncthreads();  // the earlier kv tiles' sums are in dQ
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = q0 + qr + g + 8 * r;
         if (row < Sq) {
           float* dqg = dq + (bh * Sq + row) * HD + dq0;
 #pragma unroll
-          for (int n = 0; n < NQ; ++n)  // sm_90: one vector atomic a pair
-            atomicAdd(reinterpret_cast<float2*>(dqg + n * 8 + 2 * t),
-                      make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]));
+          for (int n = 0; n < NQ; ++n) {
+            float2* d = reinterpret_cast<float2*>(dqg + n * 8 + 2 * t);
+            const float2 x = __ldcg(d);
+            __stcg(d, make_float2(x.x + dqa[n][2 * r],
+                                  x.y + dqa[n][2 * r + 1]));
+          }
         }
       }
+      __syncthreads();  // every warp's sum stored
+      if (threadIdx.x == 0) rt::pass_turn(turn, mine + 1);
     }
     stage ^= 1;
     u = un;
@@ -1256,6 +1306,7 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct FaArgs {
   const void *q, *k, *v, *dout, *lse_in, *delta;
   void *o, *lse, *dq, *dk, *dv;
+  int* turns;  // the fused backward's, one per (bh, q tile)
   int BH, Sq, Skv, group, causal, window, kv_len;
   float softcap, scale;
   cudaStream_t stream;
@@ -1302,6 +1353,13 @@ cudaError_t launch_fwd(const FaArgs& a) {
 // the backward kernels: the fused one, and the two sweeps of the split one
 enum BwdKind { kFused, kDq, kDkv };
 
+// the fused backward's (q tile, kv tile) for one dtype and head dim
+template <typename T, int HD> struct FusedTiles {
+  static constexpr bool kTc = std::is_same_v<T, bf16>;
+  static constexpr int BQ = kTc ? TcBwd<HD>::BQ : FaTiles<HD>::BQ;
+  static constexpr int BK = kTc ? TcBwd<HD>::BK : FaTiles<HD>::BK;
+};
+
 template <typename T, int HD, BwdKind KIND>
 cudaError_t launch_bwd(const FaArgs& a) {
   cudaError_t err;
@@ -1333,8 +1391,8 @@ cudaError_t launch_bwd(const FaArgs& a) {
       fa_bwd_tc_kernel<HD, TO, kDQ><<<grid, C::THREADS, smem, a.stream>>>(
           (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
           (const TO*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
-          (float*)a.dq, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group,
-          a.causal, a.window, a.softcap, a.scale, a.kv_len);
+          (float*)a.dq, a.turns, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv,
+          a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
     }
   } else if constexpr (KIND == kDq) {
     constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
@@ -1361,7 +1419,7 @@ cudaError_t launch_bwd(const FaArgs& a) {
     const dim3 grid((a.Skv + BK - 1) / BK, a.BH / a.group);
     fa_bwd_kernel<T, HD, kDQ><<<grid, kThreads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
-        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq,
+        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq, a.turns,
         (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group, a.causal, a.window,
         a.softcap, a.scale, a.kv_len);
   }
@@ -1380,6 +1438,28 @@ cudaError_t launch(const FaArgs& a, int hd) {
     RT_FA_CASE(256)
 #undef RT_FA_CASE
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// the fused backward's (q tile, kv tile) for one dtype and head dim
+// (false: a head dim it does not take)
+template <typename T>
+bool fused_tiles(int hd, int* bq, int* bk) {
+  switch (hd) {
+#define RT_FA_CASE(HD)                                                  \
+    case HD:                                                            \
+      if constexpr (std::is_same_v<T, bf16>) {                          \
+        *bq = TcBwd<HD>::BQ;                                            \
+        *bk = TcBwd<HD>::BK;                                            \
+      } else {                                                          \
+        *bq = FaTiles<HD>::BQ;                                          \
+        *bk = FaTiles<HD>::BK;                                          \
+      }                                                                 \
+      return true;
+    RT_FA_CASE(16) RT_FA_CASE(32) RT_FA_CASE(64) RT_FA_CASE(128)
+    RT_FA_CASE(256)
+#undef RT_FA_CASE
+    default: return false;
   }
 }
 
@@ -1419,16 +1499,33 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch<-1>(dtype, hd, a);
 }
 
+// The fused backward's tiles (BQ, BK): its turn counters are one int per
+// (bh, q tile), BH x ceil(Sq / BQ).  Nonzero: a dtype or head dim it does
+// not take.
+extern "C" int rt_flash_bwd_tiles(int dtype, int hd, int* bq, int* bk) {
+  const bool ok = dtype == rt::kFloat32    ? fused_tiles<float>(hd, bq, bk)
+                  : dtype == rt::kBFloat16 ? fused_tiles<bf16>(hd, bq, bk)
+                                           : false;
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// dq and turns (at least BH x ceil(Sq / BQ) ints) zeroed by the caller:
+// the kernel adds each kv tile's dQ into dq in its turn
 extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, void* dk, void* dv,
-                            int dtype, int BH, int Sq, int Skv, int hd,
-                            int group, int causal, int window, float softcap,
-                            float scale, int kv_len, void* stream) {
-  return dispatch<kFused>(dtype, hd,
-                          bwd_args(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                   Sq, Skv, group, causal, window, softcap,
-                                   scale, kv_len, stream));
+                            void* turns, long long n_turns, int dtype, int BH,
+                            int Sq, int Skv, int hd, int group, int causal,
+                            int window, float softcap, float scale, int kv_len,
+                            void* stream) {
+  int bq, bk;
+  if (rt_flash_bwd_tiles(dtype, hd, &bq, &bk) != 0 ||
+      n_turns < (long long)BH * ((Sq + bq - 1) / bq))
+    return (int)cudaErrorInvalidValue;
+  FaArgs a = bwd_args(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Skv,
+                      group, causal, window, softcap, scale, kv_len, stream);
+  a.turns = static_cast<int*>(turns);
+  return dispatch<kFused>(dtype, hd, a);
 }
 
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -1,7 +1,7 @@
 // Warp-level tensor-core and copy helpers for the bf16 kernels (sm_80+ PTX,
 // run here on sm_90a): mma.sync m16n8k16 bf16 -> fp32, ldmatrix (plain and
-// transposed), cp.async with commit/wait, and the hi/lo bf16 split of fp32
-// operands.  Each PTX instruction sits in one small helper so that the
+// transposed), cp.async with commit/wait, the hi/lo bf16 split of fp32
+// operands, and the turn counters that order a sum across CTAs.  Each PTX instruction sits in one small helper so that the
 // CPU harness (tests/cuda_emu) can stand in for it: it defines
 // RT_HOST_EMULATION and its own host versions of the helpers below.
 //
@@ -203,6 +203,30 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Turn counters (gpu-scope acquire / release): one thread of a CTA waits
+// until *ctr reads `turn`, and hands the turn on once the CTA's stores are
+// done (after a block barrier).  The turns must follow the grid's linear
+// block order, which the hardware dispatches in, so a waiting CTA only
+// ever waits for CTAs that were dispatched before it (the CUTLASS serial
+// split-K semaphore's rule).  A turn that never comes traps (after at
+// least ~8 s) instead of hanging the card.
+__device__ __forceinline__ void wait_turn(const int* ctr, int turn) {
+  for (unsigned n = 0;; ++n) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v) : "l"(ctr) : "memory");
+    if (v == turn) return;
+    if (n == (1u << 26)) __trap();
+    __nanosleep(128);
+  }
+}
+
+__device__ __forceinline__ void pass_turn(int* ctr, int next) {
+  __threadfence();
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(ctr), "r"(next) : "memory");
 }
 
 #endif  // RT_HOST_EMULATION

@@ -1,50 +1,136 @@
-"""Activation consolidation store (Ampere §3.2.3), in-memory and fp32.
+"""Activation consolidation store (Ampere §3.2.3 + Algorithm 1 lines
+16-19), as ``repro.data.activation_store``: fp32 payloads, in memory and
+optionally persisted as disk shards.
 
-The consolidated pool 𝒜: client activation shards are stored as they
-arrive, and the server phase samples batches across all clients.  This is
-the in-memory, non-quantized path of ``repro.data.activation_store``
-(disk shards, int8 payloads, cut tags and the writer thread are later
-slices); its rng contract is the same — one ``permutation`` per epoch,
-trailing remainder dropped — so a store seeded identically yields the
-same batch order as the JAX package's.
+* The consolidated pool 𝒜 across all clients, in client insertion order;
+  each client's own pool stays addressable through ``client_id=``.
+* ``directory`` — every stored shard is also written to
+  ``<dir>/client_<k>_<i>.npz`` (atomic rename); :func:`load_store`
+  rebuilds a store from them.
+* Accounting — ``bytes_received`` counts the stored bytes exactly as the
+  reference does (:meth:`ActivationStore.shard_nbytes`), and the rng
+  contract is the same: one ``permutation`` per epoch, trailing remainder
+  dropped, so a store seeded identically yields the reference's batch
+  order.
+
+``add`` stores synchronously, in call order (the order the reference's
+writer thread keeps).  int8 payloads (ROADMAP.md queue A2), the writer
+thread, cut tags and the streaming ring are later slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
 
 class ActivationStore:
-    def __init__(self, seed: int = 0):
+    def __init__(self, directory: Optional[str] = None,
+                 quantize_int8: bool = False, seed: int = 0):
+        if quantize_int8:
+            raise NotImplementedError(
+                "int8 activation payloads are not ported yet (ROADMAP.md "
+                "queue A2)")
+        self.dir = directory
+        self.quantize = False
         self.rng = np.random.default_rng(seed)
         self._mem: Dict[int, List[dict]] = {}
+        self.bytes_received = 0
+        if directory:
+            os.makedirs(directory, exist_ok=True)
 
+    # ------------------------------------------------------------------
+    # receive & store
+    # ------------------------------------------------------------------
     def add(self, client_id: int, shard: dict):
-        """Store one shard: the payload becomes fp32, other keys ride along."""
+        """Store one uploaded shard (synchronously)."""
+        self._store(client_id, shard)
+
+    @staticmethod
+    def shard_nbytes(shard: dict, quantize: bool = False) -> int:
+        """Stored bytes for ``shard``: the fp32 payload plus every other
+        array that rides along (the labels)."""
+        if quantize:
+            raise NotImplementedError(
+                "int8 activation payloads (ROADMAP.md queue A2)")
+        acts = np.asarray(shard["acts"])
+        return acts.size * 4 + sum(np.asarray(v).nbytes
+                                   for k, v in shard.items()
+                                   if k not in ("acts", "acts_scale"))
+
+    @staticmethod
+    def prepare_shard(shard: dict, quantize: bool = False):
+        """Normalize one shard for storage: an fp32 payload.  Returns
+        ``(prepared_shard, stored_nbytes)``."""
+        if quantize:
+            raise NotImplementedError(
+                "int8 activation payloads (ROADMAP.md queue A2)")
         shard = dict(shard)
         shard["acts"] = np.asarray(shard["acts"]).astype(np.float32)
-        self._mem.setdefault(int(client_id), []).append(shard)
+        nbytes = shard["acts"].nbytes + sum(
+            np.asarray(v).nbytes for k, v in shard.items() if k != "acts")
+        return shard, nbytes
 
-    def _shards(self) -> List[dict]:
-        return [s for lst in self._mem.values() for s in lst]
+    def _store(self, client_id: int, shard: dict):
+        shard, nbytes = self.prepare_shard(shard, self.quantize)
+        assert nbytes == self.shard_nbytes(shard, self.quantize)
+        lst = self._mem.setdefault(int(client_id), [])
+        lst.append(shard)
+        self.bytes_received += nbytes
+        if self.dir:
+            i = len(lst) - 1
+            tmp = os.path.join(self.dir, f".tmp_{client_id}_{i}.npz")
+            final = os.path.join(self.dir, f"client_{client_id}_{i}.npz")
+            np.savez(tmp, **shard)
+            os.replace(tmp, final)
 
-    def pool(self) -> dict:
-        """The consolidated pool as one dict of arrays (client insertion
-        order, as the JAX store lays it out)."""
-        shards = self._shards()
+    # ------------------------------------------------------------------
+    # load for training
+    # ------------------------------------------------------------------
+    def _shards(self, client_id: Optional[int] = None) -> List[dict]:
+        cids = list(self._mem) if client_id is None else [int(client_id)]
+        return [s for c in cids for s in self._mem.get(c, [])]
+
+    def pool(self, client_id: Optional[int] = None) -> dict:
+        """The consolidated (or one client's) pool as one dict of arrays,
+        in client insertion order, as the reference lays it out."""
+        shards = self._shards(client_id)
         if not shards:
             return {}
         return {k: np.concatenate([s[k] for s in shards])
                 for k in shards[0]}
 
-    def num_samples(self) -> int:
-        return sum(len(s["acts"]) for s in self._shards())
+    def pool_nbytes(self, client_id: Optional[int] = None) -> int:
+        """Bytes the pool occupies, summed per shard (no copy)."""
+        return sum(np.asarray(v).nbytes
+                   for s in self._shards(client_id) for v in s.values())
 
-    def epoch_indices(self, batch_size: int) -> np.ndarray:
-        """(nb, batch_size) int32 gather indices for one shuffled epoch."""
-        n = self.num_samples()
+    def num_samples(self, client_id: Optional[int] = None) -> int:
+        return sum(len(s["acts"]) for s in self._shards(client_id))
+
+    def clients(self) -> List[int]:
+        return sorted(self._mem)
+
+    def epoch_indices(self, batch_size: int,
+                      client_id: Optional[int] = None) -> np.ndarray:
+        """(nb, batch_size) int32 gather indices for one shuffled epoch:
+        one ``rng.permutation``, trailing remainder dropped."""
+        n = self.num_samples(client_id)
         order = self.rng.permutation(n)
         nb = n // batch_size
         return order[:nb * batch_size].reshape(nb, batch_size).astype(np.int32)
+
+
+def load_store(directory: str, seed: int = 0) -> ActivationStore:
+    """Rebuild a store from disk shards (the server restart path)."""
+    st = ActivationStore(directory=None, seed=seed)
+    for fname in sorted(os.listdir(directory)):
+        if not fname.startswith("client_") or not fname.endswith(".npz"):
+            continue
+        client_id = int(fname.split("_")[1])
+        with np.load(os.path.join(directory, fname)) as z:
+            shard = {k: z[k] for k in z.files}
+        st._mem.setdefault(client_id, []).append(shard)
+    return st

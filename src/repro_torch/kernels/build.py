@@ -33,7 +33,8 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "rt_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
-    "rt_flash_bwd": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd_tiles": [_I, _I, _P, _P],
+    "rt_flash_bwd": [_P] * 10 + [_LL] + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_xent_fwd": [_P] * 6 + [_I] * 5 + [_LL, _LL, _F, _I, _P],

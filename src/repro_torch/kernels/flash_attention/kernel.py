@@ -23,6 +23,8 @@ launches a tensor-core kernel for bf16 and a CUDA-core kernel for fp32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -166,12 +168,27 @@ def _bwd_scalars(q, k, *, group, causal, window, softcap, scale, kv_len):
             int(window), float(softcap), float(scale), int(kv_len))
 
 
+def fused_bwd_tiles(lib, q):
+    """(BQ, BK) of the fused backward for q's dtype and head dim."""
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    err = lib.rt_flash_bwd_tiles(build.dtype_code(q), q.shape[-1],
+                                 ctypes.byref(bq), ctypes.byref(bk))
+    build.check(lib, err, "flash_bwd_fused")
+    return bq.value, bk.value
+
+
 def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
     ops = _bwd_operands(q, k, v, do, lse, delta)
+    # dQ is summed in place in kv-tile order, one turn counter per
+    # (bh, q tile): both start at zero
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    BH, Sq, hd = q.shape
+    n = BH * -(-Sq // fused_bwd_tiles(lib, q)[0])
+    turns = torch.zeros(n, dtype=torch.int32, device=q.device)
     err = lib.rt_flash_bwd(*(t.data_ptr() for t in ops + (dq, dk, dv)),
+                           turns.data_ptr(), n,
                            *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_fused")
     return dq, dk, dv
@@ -247,9 +264,11 @@ def _bwd_wrapper(name, plain, launch, doc):
 
 flash_bwd_fused = _bwd_wrapper(
     "flash_bwd_fused", flash_bwd_fused_plain, _launch_bwd,
-    """One P recompute per (q tile, kv tile) feeds dQ, dK and dV; dQ goes
-    through fp32 atomics.  Returns fp32 dq (BH, Sq, hd), dk, dv
-    (BKV, Skv, hd).""")
+    """One P recompute per (q tile, kv tile) feeds dQ, dK and dV; the kv
+    tiles add their dQ contributions in place in kv-tile order, each
+    waiting for its turn on a per-(bh, q tile) counter (no atomics, no
+    scratch: bit-identical run to run).  Returns fp32 dq (BH, Sq, hd), dk,
+    dv (BKV, Skv, hd).""")
 flash_bwd_dq = _bwd_wrapper(
     "flash_bwd_dq", flash_bwd_dq_plain, _launch_bwd_dq,
     """dQ sweep of the two-sweep backward (P recomputed; no atomics); dO in

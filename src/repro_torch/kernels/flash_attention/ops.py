@@ -9,12 +9,15 @@ and laid out once, feeding both ``delta = sum(dO * O)`` (over the fp32
 kernel output) and the fused kernel (the split sweeps take it back in
 q's dtype); the output comes back in the input dtype.
 
-``bwd_strategy`` selects the backward: ``"fused"`` (one P recompute; dQ
-through fp32 atomics on the card, so its last bits vary run to run) or
-``"split"`` (``flash_bwd_dq`` then ``flash_bwd_dkv``, as the reference's
-``flash_bwd_dq_dkv`` composes them: P recomputed in each sweep, no atomics,
-bit-identical run to run).  On CUDA tensors the wrappers launch the Hopper
-kernels; on CPU tensors they run the kernels' plain versions.
+``bwd_strategy`` selects the backward: ``"fused"`` (one P recompute; the
+kv tiles add their dQ contributions in place in kv-tile order, as the
+reference's ``dq_strategy="alias"`` carries dQ through its sequential
+grid) or ``"split"`` (``flash_bwd_dq`` then
+``flash_bwd_dkv``, as the reference's ``flash_bwd_dq_dkv`` composes them: P
+recomputed in each sweep).  Neither has atomics: both give bit-identical
+gradients run to run on the card, though not the same bits as each other
+(they sum dQ in different orders).  On CUDA tensors the wrappers launch
+the Hopper kernels; on CPU tensors they run the kernels' plain versions.
 """
 
 from __future__ import annotations

@@ -2,21 +2,26 @@
 
 Runs the phases in the order ``AmpereSystem.run`` drives them (device
 phase, one-shot activation generation, server phase, merge) and prints the
-final JSON summary of ``repro.launch.train`` (without ``comm_bytes`` and
-``sim_time_s`` until the comm model is ported).  Runs on CUDA unless
-``--device cpu``.
+final JSON summary of ``repro.launch.train``: the last server record,
+``comm_bytes`` (device-server bytes, analytic) and ``sim_time_s`` (the
+testbed's simulated wall clock).  ``--workdir`` keeps checkpoints (every
+``--checkpoint-every`` rounds and epochs), the round journal, the metrics
+log and the activation shards there; a rerun with the same workdir
+resumes.  Runs on CUDA unless ``--device cpu``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --smoke --algo ampere --device-rounds 2 --server-epochs 2 --seq-len 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
-      --smoke --device cpu --device-rounds 1 --server-epochs 1
+      --smoke --device cpu --device-rounds 1 --server-epochs 1 \\
+      --workdir /tmp/ampere --checkpoint-every 1
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -49,6 +54,8 @@ def build_run_cfg(args) -> RunConfig:
                       seed=args.seed),
         optim=OptimConfig(name=args.optimizer, lr=args.lr,
                           schedule="inverse_time", decay_gamma=0.005),
+        checkpoint_dir=args.workdir or "",
+        checkpoint_every=args.checkpoint_every,
         seed=args.seed,
     )
 
@@ -61,18 +68,24 @@ def _sync(device):
 
 def run_training(cfg, run_cfg, train, evald, *, device=None,
                  device_rounds=None, server_epochs=None,
-                 log_echo: bool = False) -> dict:
+                 log_echo: bool = False, workdir=None,
+                 patience: int = 15) -> dict:
     """The launcher's whole path after argument parsing: federate ``train``,
     init and split, device phase, activation generation, server phase,
-    merge.  Returns the history, the states, the merged params and the
-    wall seconds of each phase (host clock around synchronized work)."""
+    merge.  Returns the history (the reference trainer's keys: ``device``,
+    ``server``, ``comm_bytes``, ``sim_time``), the states, the merged
+    params, the store and the wall seconds of each phase (host clock
+    around synchronized work)."""
     dev = resolve_device(device)
     model = build_model(cfg)
     clients = federate(train, run_cfg.fed.num_clients,
                        run_cfg.fed.dirichlet_alpha, seed=run_cfg.seed)
-    trainer = AmpereTrainer(model, run_cfg, clients, evald, device=dev,
-                            log_echo=log_echo)
-    gen = torch.Generator(device=dev).manual_seed(run_cfg.seed)
+    trainer = AmpereTrainer(model, run_cfg, clients, evald, workdir=workdir,
+                            patience=patience, log_echo=log_echo,
+                            device=dev)
+    # a CPU generator: one seed gives the same init on any device, as in
+    # run_experiment
+    gen = torch.Generator().manual_seed(run_cfg.seed)
     seconds, t0 = {}, [_sync(dev)]
 
     def lap(name):
@@ -84,13 +97,16 @@ def run_training(cfg, run_cfg, train, evald, *, device=None,
     lap("init")
     dev_state = trainer.run_device_phase(dev_state, device_rounds)
     lap("device")
-    store = trainer.generate_activations(dev_state,
-                                         ActivationStore(seed=run_cfg.seed))
+    store = ActivationStore(
+        directory=os.path.join(workdir, "acts") if workdir else None,
+        seed=run_cfg.seed)
+    store = trainer.generate_activations(dev_state, store)
     lap("transfer")
     srv_state = trainer.run_server_phase(dev_state, srv_params, store,
                                          server_epochs)
     lap("server")
     merged = trainer.merged_params(dev_state, srv_state["server"])
+    trainer.runner.close()
     return {"history": trainer.history, "device_state": dev_state,
             "server_state": srv_state, "merged_params": merged,
             "store": store, "seconds": seconds}
@@ -122,6 +138,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-samples", type=int, default=512)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--patience", type=int, default=15)
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -139,10 +158,13 @@ def main(argv=None):
     out = run_training(cfg, build_run_cfg(args), train, evald,
                        device=args.device, device_rounds=args.device_rounds,
                        server_epochs=args.server_epochs,
-                       log_echo=not args.quiet)
+                       log_echo=not args.quiet, workdir=args.workdir,
+                       patience=args.patience)
     hist = out["history"]
     summary = {"arch": args.arch, "algo": args.algo,
-               "final": hist["server"][-1] if hist["server"] else {}}
+               "final": hist["server"][-1] if hist["server"] else {},
+               "comm_bytes": hist.get("comm_bytes", 0),
+               "sim_time_s": hist.get("sim_time", 0.0)}
     print(json.dumps(summary, default=float))
     return 0
 

@@ -10,8 +10,8 @@ Two implementations sit behind one interface:
 * ``impl="xla"``    — :func:`chunked_attention`, the eager counterpart of
   the JAX package's chunked online-softmax ``"xla"`` path.
 
-``":split"`` selects the two-sweep backward (``bwd_strategy="split"``:
-no atomics, bit-identical gradients run to run on the card).
+``":split"`` selects the two-sweep backward (``bwd_strategy="split"``);
+the default is the fused one.  Both repeat bit for bit on the card.
 The prefill and decode modes (KV cache) come with the serving slice.
 """
 

@@ -4,8 +4,12 @@
 A :class:`Model` exposes ``init(gen, device)`` and
 ``apply(params, inputs, lo=, hi=)``, which runs layers [lo, hi) and
 returns a dict with "hidden" (the activations Ampere ships at the split
-point) and "logits" when hi == num_layers.  The vision classifiers are a
-later slice (ROADMAP.md queue A).
+point) and "logits" when hi == num_layers; ``input_spec`` and
+``activation_spec`` give shapes and dtypes as tensors on the ``meta``
+device (nothing allocated), and ``split_params`` cuts a parameter tree at
+a split point: ``core.comm_model.split_sizes`` prices a split through
+these three.  The vision classifiers are a later slice (ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -13,7 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.configs.base import LMConfig, VisionConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -36,6 +43,26 @@ class Model:
         return T.forward(self.cfg, params, inputs, positions=positions,
                          lo=lo, hi=hi, impl=impl, remat=remat,
                          return_logits=return_logits)
+
+    def input_spec(self, batch: int, seq_len: int = 0) -> torch.Tensor:
+        """The (batch, seq_len) int32 token input, on ``meta``."""
+        return torch.empty((batch, seq_len), dtype=torch.int32,
+                           device="meta")
+
+    def activation_spec(self, batch: int, seq_len: int = 0,
+                        split_point: int = 1,
+                        dtype: str = "bfloat16") -> torch.Tensor:
+        """The activations at the split point, (batch, seq_len, d_model)
+        in ``dtype``, on ``meta`` (the LM width does not depend on the
+        split point)."""
+        return torch.empty((batch, seq_len, self.cfg.d_model),
+                           dtype=L.dt(dtype), device="meta")
+
+    def split_params(self, params, p: int):
+        """(device_params, server_params) at split point ``p``
+        (:func:`repro_torch.core.splitting.split_params`)."""
+        from repro_torch.core import splitting
+        return splitting.split_params(self, params, p)
 
 
 def build_model(cfg) -> Model:

@@ -14,11 +14,12 @@
 // barrier of the call between, so no lane still reads it.
 #pragma once
 #include <algorithm>
-#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -82,13 +83,10 @@ inline int __syncthreads_or(int p) {
   __syncthreads();
   return any;
 }
-inline float atomicAdd(float* a, float v) {
-  return std::atomic_ref<float>(*a).fetch_add(v);
-}
-inline float2 atomicAdd(float2* a, float2 v) {
-  return {atomicAdd(&a->x, v.x), atomicAdd(&a->y, v.y)};
-}
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
+// L2-only (.cg) loads and stores: plain ones on the host
+template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcg(T* p, T v) { *p = v; }
 template <class F, class... Args>
 void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
                 Args... args) {

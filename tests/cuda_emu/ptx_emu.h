@@ -6,7 +6,8 @@
 // one barrier a call suffices: cuda_runtime.h).  That is valid because
 // every kernel calls these helpers with all lanes of the warp, the same
 // number of times.  cp.async copies at once, so its
-// commit and wait are no-ops.
+// commit and wait are no-ops; a turn counter is read and written plainly
+// (one block runs at a time).
 #pragma once
 #define RT_HOST_EMULATION 1
 
@@ -21,7 +22,18 @@ inline float emu_bf16(uint32_t w, int half) {
 
 inline unsigned emu_warp0() { return threadIdx.x & ~31u; }
 
-// d += A B: this lane's four D elements from the warp's A and B fragments
+// x rounded to fp32 toward zero (the card's tensor cores truncate)
+inline float emu_f32_rz(double x) {
+  const float f = static_cast<float>(x);  // to nearest
+  return std::fabs(static_cast<double>(f)) > std::fabs(x)
+             ? std::nextafter(f, 0.f)
+             : f;
+}
+
+// d += A B: this lane's four D elements from the warp's A and B fragments.
+// The bf16 products are exact; their sum with d is formed in double and
+// rounded to fp32 toward zero once an instruction, as the card's tensor
+// cores truncate each accumulation.
 inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                      uint32_t b1) {
   uint32_t* set = emu_uslots + 6 * emu_set();
@@ -51,9 +63,10 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
       }
   }
   for (int i = 0; i < 4; ++i) {
-    float s = 0.f;
-    for (int k = 0; k < 16; ++k) s += arow[i >> 1][k] * bcol[i & 1][k];
-    d[i] += s;
+    double s = d[i];
+    for (int k = 0; k < 16; ++k)
+      s += static_cast<double>(arow[i >> 1][k]) * bcol[i & 1][k];
+    d[i] = emu_f32_rz(s);
   }
 }
 
@@ -104,5 +117,18 @@ inline void cp_async_commit() {}
 
 template <int N>
 inline void cp_async_wait() {}
+
+// Blocks run one after another in linear order (cuda_runtime.h), so a
+// turn that has not come when its CTA asks for it never will: that is a
+// wrong turn, and it aborts at once rather than hanging.
+inline void wait_turn(const int* ctr, int turn) {
+  if (*ctr != turn) {
+    std::fprintf(stderr, "wait_turn: counter %d, turn %d (block %u, %u)\n",
+                 *ctr, turn, blockIdx.x, blockIdx.y);
+    std::abort();
+  }
+}
+
+inline void pass_turn(int* ctr, int next) { *ctr = next; }
 
 }  // namespace rt

@@ -139,7 +139,8 @@ def test_round_batches_match_jax():
 
 def test_launcher_main_on_cpu(capsys):
     """``python -m repro_torch.launch.train --device cpu`` end to end: the
-    same final-summary JSON as the JAX launcher, minus comm accounting."""
+    same final-summary JSON as the JAX launcher (its comm accounting is
+    held to the reference's in ``test_torch_experiments.py``)."""
     import json
 
     from repro_torch.launch import train
@@ -154,3 +155,4 @@ def test_launcher_main_on_cpu(capsys):
     assert summary["arch"] == ARCH and summary["algo"] == "ampere"
     assert summary["final"]["epoch"] == 0
     assert np.isfinite(summary["final"]["loss"])
+    assert summary["comm_bytes"] > 0 and summary["sim_time_s"] > 0

@@ -26,7 +26,16 @@ PROBE = """
 import sys
 sys.path.insert(0, {root!r})
 import repro_torch
+import repro_torch.core.comm_model
+import repro_torch.experiments
+import repro_torch.experiments.api
+import repro_torch.experiments.runner
+import repro_torch.experiments.spec
+import repro_torch.experiments.systems
 import repro_torch.launch.train
+import repro_torch.runtime.checkpoint
+import repro_torch.runtime.fault_tolerance
+import repro_torch.runtime.metrics
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
@@ -52,6 +61,11 @@ def test_entry_points_raise_instead_of_running_on_cpu(monkeypatch):
     data = make_dataset_for_model(model, 16, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         AmpereTrainer(model, RunConfig(), federate(data, 2, 0.5), data)
+    from repro_torch.experiments import ExperimentSpec, run_experiment
+    spec = ExperimentSpec(arch="qwen3-1.7b", max_rounds=1,
+                          max_server_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment(spec, write_results=False)
 
 
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu():

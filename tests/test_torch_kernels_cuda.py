@@ -7,9 +7,10 @@ fixture).  Needs no JAX, so it runs on a machine that has only PyTorch:
 
 Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
-versions and the fused backward takes dQ's kv-tile partials through
-atomics.  The split attention backward and the SSD backward have no
-atomics and must repeat bit for bit, as must the SSD forward.  Both SSD
+versions.  No kernel has atomics (the fused attention backward adds the
+kv tiles' dQ in place in kv-tile order, each in its turn), so both
+attention backwards and the
+SSD forward and backward must repeat bit for bit.  Both SSD
 kernels run every product on the tensor cores (bf16 ``mma.sync``, each
 fp32 operand split into bf16 planes: three planes and six passes
 forward, two and three backward), so they are also checked with operands
@@ -90,6 +91,8 @@ def test_flash_kernels_match_plain(cuda, case):
     want = FK.flash_bwd_fused_plain(q, k, v, do, lse_p, delta, **kw)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+    again = FK.flash_bwd_fused(q, k, v, do, lse_p, delta, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("case", FA, ids=str)
