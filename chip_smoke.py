@@ -16,11 +16,12 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
    the main attention shape in fp32 (the CUDA-core instantiations that
    the split step's fp32 pass runs) and a small odd SSD case (the fused
-   backward gets an fp32 dO, the split sweeps dO in q's dtype); xent on
-   the tensor cores (bf16 h, fp32 w) at the qwen3 shape (untied), the
-   tied auxiliary shape (T 2044), gemma2's softcap case (T 1024, V 256000)
-   and the mamba2-370m server shape (T 16376, D 1024, V 50280, tied), and
-   on the CUDA cores (fp32 h) at the qwen3 shape, each backward twice
+   backward gets an fp32 dO, the split sweeps dO in q's dtype); xent, on
+   the tensor cores, with a bf16 h and an fp32 w at the qwen3 shape
+   (untied), the tied auxiliary shape (T 2044), gemma2's softcap case (T
+   1024, V 256000) and the mamba2-370m server shape (T 16376, D 1024, V
+   50280, tied), and with an fp32 h (split into bf16 hi/lo as w is) at
+   the qwen3 shape, each backward twice
    (bit-identical; the attention backwards too, fused and split, in both
    dtypes); the SSD backward on all three SSD cases, twice
    (bit-identical); kernel, plain and library times with CUDA events
@@ -28,7 +29,7 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    beside it; SSD one timing), and for the SSD backward the route it
    replaced (autograd of the oracle ``ssd_intra_ref``, ``replaced_ms``)
    and its bound restated for the tensor cores (3 bf16 passes; the
-   fp32-FMA bound beside it on the "timing" line).
+   fp32-FMA bound beside it on the "timing" line, as for xent).
    The build prints ptxas's registers, spills and static shared memory of
    the tensor-core xent kernels and the SSD backward kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
@@ -87,10 +88,12 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5, 7 and 8, ``launches_by_path`` each run's
-count; the attention and xent rows are the bf16 tensor-core kernels,
+count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 CUDA-core ones behind the same wrappers, counted by
-dtype; the xent rows add their bf16 pass count, the fp32-FMA bound for
-comparison and their times at the mamba2 shape), the card line and,
+dtype; the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
+tensor cores, counted by h's dtype; the xent rows add their bf16 pass
+count, the fp32-FMA bound for comparison and their times at the mamba2
+shape), the card line and,
 last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.
@@ -396,21 +399,21 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
 
 
 def xent_bound(T, D, V, hdt, backward):
-    """(bound ms, by, bf16 passes or None, fp32-FMA bound ms) for an fp32 w:
-    bytes of h, w, labels (+ lse, g, dh, dw in the backward) read or
-    written once; the tensor-core route (bf16 h) runs the fewest bf16
-    passes that carry the fp32 operands to 1e-4 (forward 2, backward
-    2 + 3 + 2; a bf16 w would need 1 and 1 + 2 + 2), the CUDA-core route
-    one fp32 product per contraction."""
+    """(bound ms, by, bf16 passes, fp32-FMA bound ms) for an fp32 w: bytes
+    of h, w, labels (+ lse, g, dh, dw in the backward) read or written
+    once; the bf16 passes on the tensor cores that carry the fp32 operands
+    to 1e-4, hi.lo and lo.hi beside hi.hi (lo.lo dropped): with a bf16 h
+    (exact) forward 2, backward 2 + 3 + 2; with an fp32 h (split into hi
+    and lo as w is) 3 and 3 + 3 + 3 (a bf16 w: 1 and 1 + 2 + 2, or 2 and
+    2 + 2 + 3); beside them one fp32-FMA product per contraction."""
     ops = 2.0 * T * D * V
     nbytes = (T * D * (4 if hdt == torch.float32 else 2) + D * V * 4
               + T * 4 + T * 8)       # + loss, lse out / lse, g in
     if backward:
         nbytes += T * D * 4 + D * V * 4
     fma = bound_ms(nbytes, (3 if backward else 1) * ops, torch.float32)
-    if hdt == torch.float32:
-        return (*fma, None, fma[0])
-    passes = 7 if backward else 2
+    passes = {(False, False): 2, (False, True): 7, (True, False): 3,
+              (True, True): 9}[hdt == torch.float32, backward]
     return (*bound_ms(nbytes, passes * ops, torch.bfloat16), passes, fma[0])
 
 
@@ -1043,7 +1046,8 @@ def main() -> int:
         res[f"{name}_fp32"] = res32[name]
     # xent: the server heads of both main paths (qwen3 untied, T 8 x 511;
     # mamba2 tied, T 8 x 2047), the tied auxiliary head (T 4 x 511),
-    # gemma2's softcap, and the CUDA-core route (fp32 h) at the qwen3 shape
+    # gemma2's softcap, and an fp32 h (the fp32 smoke configs' and the
+    # split step's fp32 pass) at the qwen3 shape
     cfg = registry.get_config("qwen3-1.7b")
     T = 8 * (SEQ_LEN - 1)
     res.update(xent_case(dev, T, cfg.d_model, cfg.vocab_size, 0.0, False,

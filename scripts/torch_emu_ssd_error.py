@@ -4,8 +4,9 @@
 Compiles ``src/repro_torch/csrc/ssd_chunk.cu`` with g++ against the
 emulator headers of ``--emu`` (default ``tests/cuda_emu``; point it at an
 older checkout's copy to compare two emulators) exactly as
-``tests/test_torch_kernels_emulated.py`` does, runs ``ssd_y_kernel`` and
-``ssd_state_kernel`` on that test's forward cases (same seed), and prints,
+``tests/cuda_emu/harness.py`` does, runs ``ssd_y_kernel`` and
+``ssd_state_kernel`` on the forward cases of
+``tests/test_torch_kernels_emulated_ssd_xent.py`` (same seed), and prints,
 for y and for the chunk state, the max abs error relative to the output's
 scale (floor 1) against the fp32 plain version and against the same plain
 version in float64.  CPU only; needs g++ (C++20).
@@ -31,7 +32,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
-import test_torch_kernels_emulated as T  # noqa: E402
+from cuda_emu import harness  # noqa: E402
+import test_torch_kernels_emulated_ssd_xent as T  # noqa: E402
 
 
 def _rel(got, want) -> float:
@@ -44,9 +46,9 @@ def main(argv=None) -> int:
     ap.add_argument("--emu", default=str(ROOT / "tests" / "cuda_emu"))
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
-        src = T.LAUNCH.sub(r"emu_launch(\1, \2, ",
+        src = harness.LAUNCH.sub(r"emu_launch(\1, \2, ",
                            (build.CSRC / "ssd_chunk.cu").read_text())
-        src = T.SHARED.sub(r"\1* \2 = (\1*)emu_dyn;", src)
+        src = harness.SHARED.sub(r"\1* \2 = (\1*)emu_dyn;", src)
         cpp, so = pathlib.Path(tmp) / "ssd.cpp", pathlib.Path(tmp) / "ssd.so"
         cpp.write_text(src)
         subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC",

@@ -37,12 +37,11 @@ SIGNATURES = {
     "rt_flash_bwd": [_P] * 10 + [_LL] + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
-    "rt_xent_fwd": [_P] * 6 + [_I] * 5 + [_LL, _LL, _F, _I, _P],
-    "rt_xent_bwd": [_P] * 8 + [_I] * 5 + [_LL] * 4 + [_F, _I, _P],
     "rt_xent_tc_nsplit": [_I] * 3,
     "rt_xent_split": [_P] * 3 + [_I] * 3 + [_LL, _LL, _P],
-    "rt_xent_fwd_tc": [_P] * 8 + [_I] * 4 + [_LL, _LL, _F, _I, _P],
-    "rt_xent_bwd_tc": [_P] * 11 + [_I] * 4 + [_LL] * 4 + [_F, _I, _I, _P],
+    "rt_xent_split_h": [_P] * 3 + [_I] * 2 + [_P],
+    "rt_xent_fwd_tc": [_P] * 10 + [_I] * 5 + [_LL, _LL, _F, _I, _P],
+    "rt_xent_bwd_tc": [_P] * 13 + [_I] * 5 + [_LL] * 4 + [_F, _I, _I, _P],
     "rt_ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
     "rt_ssd_intra_bwd_scratch_floats": [_I] * 3,
     "rt_ssd_intra_bwd": [_P] * 13 + [_LL] + [_I] * 5 + [_P],

@@ -7,10 +7,12 @@ kernels (``csrc/xent.cu``; the source says what bounds them and what the
 design does about that) or raises; on a CPU tensor it runs its plain
 PyTorch version below, which materializes the (T, V) logits.
 
-The route follows h's dtype alone: a bf16 h runs the tensor-core kernels
-(w split into bf16 hi/lo by a pre-pass into (Vp, D) scratch), an fp32 h the
-CUDA-core ones.  A bf16 h that the tensor-core route cannot take (D not a
-multiple of 8: its copies move 16-B rows) raises ``ValueError``.
+Every product runs on the tensor cores over bf16 planes: pre-passes split
+w into bf16 hi/lo (Vp, Dp) scratch (no lo for a bf16 w) and an fp32 h into
+hi/lo (T, Dp) scratch; a bf16 h is read in place.  h's dtype chooses only
+whether h has a lo plane.  A bf16 h whose D is not a multiple of 8 (its
+copies move 16-B rows) raises ``ValueError``; an fp32 h of any D is padded
+with zeros to Dp, D rounded up to 8.
 
 h (T, D) in the model dtype; w (D, V) with any strides — the tied
 auxiliary head passes a transposed view of the (V, D) embedding table and
@@ -18,7 +20,7 @@ the kernels read it in place; labels (T,).  Outputs are fp32; ``dw`` comes
 back with ``w``'s layout (a transposed view of a (V, D) buffer for the
 tied head), so it reaches the embedding gradient without a copy.  Each
 wrapper carries ``launches``, the number of calls that launched kernels,
-and ``launches_by_dtype``, the same by h's dtype (so by route).
+and ``launches_by_dtype``, the same by h's dtype (so by pass count).
 """
 
 from __future__ import annotations
@@ -28,11 +30,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-TILE = 64                       # token / vocabulary tile, CUDA-core kernels
-TC_TILE = 128                   # the same, tensor-core kernels
-TC_CHUNK = 32                   # tensor-core backward chunks: rows multiple
+TC_TILE = 128                   # token / vocabulary tile of the kernels
+TC_CHUNK = 32                   # backward chunks: rows a multiple of this
 STAGE_BYTES = 4 * 2 ** 30       # bound on the backward's dlogits staging
-TARGET_CTAS = 264               # CUDA-core forward: two CTAs per SM on 132
 H100_SMS = 132                  # split count of the emulated (CPU) launches
 
 
@@ -84,24 +84,17 @@ def _check_inputs(h, w, labels):
         raise ValueError(f"labels {tuple(labels.shape)} != ({h.shape[0]},)")
 
 
-def _nsplit(T, V):
-    nt = -(-T // TILE)
-    return max(1, min(-(-TARGET_CTAS // nt), -(-V // TILE)))
-
-
-def _chunk(T, V):
-    rows = max(TILE, STAGE_BYTES // (4 * V) // TILE * TILE)
-    return min(rows, -(-T // TILE) * TILE)
-
-
 def _vpad(V):
     return -(-V // TC_TILE) * TC_TILE
 
 
+def _dpad(D):
+    return -(-D // 8) * 8
+
+
 def _tc_chunk(T, V):
-    """Backward chunk rows of the tensor-core route: the split dlogits
-    stage (bf16 hi + lo, 4 B an element of (rows, Vp)) within
-    STAGE_BYTES."""
+    """Backward chunk rows: the split dlogits stage (bf16 hi + lo, 4 B an
+    element of (rows, Vp)) within STAGE_BYTES."""
     rows = max(TC_CHUNK, STAGE_BYTES // (4 * _vpad(V)) // TC_CHUNK * TC_CHUNK)
     return min(rows, -(-T // TC_CHUNK) * TC_CHUNK)
 
@@ -112,19 +105,26 @@ def _sms(t):
     return H100_SMS
 
 
-def _tc_h(h):
-    """h made ready for the tensor-core route: contiguous 16-B rows."""
-    if h.shape[1] % 8:
-        raise ValueError(f"xent tensor-core route: D = {h.shape[1]} is not a "
-                         "multiple of 8 (its copies move 16-B rows)")
-    h = h.contiguous()
-    return h.clone() if h.data_ptr() % 16 else h
+def _prepare_h(h):
+    """h as the kernels read it and the scratch of its split: a bf16 h in
+    place (contiguous 16-B rows), an fp32 h contiguous with (T, Dp) bf16 hi
+    and lo planes."""
+    build.dtype_code(h)
+    if h.dtype == torch.bfloat16:
+        if h.shape[1] % 8:
+            raise ValueError(f"xent tensor-core route: D = {h.shape[1]} is "
+                             "not a multiple of 8 (its copies move 16-B rows)")
+        h = h.contiguous()
+        return (h.clone() if h.data_ptr() % 16 else h), None, None
+    h_hi = torch.empty((h.shape[0], _dpad(h.shape[1])), dtype=torch.bfloat16,
+                       device=h.device)
+    return h.contiguous(), h_hi, torch.empty_like(h_hi)
 
 
 def _split_buffers(w):
-    """(W_hi, W_lo) scratch of w's split, (Vp, D) bf16; no lo for bf16 w."""
-    w_hi = torch.empty((_vpad(w.shape[1]), w.shape[0]), dtype=torch.bfloat16,
-                       device=w.device)
+    """(W_hi, W_lo) scratch of w's split, (Vp, Dp) bf16; no lo for bf16 w."""
+    w_hi = torch.empty((_vpad(w.shape[1]), _dpad(w.shape[0])),
+                       dtype=torch.bfloat16, device=w.device)
     return w_hi, (torch.empty_like(w_hi) if w.dtype == torch.float32
                   else None)
 
@@ -134,7 +134,7 @@ def _ptr(t):
 
 
 def _launch_split(lib, stream, w):
-    """The split pre-pass alone: (W_hi, W_lo or None), (Vp, D) bf16."""
+    """The w split pre-pass alone: (W_hi, W_lo or None), (Vp, Dp) bf16."""
     w_hi, w_lo = _split_buffers(w)
     err = lib.rt_xent_split(w.data_ptr(), w_hi.data_ptr(), _ptr(w_lo),
                             build.dtype_code(w), *w.shape, w.stride(0),
@@ -143,28 +143,18 @@ def _launch_split(lib, stream, w):
     return w_hi, w_lo
 
 
+def _launch_split_h(lib, stream, h):
+    """The h split pre-pass alone: (H_hi, H_lo), (T, Dp) bf16, of an fp32
+    h."""
+    h, h_hi, h_lo = _prepare_h(h)
+    err = lib.rt_xent_split_h(h.data_ptr(), h_hi.data_ptr(), h_lo.data_ptr(),
+                              *h.shape, stream)
+    build.check(lib, err, "xent_split_h")
+    return h_hi, h_lo
+
+
 def _launch_fwd(lib, stream, h, w, labels, *, softcap):
-    if h.dtype == torch.bfloat16:
-        return _launch_fwd_tc(lib, stream, h, w, labels, softcap=softcap)
-    h = h.contiguous()
-    labels = labels.to(torch.int32).contiguous()
-    T, D = h.shape
-    V = w.shape[1]
-    nsplit = _nsplit(T, V)
-    loss = torch.empty((T,), dtype=torch.float32, device=h.device)
-    lse = torch.empty((T,), dtype=torch.float32, device=h.device)
-    part = torch.empty((3, nsplit, T), dtype=torch.float32, device=h.device)
-    err = lib.rt_xent_fwd(h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-                          loss.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                          build.dtype_code(h), build.dtype_code(w), T, D, V,
-                          w.stride(0), w.stride(1), float(softcap), nsplit,
-                          stream)
-    build.check(lib, err, "xent_fwd")
-    return loss, lse
-
-
-def _launch_fwd_tc(lib, stream, h, w, labels, *, softcap):
-    h = _tc_h(h)
+    h, h_hi, h_lo = _prepare_h(h)
     w_hi, w_lo = _split_buffers(w)
     labels = labels.to(torch.int32).contiguous()
     T, D = h.shape
@@ -175,9 +165,10 @@ def _launch_fwd_tc(lib, stream, h, w, labels, *, softcap):
     part = torch.empty((3, nsplit, T), dtype=torch.float32, device=h.device)
     err = lib.rt_xent_fwd_tc(h.data_ptr(), w.data_ptr(), labels.data_ptr(),
                              loss.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                             w_hi.data_ptr(), _ptr(w_lo), build.dtype_code(w),
-                             T, D, V, w.stride(0), w.stride(1),
-                             float(softcap), nsplit, stream)
+                             _ptr(h_hi), _ptr(h_lo), w_hi.data_ptr(),
+                             _ptr(w_lo), build.dtype_code(h),
+                             build.dtype_code(w), T, D, V, w.stride(0),
+                             w.stride(1), float(softcap), nsplit, stream)
     build.check(lib, err, "xent_fwd")
     return loss, lse
 
@@ -190,30 +181,7 @@ def _dw_like(w, h):
 
 
 def _launch_bwd(lib, stream, h, w, labels, lse, g, *, softcap):
-    if h.dtype == torch.bfloat16:
-        return _launch_bwd_tc(lib, stream, h, w, labels, lse, g,
-                              softcap=softcap)
-    h = h.contiguous()
-    labels = labels.to(torch.int32).contiguous()
-    lse, g = lse.float().contiguous(), g.float().contiguous()
-    T, D = h.shape
-    V = w.shape[1]
-    chunk = _chunk(T, V)
-    dh = torch.empty((T, D), dtype=torch.float32, device=h.device)
-    dw = _dw_like(w, h)
-    stage = torch.empty((chunk, V), dtype=torch.float32, device=h.device)
-    err = lib.rt_xent_bwd(h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-                          lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
-                          dw.data_ptr(), stage.data_ptr(), build.dtype_code(h),
-                          build.dtype_code(w), T, D, V, w.stride(0),
-                          w.stride(1), dw.stride(0), dw.stride(1),
-                          float(softcap), chunk, stream)
-    build.check(lib, err, "xent_bwd")
-    return dh, dw
-
-
-def _launch_bwd_tc(lib, stream, h, w, labels, lse, g, *, softcap):
-    h = _tc_h(h)
+    h, h_hi, h_lo = _prepare_h(h)
     w_hi, w_lo = _split_buffers(w)
     labels = labels.to(torch.int32).contiguous()
     lse, g = lse.float().contiguous(), g.float().contiguous()
@@ -226,8 +194,9 @@ def _launch_bwd_tc(lib, stream, h, w, labels, lse, g, *, softcap):
                                 device=h.device) for _ in range(2))
     err = lib.rt_xent_bwd_tc(h.data_ptr(), w.data_ptr(), labels.data_ptr(),
                              lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
-                             dw.data_ptr(), w_hi.data_ptr(), _ptr(w_lo),
-                             st_hi.data_ptr(), st_lo.data_ptr(),
+                             dw.data_ptr(), _ptr(h_hi), _ptr(h_lo),
+                             w_hi.data_ptr(), _ptr(w_lo), st_hi.data_ptr(),
+                             st_lo.data_ptr(), build.dtype_code(h),
                              build.dtype_code(w), T, D, V, w.stride(0),
                              w.stride(1), dw.stride(0), dw.stride(1),
                              float(softcap), chunk, _sms(h), stream)

@@ -14,8 +14,9 @@ SSD forward and backward must repeat bit for bit.  Both SSD
 kernels run every product on the tensor cores (bf16 ``mma.sync``, each
 fp32 operand split into bf16 planes: three planes and six passes
 forward, two and three backward), so they are also checked with operands
-far from 1, each output against its own scale.  TF32 is off for the
-plain versions' matmuls.
+far from 1, each output against its own scale.  The cross-entropy
+kernels run every product on the tensor cores too (w and an fp32 h split
+into bf16 hi/lo).  TF32 is off for the plain versions' matmuls.
 """
 
 import numpy as np
@@ -240,16 +241,34 @@ XENT = [(24, 32, 100, 0.0), (16, 64, 53, 30.0), (33, 48, 257, 0.0),
         (8, 32, 17, 10.0), (64, 16, 1000, 0.0), (300, 256, 5000, 0.0)]
 
 
+# fp32 h only (a bf16 h needs D a multiple of 8): h's and W's planes
+# padded with zeros to D rounded up to 8
+XENT_ODD_D = [(9, 13, 70, 0.0), (300, 250, 5000, 30.0)]
+
+
 @pytest.mark.parametrize("tied", [False, True])
 @pytest.mark.parametrize("hdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
                                      (torch.bfloat16, torch.float32),
                                      (torch.bfloat16, torch.bfloat16)],
                          ids=str)
 @pytest.mark.parametrize("case", XENT, ids=str)
 def test_xent_kernels_match_plain(cuda, case, hdt, wdt, tied):
-    """fp32 h: the CUDA-core kernels; bf16 h: the tensor-core ones (w split
-    into bf16 hi/lo, none for a bf16 w), counted under h's dtype; the
-    backward repeats bit for bit."""
+    """Every product on the tensor cores: w split into bf16 hi/lo (none for
+    a bf16 w), an fp32 h split into bf16 hi/lo too, a bf16 h read as it is;
+    counted under h's dtype; the backward repeats bit for bit."""
+    _check_xent(cuda, case, hdt, wdt, tied)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", XENT_ODD_D, ids=str)
+def test_xent_fp32_h_odd_d_matches_plain(cuda, case, wdt, tied):
+    """An fp32 h whose D is not a multiple of 8 takes the same route."""
+    _check_xent(cuda, case, torch.float32, wdt, tied)
+
+
+def _check_xent(cuda, case, hdt, wdt, tied):
     T, D, V, cap = case
     rng = np.random.default_rng(1)
     h = torch.tensor(rng.normal(0, 1, (T, D)), dtype=hdt, device=cuda)
