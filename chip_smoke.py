@@ -14,8 +14,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    auxiliary clone's H 16, N 64), at a gemma2-style
    case (hd 256, window, softcaps 50 / 30), a ragged bf16 attention case
    (S 300 over 130 keys, kv_len 120, window 64: rows with no valid key),
-   the main attention shape in fp32 (the CUDA-core instantiations that
-   the split step's fp32 pass runs) and a small odd SSD case (the fused
+   the main attention shape in fp32 (the instantiations that the split
+   step's fp32 pass and the fp32 smoke configs run: the forward and the
+   fused backward on the tensor cores over three bf16 planes of q, k and
+   v, their bounds restated for their passes by ``split_bound``, the
+   fp32-FMA bound beside it on the "timing" line; the sweeps on the CUDA
+   cores), the gemma2-style and the ragged cases in fp32 too, and a small
+   odd SSD case (the fused
    backward gets an fp32 dO, the split sweeps dO in q's dtype); xent, on
    the tensor cores, with a bf16 h and an fp32 w at the qwen3 shape
    (untied), the tied auxiliary shape (T 2044), gemma2's softcap case (T
@@ -31,7 +36,8 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    and its bound restated for the tensor cores (3 bf16 passes; the
    fp32-FMA bound beside it on the "timing" line, as for xent).
    The build prints ptxas's registers, spills and static shared memory of
-   the tensor-core xent kernels and the SSD backward kernels.
+   the tensor-core attention and xent kernels, their split pre-passes and
+   the SSD kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
    configs from the same initial states on the card (kernels) and on the
    CPU (plain versions); the histories must agree.
@@ -89,8 +95,10 @@ Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5, 7 and 8, ``launches_by_path`` each run's
 count; the attention rows are the bf16 tensor-core kernels,
-``*_fp32`` the fp32 CUDA-core ones behind the same wrappers, counted by
-dtype; the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
+``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
+dtype (the forward and the fused backward on the tensor cores over bf16
+planes, with their bf16 pass count and fp32-FMA bound; the two sweeps on
+the CUDA cores); the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
 tensor cores, counted by h's dtype; the xent rows add their bf16 pass
 count, the fp32-FMA bound for comparison and their times at the mamba2
 shape), the card line and,
@@ -211,12 +219,18 @@ ITERS_XENT = 2
 ITERS_SSD = 10
 # kernels whose ptxas report the build phase prints: the xent tensor-core
 # kernels, the split pre-pass and the SSD forward and backward
-PTXAS_REPORT = ("xent_tc_", "xent_split_", "ssd_y_", "ssd_state_",
-                "ssd_bwd_")
+PTXAS_REPORT = ("fa_fwd_tc_", "fa_bwd_tc_", "fa_split_", "xent_tc_",
+                "xent_split_", "ssd_y_", "ssd_state_", "ssd_bwd_")
 # bf16 mma passes a product of the SSD kernels takes: the forward splits
 # each fp32 operand into three bf16 planes (held to 1e-5), the backward
 # into two (held to 1e-4); csrc/ssd_chunk.cu
 SSD_FWD_PASSES, SSD_BWD_PASSES = 6, 3
+# bf16 mma passes of the fp32 attention forward and fused backward, each
+# over one product of 2 hd flops an unmasked pair: q, k and v in three
+# planes; the forward's S = Q K^T 6 (i + j <= 2) and O += P V 5 (P hi/lo
+# against v's three), the backward's S 6 and dP, dV, dK, dQ 3 each (hi/lo
+# of both operands); csrc/flash_attention.cu
+FA_FWD_PASSES, FA_BWD_PASSES = 6 + 5, 6 + 4 * 3
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # split backward against fused, relative to each gradient leaf's scale
@@ -367,6 +381,23 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
                           lambda: plain(*bargs, **kw),
                           bound_ms(bwd_in[name] + out_bytes[name],
                                    2 * products[name] * hd * pairs, dtype))
+    if dtype == torch.float32:
+        # the tensor-core instantiations: their passes over the planes,
+        # beside the softmax's elementwise work (about 4 ops a pair
+        # forward, 6 backward)
+        fwd_bytes = in_bytes + BH * S * (hd + 1) * 4
+        bwd_bytes = bwd_in["flash_bwd_fused"] + out_bytes["flash_bwd_fused"]
+        for name, n_products, ew, nbytes, passes in (
+                ("flash_fwd", 2, 4, fwd_bytes, FA_FWD_PASSES),
+                ("flash_bwd_fused", 5, 6, bwd_bytes, FA_BWD_PASSES)):
+            # split_bound over one product's flops with every pass of the
+            # kernel; its fp32-FMA bound over all the products
+            bms, by, n, _ = split_bound(2 * hd * pairs, ew * pairs, nbytes,
+                                        passes)
+            fma_ms = bound_ms(nbytes, (2 * n_products * hd + ew) * pairs,
+                              torch.float32)[0]
+            res[name].update(bound=(bms, by), bound_passes=n,
+                             bound_fp32_fma_ms=fma_ms)
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
     # yardstick only: one PyTorch call computing the same function
@@ -393,7 +424,9 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
     log("timing", case=tag, dtype=str(dtype).removeprefix("torch."),
         iters=iters, warmup=WARMUP, repeats=REPEATS,
         **{name: {k: r[k] for k in ("ms", "ms_range", "library_ms",
-                                    "library_ms_range")}
+                                    "library_ms_range", "bound",
+                                    "bound_passes", "bound_fp32_fma_ms")
+                  if k in r}
            for name, r in res.items()})
     return res
 
@@ -1038,12 +1071,16 @@ def main() -> int:
     # ragged S, rows past kv_len + window - 1 with no valid key
     fa_case(dev, 2, 300, 4, 2, 128, 64, 0.0, torch.bfloat16, 1,
             library=False, Skv=130, kv_len=120)
-    # the fp32 CUDA-core instantiations at the main shape (the split
-    # step's fp32 pass)
+    # the fp32 instantiations at the main shape (the split step's fp32
+    # pass), at the gemma2-style case and at the ragged one
     res32 = fa_case(dev, 8, SEQ_LEN, 8, 2, 128, 0, 0.0, torch.float32,
                     ITERS_ATTENTION, library=True)
     for name in FA_BY_DTYPE:
         res[f"{name}_fp32"] = res32[name]
+    fa_case(dev, 2, SEQ_LEN, 4, 2, 256, 256, 50.0, torch.float32, 1,
+            library=False)
+    fa_case(dev, 2, 300, 4, 2, 128, 64, 0.0, torch.float32, 1,
+            library=False, Skv=130, kv_len=120)
     # xent: the server heads of both main paths (qwen3 untied, T 8 x 511;
     # mamba2 tied, T 8 x 2047), the tied auxiliary head (T 4 x 511),
     # gemma2's softcap, and an fp32 h (the fp32 smoke configs' and the
@@ -1100,6 +1137,7 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r.get("library_ms"),
                      **{k: r[k] for k in ("ms_range", "library_ms_range",
+                                          "bound_passes", "bound_fp32_fma_ms",
                                           "replaced_ms", "at_mamba2_shape")
                         if k in r}})
     log("total", seconds=time.perf_counter() - t_start)

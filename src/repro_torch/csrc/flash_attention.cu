@@ -23,7 +23,8 @@
 // attention does ~2*S*hd flops per loaded q/k/v element, so its floor is
 // the bf16 tensor cores' rate together with the bytes it must move (the
 // bytes bound is the larger at this shape, for every kernel here, the two
-// sweeps too).  Two designs, one per dtype:
+// sweeps too).  The forward and the fused backward run on the tensor cores
+// for both dtypes; the two sweeps do for bf16 only:
 //
 // bf16 q, k, v (the main path): every kernel runs on the tensor cores
 // (fa_fwd_tc_kernel, fa_bwd_tc_kernel, fa_bwd_dq_tc_kernel;
@@ -49,13 +50,33 @@
 // of two n-tiles is the A fragment of one k-step); the fused kernel's
 // dS^T goes through shared memory once, for dQ.
 //
-// fp32 q, k, v: every product with fp32 FMAs on the CUDA cores (no tensor
-// cores; TF32 would miss the fp32 checks).  Tiles of Q/K/V/dO live in
-// shared memory (converted to fp32 once per tile load), each thread owns a
-// 16 x 16-strided block of every tile product, and rows of padded stride
-// hd + 1 keep the shared-memory walks bank-conflict free.
+// fp32 q, k, v, forward and fused backward: the same two kernels, with
+// every fp32 operand in bf16 planes (TF32 would miss the fp32 checks).  A
+// pre-pass (fa_split_kernel) writes each of q, k and v as three planes,
+// x = p0 + p1 + p2 exactly, each the round to nearest of what the planes
+// before it leave, so p0 + p1 is split_bf16x2's hi + lo (~2^-17 |x|); the
+// kernels load planes as they load bf16 tensors.  The scores S = Q K^T
+// take the six passes (i, j) with i + j <= 2 (~2^-22 relative per
+// product), each k-step's into a fresh fragment added in fp32 (the tensor
+// cores round each sum toward zero); with two planes (three passes) the
+// scores' error, which the exponential carries into P, missed the
+// forward's 1e-5 check on o (PERF.md, scripts/torch_emu_fa_error.py).
+// The forward's O += P V takes five passes (P hi/lo against V's three
+// planes, i + j <= 2), into a fresh fragment per kv tile: V in hi/lo
+// alone left ~2^-17 of V in o, within 1.5x of the check.  The fused
+// backward's other products take three passes (hi.hi, hi.lo, lo.hi) of
+// planes 0 and 1 of both operands: dP = dO V^T, dV += P^T dO, dK += dS^T
+// Q, dQ += dS K.  The planes fill shared memory, so the fp32 tiles differ
+// (TcFwd, TcBwd).  What bounds them: at the main shape the passes (11
+// forward, 18 backward, each over 2 hd flops an unmasked pair: 0.048 and
+// 0.078 ms at the bf16 rate) outweigh the bytes (0.030, 0.050 ms).
 //
-// Both skip kv tiles that the mask removes entirely (causal upper
+// The two sweeps in fp32 are fp32-FMA kernels on the CUDA cores (tiles of
+// Q/K/V/dO in shared memory, converted to fp32 once per tile load; each
+// thread owns a 16 x 16-strided block of every tile product; rows of
+// padded stride hd + 1 keep the shared-memory walks bank-conflict free).
+//
+// All skip kv tiles that the mask removes entirely (causal upper
 // triangle, outside the window, past kv_len), which the TPU's sequential
 // grid could not do.  The bf16 kernels order their grids so that the
 // heaviest CTAs under the causal mask start first (last q tiles in the
@@ -83,9 +104,10 @@
 // needs no scratch: dQ repeats bit for bit (0 + c_0 + c_1 + ... in fp32,
 // the sum the reference's partials strategy forms).
 //
-// Two-sweep backward, deterministic: the dK/dV sweep is the fused kernel
-// without its dQ (kDQ = false; for bf16 also without the dS^T tiles, and
-// with dO read as it is); the dQ sweep runs one CTA per (bh, q tile) that
+// Two-sweep backward, deterministic: the dK/dV sweep is the fused kernel's
+// loop without its dQ (for bf16 fa_bwd_tc_kernel with kDQ = false, also
+// without the dS^T tiles and with dO read as it is; for fp32
+// fa_bwd_kernel); the dQ sweep runs one CTA per (bh, q tile) that
 // loops over the kv tiles the mask leaves, recomputes P and dS for each,
 // keeps dQ in registers and writes it once.  Neither sweep has atomics, so
 // both give bit-identical results run to run, at the price of recomputing
@@ -157,139 +179,6 @@ __device__ __forceinline__ bool fa_row_empty(int q, int Skv, int causal,
   return lo > hi;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int Sq, int Skv, int group,
-              int causal, int window, float softcap, float scale,
-              int kv_len) {
-  constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-  constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, CK = BK / 16, CD = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x LD, pre-scaled
-  float* sK = sQ + BQ * LD;    // BK x LD
-  float* sV = sK + BK * LD;    // BK x LD
-  float* sP = sV + BK * LD;    // BQ x LP
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int qb = min(q0 + BQ, Sq) - 1;
-  const T* qg = q + (size_t)bh * Sq * HD;
-  const T* kg = k + (size_t)(bh / group) * Skv * HD;
-  const T* vg = v + (size_t)(bh / group) * Skv * HD;
-
-  for (int e = tid; e < BQ * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    sQ[r * LD + c] =
-        (q0 + r < Sq) ? to_f32(qg[(size_t)(q0 + r) * HD + c]) * scale : 0.f;
-  }
-  const bool empty = tid < BQ && q0 + tid < Sq &&
-                     fa_row_empty(q0 + tid, Skv, causal, window, kv_len);
-  const bool may_skip = !__syncthreads_or(empty);
-
-  float m_i[RQ], l_i[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    m_i[r] = kNegInf;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[r][c] = 0.f;
-  }
-
-  const int nk = (Skv + BK - 1) / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    if (may_skip && fa_tile_masked(q0, qb, k0, min(k0 + BK, Skv) - 1, causal,
-                                   window, kv_len))
-      continue;  // uniform over the block
-    __syncthreads();  // the previous tile's sK/sV/sP reads are done
-    for (int e = tid; e < BK * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD;
-      const bool in = k0 + r < Skv;
-      sK[r * LD + c] = in ? to_f32(kg[(size_t)(k0 + r) * HD + c]) : 0.f;
-      sV[r * LD + c] = in ? to_f32(vg[(size_t)(k0 + r) * HD + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RQ][CK];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r)
-#pragma unroll
-      for (int c = 0; c < CK; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[CK];
-#pragma unroll
-      for (int c = 0; c < CK; ++c) kv[c] = sK[(tx + 16 * c) * LD + d];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        const float qv = sQ[(ty * RQ + r) * LD + d];
-#pragma unroll
-        for (int c = 0; c < CK; ++c) s[r][c] += qv * kv[c];
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int qp = q0 + ty * RQ + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const int kp = k0 + tx + 16 * c;
-        float x = s[r][c];
-        if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
-        // columns past the tensor's Skv are not keys at all (weight 0 even
-        // for a row with no valid key); masked keys get the -1e30 sentinel
-        x = kp >= Skv ? -INFINITY
-                      : (fa_keep(qp, kp, causal, window, kv_len) ? x : kNegInf);
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m_i[r], rt::row_max16(mx));
-      const float corr = expf(m_i[r] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sP[(ty * RQ + r) * LP + tx + 16 * c] = p;
-        ps += p;
-      }
-      l_i[r] = l_i[r] * corr + rt::row_sum16(ps);
-      m_i[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[r][c] *= corr;
-    }
-    __syncthreads();  // sP complete
-
-    for (int jj = 0; jj < BK; ++jj) {
-      float vv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = sV[jj * LD + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        const float p = sP[(ty * RQ + r) * LP + jj];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[r][c] += p * vv[c];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int row = q0 + ty * RQ + r;
-    if (row < Sq) {
-      const float l = fmaxf(l_i[r], 1e-30f);
-      float* og = o + ((size_t)bh * Sq + row) * HD;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) og[tx + 16 * c] = acc[r][c] / l;
-      if (tx == 0) lse[(size_t)bh * Sq + row] = m_i[r] + logf(l);
-    }
-  }
-}
-
 // One (q tile, kv tile) of the backward: P = exp(softcap(scale * Q K^T) -
 // lse), masked to exact zeros, into sP (when given) and dS = P * (dO V^T -
 // delta) * softcap chain * scale into sS.  Thread (ty, tx) owns rows
@@ -346,18 +235,20 @@ __device__ __forceinline__ void bwd_p_ds(
   }
 }
 
-template <typename T, int HD, bool kDQ>
+// dK/dV sweep of the two-sweep backward for fp32 q, k, v: one CTA per
+// (bkv, kv tile) loops over the group's heads and the q tiles the mask
+// leaves, with dK and dV in registers; written once.
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int* __restrict__ turns,
               float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
               int group, int causal, int window, float softcap, float scale,
               int kv_len) {
   constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
   constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, RK = BK / 16, CD = HD / 16;
+  constexpr int RK = BK / 16, CD = HD / 16;
   extern __shared__ float smem[];
   float* sK = smem;            // BK x LD
   float* sV = sK + BK * LD;    // BK x LD
@@ -397,7 +288,6 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bh = (size_t)bkv * group + g;
     const T* qg = q + bh * Sq * HD;
     const float* og = dout + bh * Sq * HD;
-    float* dqg = kDQ ? dq + bh * Sq * HD : nullptr;
     __syncthreads();  // previous smem reads done (and sK/sV loaded)
     for (int e = tid; e < BQ * HD; e += kThreads) {
       const int r = e / HD, c = e % HD;
@@ -435,39 +325,6 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-
-    if (!kDQ) continue;  // the dK/dV sweep of the two-sweep backward
-    // this kv tile's dQ contribution dS K, added to dQ in its turn
-    float dqv[RQ][CD];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int rl = ty * RQ + r;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) dqv[r][c] = 0.f;
-      for (int kk = 0; kk < BK; ++kk) {
-        const float sv = sS[rl * LP + kk];
-#pragma unroll
-        for (int c = 0; c < CD; ++c)
-          dqv[r][c] += sv * sK[kk * LD + tx + 16 * c];
-      }
-    }
-    int* turn = turns + bh * nq + iq;
-    const int mine = fa_dq_turn(q0, blockIdx.x, BK, window);
-    if (tid == 0) rt::wait_turn(turn, mine);
-    __syncthreads();  // the earlier kv tiles' sums are in dQ
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int rl = ty * RQ + r;
-      if (q0 + rl < Sq) {
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          float* d = dqg + (size_t)(q0 + rl) * HD + tx + 16 * c;
-          __stcg(d, __ldcg(d) + dqv[r][c]);
-        }
-      }
-    }
-    __syncthreads();  // every thread's sum stored
-    if (tid == 0) rt::pass_turn(turn, mine + 1);
   }
 
 #pragma unroll
@@ -616,31 +473,109 @@ __device__ __forceinline__ bool tc_tile_whole(int qa, int qb, int ka, int kb,
   return true;
 }
 
+// The fp32 route's planes (see the head of the file): of q and k, and of v
+// (the forward's; the backward reads v's first two); one plane for bf16,
+// the tensor itself.
+constexpr int kQkPlanes = 3, kVPlanes = 3;
+template <typename T>
+constexpr int planes_of = std::is_same_v<T, bf16> ? 1 : kQkPlanes;
+
+// One fp32 tensor of n elements (n % 4 == 0, 16-B aligned) into np bf16
+// planes, plane p at planes + p n: x = p0 + p1 + p2 with each plane the
+// round to nearest of what the planes before it leave, each difference
+// exact in fp32, so three planes give x back exactly and the first two
+// are split_bf16x2's hi + lo.
+struct FaSplit {
+  const float* x;
+  bf16* planes;
+  long long n;
+  int np;
+};
+struct FaSplitQkv { FaSplit t[3]; };
+
+// blockIdx.y picks the tensor (q, k, v; selected with constant indices, as
+// a parameter array indexed at run time goes through local memory); four
+// elements a thread, one 16-B load and one 8-B store a plane
+__global__ void __launch_bounds__(kThreads) fa_split_kernel(FaSplitQkv a) {
+  const FaSplit s = blockIdx.y == 0 ? a.t[0] : blockIdx.y == 1 ? a.t[1]
+                                                               : a.t[2];
+  const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (e >= s.n) return;
+  const float4 x = *reinterpret_cast<const float4*>(s.x + e);
+  float r[4] = {x.x, x.y, x.z, x.w};
+  for (int p = 0; p < s.np; ++p) {
+    uint32_t w[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+      const float2 hf = __bfloat1622float2(h);
+      r[2 * i] -= hf.x;
+      r[2 * i + 1] -= hf.y;
+      w[i] = rt::bf16x2_bits(h);
+    }
+    *reinterpret_cast<uint2*>(s.planes + p * s.n + e) = make_uint2(w[0], w[1]);
+  }
+}
+
+cudaError_t fa_split(const FaSplitQkv& a, cudaStream_t st) {
+  long long n = 0;
+  for (const FaSplit& s : a.t) n = s.n > n ? s.n : n;
+  const dim3 grid((unsigned)((n / 4 + kThreads - 1) / kThreads), 3);
+  fa_split_kernel<<<grid, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// d += A B over NP-plane fragments of a 16 x 16 A and two 8-column B
+// n-tiles (b[plane]: registers 0-1 and 2-3), the passes (i, j) with
+// i + j < NP, largest first: one pass for bf16, hi.hi, hi.lo, lo.hi for
+// two planes, six for three.
+template <int NP>
+__device__ __forceinline__ void mma_planes(float (&d0)[4], float (&d1)[4],
+                                           const uint32_t (&a)[NP][4],
+                                           const uint32_t (&b)[NP][4]) {
+#pragma unroll
+  for (int s = 0; s < NP; ++s)
+#pragma unroll
+    for (int i = 0; i <= s; ++i) {
+      rt::mma_bf16(d0, a[i], b[s - i][0], b[s - i][1]);
+      rt::mma_bf16(d1, a[i], b[s - i][2], b[s - i][3]);
+    }
+}
+
 // Forward tiling: each warp owns 16 q rows and HD / NSPLIT columns of O
 // (at hd 256 two warps share a row block and both compute its scores).
-template <int HD> struct TcFwd {
+// fp32 (NP > 1): Q's planes stay for the whole kv loop and each stage
+// holds K's and V's, so the tiles shrink to fit (hd 128: BQ 128, BK 32,
+// 208,896 B, one CTA of 8 warps an SM; hd 256: BQ 64, BK 16, 202,752 B).
+template <int HD, int NP> struct TcFwd {
+  static constexpr int NV = NP > 1 ? kVPlanes : 1;  // planes of V
   static constexpr int NSPLIT = HD > 128 ? 2 : 1;
-  static constexpr int BQ = 64, BK = HD > 128 ? 32 : 64;
+  static constexpr int BQ = NP > 1 && HD <= 128 ? 128 : 64;
+  static constexpr int BK = (HD > 128 ? 32 : 64) / (NP > 1 ? 2 : 1);
   static constexpr int THREADS = 32 * (BQ / 16) * NSPLIT;
   static constexpr int LD = HD + 8;  // padded rows: ldmatrix conflict-free
-  // Q, then two stages of (K, V)
-  static constexpr size_t SMEM = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);
+  // Q's planes, then two stages of (K's planes, V's planes)
+  static constexpr size_t SMEM =
+      (size_t)(NP * BQ + 2 * (NP + NV) * BK) * LD * sizeof(bf16);
 };
 
-template <int HD>
-__global__ void __launch_bounds__(TcFwd<HD>::THREADS)
+// NP planes of q and k, TcFwd::NV of v; plane p of q lies p BH Sq HD
+// elements on, of k and v p BKV Skv HD
+template <int HD, int NP>
+__global__ void __launch_bounds__(TcFwd<HD, NP>::THREADS)
 fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int group,
                  int causal, int window, float softcap, float scale,
                  int kv_len) {
-  using C = TcFwd<HD>;
+  using C = TcFwd<HD, NP>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NT = C::THREADS;
+  constexpr int NV = C::NV;
   constexpr int DW = HD / C::NSPLIT;      // O columns per warp
   constexpr int NS = BK / 8, NO = DW / 8;  // n-tiles of S and of O
   extern __shared__ __align__(16) bf16 smem_bf[];
-  bf16* sQ = smem_bf;         // BQ x LD
-  bf16* sKV = sQ + BQ * LD;   // stage s: K at 2 s BK LD, V after it
+  bf16* sQ = smem_bf;              // NP planes of BQ x LD
+  bf16* sKV = sQ + NP * BQ * LD;   // stage s: K's planes, then V's
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -648,11 +583,15 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const int qb = min(q0 + BQ, Sq) - 1;
+  const size_t qps = (size_t)gridDim.x * Sq * HD;
+  const size_t kps = (size_t)(gridDim.x / group) * Skv * HD;
   const bf16* qg = q + (size_t)bh * Sq * HD;
   const bf16* kg = k + (size_t)(bh / group) * Skv * HD;
   const bf16* vg = v + (size_t)(bh / group) * Skv * HD;
 
-  tc_load_rows<BQ, HD, LD, NT>(sQ, qg, q0, Sq);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    tc_load_rows<BQ, HD, LD, NT>(sQ + p * BQ * LD, qg + p * qps, q0, Sq);
   const int tid = threadIdx.x;
   const bool empty = tid < BQ && q0 + tid < Sq &&
                      fa_row_empty(q0 + tid, Skv, causal, window, kv_len);
@@ -667,9 +606,15 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return j;
   };
   auto load_kv = [&](int j, int stage) {
-    bf16* sK = sKV + stage * 2 * BK * LD;
-    tc_load_rows<BK, HD, LD, NT>(sK, kg, j * BK, Skv);
-    tc_load_rows<BK, HD, LD, NT>(sK + BK * LD, vg, j * BK, Skv);
+    bf16* sK = sKV + stage * (NP + NV) * BK * LD;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      tc_load_rows<BK, HD, LD, NT>(sK + p * BK * LD, kg + p * kps, j * BK,
+                                   Skv);
+#pragma unroll
+    for (int p = 0; p < NV; ++p)
+      tc_load_rows<BK, HD, LD, NT>(sK + (NP + p) * BK * LD, vg + p * kps,
+                                   j * BK, Skv);
   };
 
   const float scale2 = scale * kLog2e;
@@ -693,10 +638,11 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       rt::cp_async_wait<0>();
     }
     __syncthreads();  // tile j (and Q) landed for every thread
-    const bf16* sK = sKV + stage * 2 * BK * LD;
-    const bf16* sV = sK + BK * LD;
+    const bf16* sK = sKV + stage * (NP + NV) * BK * LD;
+    const bf16* sV = sK + NP * BK * LD;
 
-    // S = Q K^T: bf16 products are exact in fp32, one pass
+    // S = Q K^T: bf16 products are exact in fp32, one pass; fp32 the
+    // planes' six passes, each k-step's into a fresh fragment
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -704,14 +650,28 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      rt::ldmatrix_x4(a, sQ + tc_a_off(rb, kk * 16, LD));
+      uint32_t a[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        rt::ldmatrix_x4(a[p], sQ + p * BQ * LD + tc_a_off(rb, kk * 16, LD));
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
-        uint32_t b[4];
-        rt::ldmatrix_x4(b, sK + tc_bnk_off(n * 8, kk * 16, LD));
-        rt::mma_bf16(s[n], a, b[0], b[1]);
-        rt::mma_bf16(s[n + 1], a, b[2], b[3]);
+        uint32_t b[NP][4];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          rt::ldmatrix_x4(b[p],
+                          sK + p * BK * LD + tc_bnk_off(n * 8, kk * 16, LD));
+        if constexpr (NP == 1) {
+          mma_planes<NP>(s[n], s[n + 1], a, b);
+        } else {
+          float f[2][4] = {};
+          mma_planes<NP>(f[0], f[1], a, b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] += f[0][e];
+            s[n + 1][e] += f[1][e];
+          }
+        }
       }
     }
 
@@ -763,19 +723,55 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
 
-    // O += P V with P = P_hi + P_lo (two passes; V is exact bf16)
+    // O += P V with P = P_hi + P_lo: two passes against a bf16 V (exact)
+    // into O; against V's planes the passes (i, j) of (P_hi, P_lo) x V's
+    // planes with i + j < NV (five: V's three planes carry it exactly, so
+    // only P's residual remains), into a fresh fragment per kv tile that is
+    // added to O in fp32, so that the tensor cores' rounding toward zero
+    // does not build up over the kv loop
+    if constexpr (NV == 1) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      tc_c_to_a(s, kk, ph, pl);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        tc_c_to_a(s, kk, ph, pl);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          rt::ldmatrix_x4_trans(b, sV + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+          rt::mma_bf16(acc[n], ph, b[0], b[1]);
+          rt::mma_bf16(acc[n], pl, b[0], b[1]);
+          rt::mma_bf16(acc[n + 1], ph, b[2], b[3]);
+          rt::mma_bf16(acc[n + 1], pl, b[2], b[3]);
+        }
+      }
+    } else {
+      uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) tc_c_to_a(s, kk, ph[kk], pl[kk]);
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
-        uint32_t b[4];
-        rt::ldmatrix_x4_trans(b, sV + tc_bkn_off(kk * 16, d0 + n * 8, LD));
-        rt::mma_bf16(acc[n], ph, b[0], b[1]);
-        rt::mma_bf16(acc[n], pl, b[0], b[1]);
-        rt::mma_bf16(acc[n + 1], ph, b[2], b[3]);
-        rt::mma_bf16(acc[n + 1], pl, b[2], b[3]);
+        float f[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t b[NV][4];
+#pragma unroll
+          for (int p = 0; p < NV; ++p)
+            rt::ldmatrix_x4_trans(
+                b[p], sV + p * BK * LD + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+#pragma unroll
+          for (int p = 0; p < NV; ++p)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              rt::mma_bf16(f[h], ph[kk], b[p][2 * h], b[p][2 * h + 1]);
+              if (p + 1 < NV)
+                rt::mma_bf16(f[h], pl[kk], b[p][2 * h], b[p][2 * h + 1]);
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[n][e] += f[0][e];
+          acc[n + 1][e] += f[1][e];
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before its reload
@@ -805,18 +801,27 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // HD / NSPLIT columns of dK and dV (at hd 256 two warps share 16 keys and
 // both compute their S^T and dP^T).  For dQ = dS K (the fused backward)
 // the same warps split the BQ x HD tile into 16-row blocks x DQW columns.
-template <int HD> struct TcBwd {
+// fp32 q, k, v (NP > 1): K's and Q's planes and V's first two fill shared
+// memory (hd 128: 183,808 B, one CTA an SM); at hd 256 the tiles shrink to
+// BK 32, BQ 16 (171,776 B).
+template <int HD, int NP> struct TcBwd {
+  // planes of V, and of Q and K outside the score product
+  static constexpr int NV = NP > 1 ? 2 : 1;
   static constexpr int NSPLIT = HD > 128 ? 2 : 1;
-  static constexpr int BK = 64, BQ = HD > 64 ? 32 : 64;
+  static constexpr bool kSmall = NP > 1 && HD > 128;
+  static constexpr int BK = kSmall ? 32 : 64;
+  static constexpr int BQ = kSmall ? 16 : (HD > 64 ? 32 : 64);
   static constexpr int WARPS = BK / 16 * NSPLIT, THREADS = 32 * WARPS;
   static constexpr int DQW = HD / (WARPS / (BQ / 16));
   static constexpr int LD = HD + 8, LDS = BQ + 8;  // padded bf16 rows
-  // bf16: K, V, two stages of Q, two dO tiles (hi and lo of an fp32 dO,
-  // or two stages of a bf16 one) and, with dQ, dS^T hi and lo; fp32: the
-  // staging tile of an fp32 dO, two stages of (lse, delta)
+  // bf16: K's and V's planes, two stages of Q's planes, two dO tiles (hi
+  // and lo of an fp32 dO, or two stages of a bf16 one) and, with dQ, dS^T
+  // hi and lo; fp32: the staging tile of an fp32 dO, two stages of (lse,
+  // delta)
   template <typename TO, bool kDQ>
   static constexpr size_t smem() {
-    return (size_t)(2 * BK * LD + 4 * BQ * LD + (kDQ ? 2 * BK * LDS : 0)) *
+    return (size_t)((NP + NV) * BK * LD + 2 * NP * BQ * LD + 2 * BQ * LD +
+                    (kDQ ? 2 * BK * LDS : 0)) *
                sizeof(bf16) +
            (size_t)((std::is_same_v<TO, float> ? BQ * HD : 0) + 4 * BQ) *
                sizeof(float);
@@ -824,10 +829,13 @@ template <int HD> struct TcBwd {
 };
 
 // TO float, kDQ: the fused backward (fp32 dO split into hi + lo, dQ summed
-// in kv-tile order through the turn counters).  TO bf16, !kDQ: the dK/dV
-// sweep of the two-sweep backward (dO read as it is; no dS^T tiles, no dQ).
-template <int HD, typename TO, bool kDQ>
-__global__ void __launch_bounds__(TcBwd<HD>::THREADS)
+// in kv-tile order through the turn counters), over bf16 q, k, v (NP 1) or
+// the planes of fp32 ones (NP planes of q and k, of which dK and dQ read
+// the first two, and the first two of v's, laid out as for the
+// forward).  TO bf16, !kDQ, NP 1: the dK/dV sweep of the
+// two-sweep backward (dO read as it is; no dS^T tiles, no dQ).
+template <int HD, typename TO, bool kDQ, int NP>
+__global__ void __launch_bounds__(TcBwd<HD, NP>::THREADS)
 fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const TO* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -836,17 +844,19 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float* __restrict__ dv, int Sq, int Skv, int group,
                  int causal, int window, float softcap, float scale,
                  int kv_len) {
-  using C = TcBwd<HD>;
+  using C = TcBwd<HD, NP>;
   constexpr bool kSplitO = std::is_same_v<TO, float>;
   static_assert(kSplitO || std::is_same_v<TO, bf16>, "dO is fp32 or bf16");
+  static_assert(NP == 1 || (kSplitO && kDQ), "planes: the fused kernel");
+  constexpr int NV = C::NV;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS;
   constexpr int NT = C::THREADS, DW = HD / C::NSPLIT, DQW = C::DQW;
   constexpr int NS = BQ / 8, NO = DW / 8, NQ = DQW / 8;
   extern __shared__ __align__(16) bf16 smem_bf[];
-  bf16* sK = smem_bf;             // BK x LD
-  bf16* sV = sK + BK * LD;        // BK x LD
-  bf16* sQ = sV + BK * LD;        // 2 stages of BQ x LD
-  bf16* sOh = sQ + 2 * BQ * LD;   // dO hi (fp32 dO) or dO stage 0, BQ x LD
+  bf16* sK = smem_bf;             // NP planes of BK x LD
+  bf16* sV = sK + NP * BK * LD;   // NV planes of BK x LD
+  bf16* sQ = sV + NV * BK * LD;   // 2 stages of NP planes of BQ x LD
+  bf16* sOh = sQ + 2 * NP * BQ * LD;  // dO hi (fp32 dO) or dO stage 0
   bf16* sOl = sOh + BQ * LD;      // dO lo (fp32 dO) or dO stage 1
   bf16* sSh = sOl + BQ * LD;      // dS^T hi, BK x LDS (with dQ)
   bf16* sSl = sSh + (kDQ ? BK * LDS : 0);  // dS^T lo
@@ -863,9 +873,20 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.y * BK;  // kv tile 0 (most q tiles) first
   const int kb = min(k0 + BK, Skv) - 1;
   const int nq = (Sq + BQ - 1) / BQ, nu = group * nq;
+  // plane strides of k and v, and of q
+  const size_t kps = (size_t)gridDim.x * Skv * HD;
+  const size_t qps = (size_t)gridDim.x * group * Sq * HD;
 
-  tc_load_rows<BK, HD, LD, NT>(sK, k + (size_t)bkv * Skv * HD, k0, Skv);
-  tc_load_rows<BK, HD, LD, NT>(sV, v + (size_t)bkv * Skv * HD, k0, Skv);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    tc_load_rows<BK, HD, LD, NT>(sK + p * BK * LD,
+                                 k + p * kps + (size_t)bkv * Skv * HD, k0,
+                                 Skv);
+#pragma unroll
+  for (int p = 0; p < NV; ++p)
+    tc_load_rows<BK, HD, LD, NT>(sV + p * BK * LD,
+                                 v + p * kps + (size_t)bkv * Skv * HD, k0,
+                                 Skv);
   // work items (fa_bwd_item_q), skipping the tiles the mask removes
   auto item_q = [&](int u) { return fa_bwd_item_q(u, group, nq); };
   auto next_item = [&](int u) {
@@ -880,8 +901,10 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_q = [&](int u, int stage) {
     const size_t bh = (size_t)bkv * group + u % group;
     const int q0 = item_q(u) * BQ;
-    tc_load_rows<BQ, HD, LD, NT>(sQ + stage * BQ * LD, q + bh * Sq * HD, q0,
-                                 Sq);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      tc_load_rows<BQ, HD, LD, NT>(sQ + (stage * NP + p) * BQ * LD,
+                                   q + p * qps + bh * Sq * HD, q0, Sq);
     const TO* og = dout + bh * Sq * HD;
     if constexpr (kSplitO) {
       for (int e = threadIdx.x; e < BQ * HD / 4; e += NT) {
@@ -939,13 +962,15 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int un = next_item(u + 1);
     if (un < nu) load_q(un, stage ^ 1);  // lands while this item computes
     rt::cp_async_commit();
-    const bf16* sQs = sQ + stage * BQ * LD;
+    const bf16* sQs = sQ + stage * NP * BQ * LD;
     const bf16* sOs = sOh + stage * BQ * LD;  // bf16 dO
     const float* sL = sLD + stage * 2 * BQ;
     const float* sD = sL + BQ;
 
-    // S^T = K Q^T (one pass) and dP^T = V dO^T (dO hi and lo, or the bf16
-    // dO in one pass) for the warp's 16 keys x BQ queries
+    // S^T = K Q^T (one pass; fp32: the planes' six, each k-step's into a
+    // fresh fragment) and dP^T = V dO^T (dO hi and lo, and with V's planes
+    // vl.oh too, or the bf16 dO in one pass) for the warp's 16 keys x BQ
+    // queries
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -953,31 +978,48 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      rt::ldmatrix_x4(ak, sK + tc_a_off(kr, kk * 16, LD));
-      rt::ldmatrix_x4(av, sV + tc_a_off(kr, kk * 16, LD));
+      uint32_t ak[NP][4], av[NV][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        rt::ldmatrix_x4(ak[p], sK + p * BK * LD + tc_a_off(kr, kk * 16, LD));
+#pragma unroll
+      for (int p = 0; p < NV; ++p)
+        rt::ldmatrix_x4(av[p], sV + p * BK * LD + tc_a_off(kr, kk * 16, LD));
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         const int off = tc_bnk_off(n * 8, kk * 16, LD);
-        uint32_t bq[4];
-        rt::ldmatrix_x4(bq, sQs + off);
+        uint32_t bq[NP][4];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          rt::ldmatrix_x4(bq[p], sQs + p * BQ * LD + off);
         if constexpr (kSplitO) {
           uint32_t bh_[4], bl[4];
           rt::ldmatrix_x4(bh_, sOh + off);
           rt::ldmatrix_x4(bl, sOl + off);
-          rt::mma_bf16(s[n], ak, bq[0], bq[1]);
-          rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
-          rt::mma_bf16(dp[n], av, bh_[0], bh_[1]);
-          rt::mma_bf16(dp[n], av, bl[0], bl[1]);
-          rt::mma_bf16(dp[n + 1], av, bh_[2], bh_[3]);
-          rt::mma_bf16(dp[n + 1], av, bl[2], bl[3]);
+          if constexpr (NP == 1) {
+            mma_planes<NP>(s[n], s[n + 1], ak, bq);
+          } else {
+            float f[2][4] = {};
+            mma_planes<NP>(f[0], f[1], ak, bq);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[n][e] += f[0][e];
+              s[n + 1][e] += f[1][e];
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            rt::mma_bf16(dp[n + h], av[0], bh_[2 * h], bh_[2 * h + 1]);
+            rt::mma_bf16(dp[n + h], av[0], bl[2 * h], bl[2 * h + 1]);
+            if constexpr (NV > 1)
+              rt::mma_bf16(dp[n + h], av[1], bh_[2 * h], bh_[2 * h + 1]);
+          }
         } else {
           uint32_t bo[4];
           rt::ldmatrix_x4(bo, sOs + off);
-          rt::mma_bf16(s[n], ak, bq[0], bq[1]);
-          rt::mma_bf16(s[n + 1], ak, bq[2], bq[3]);
-          rt::mma_bf16(dp[n], av, bo[0], bo[1]);
-          rt::mma_bf16(dp[n + 1], av, bo[2], bo[3]);
+          mma_planes<NP>(s[n], s[n + 1], ak, bq);
+          rt::mma_bf16(dp[n], av[0], bo[0], bo[1]);
+          rt::mma_bf16(dp[n + 1], av[0], bo[2], bo[3]);
         }
       }
     }
@@ -1010,7 +1052,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
     // dV += P^T dO (fp32 dO: hi.hi, hi.lo, lo.hi; bf16 dO: P hi, P lo);
-    // dK += dS^T Q (dS hi, lo); with dQ, dS^T hi/lo to shared memory
+    // dK += dS^T Q (dS hi, lo; with Q's planes sh.ql too); with dQ, dS^T
+    // hi/lo to shared memory
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
@@ -1029,10 +1072,12 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < NO; n += 2) {
         const int off = tc_bkn_off(kk * 16, d0 + n * 8, LD);
         if constexpr (kSplitO) {
-          uint32_t oh[4], ol[4], bq[4];
+          uint32_t oh[4], ol[4], bq[NV][4];
           rt::ldmatrix_x4_trans(oh, sOh + off);
           rt::ldmatrix_x4_trans(ol, sOl + off);
-          rt::ldmatrix_x4_trans(bq, sQs + off);
+#pragma unroll
+          for (int p = 0; p < NV; ++p)
+            rt::ldmatrix_x4_trans(bq[p], sQs + p * BQ * LD + off);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float(&dvn)[4] = dv_acc[n + h];
@@ -1040,8 +1085,10 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             rt::mma_bf16(dvn, ph, oh[2 * h], oh[2 * h + 1]);
             rt::mma_bf16(dvn, ph, ol[2 * h], ol[2 * h + 1]);
             rt::mma_bf16(dvn, pl, oh[2 * h], oh[2 * h + 1]);
-            rt::mma_bf16(dkn, sh, bq[2 * h], bq[2 * h + 1]);
-            rt::mma_bf16(dkn, sl, bq[2 * h], bq[2 * h + 1]);
+            rt::mma_bf16(dkn, sh, bq[0][2 * h], bq[0][2 * h + 1]);
+            rt::mma_bf16(dkn, sl, bq[0][2 * h], bq[0][2 * h + 1]);
+            if constexpr (NV > 1)
+              rt::mma_bf16(dkn, sh, bq[1][2 * h], bq[1][2 * h + 1]);
           }
         } else {
           uint32_t bo[4], bq[4];
@@ -1064,7 +1111,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();  // dS^T complete
 
       // this kv tile's dQ contribution dS K for the warp's 16 q rows x DQW
-      // columns, added to dQ in its turn
+      // columns (dS hi, lo; with K's planes ah.kl too), added to dQ in its
+      // turn
       float dqa[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -1077,12 +1125,18 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         rt::ldmatrix_x4_trans(al, sSl + tc_akm_off(kk * 16, qr, LDS));
 #pragma unroll
         for (int n = 0; n < NQ; n += 2) {
-          uint32_t b[4];
-          rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, dq0 + n * 8, LD));
-          rt::mma_bf16(dqa[n], ah, b[0], b[1]);
-          rt::mma_bf16(dqa[n], al, b[0], b[1]);
-          rt::mma_bf16(dqa[n + 1], ah, b[2], b[3]);
-          rt::mma_bf16(dqa[n + 1], al, b[2], b[3]);
+          uint32_t b[NV][4];
+#pragma unroll
+          for (int p = 0; p < NV; ++p)
+            rt::ldmatrix_x4_trans(
+                b[p], sK + p * BK * LD + tc_bkn_off(kk * 16, dq0 + n * 8, LD));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            rt::mma_bf16(dqa[n + h], ah, b[0][2 * h], b[0][2 * h + 1]);
+            rt::mma_bf16(dqa[n + h], al, b[0][2 * h], b[0][2 * h + 1]);
+            if constexpr (NV > 1)
+              rt::mma_bf16(dqa[n + h], ah, b[1][2 * h], b[1][2 * h + 1]);
+          }
         }
       }
       int* turn = turns + bh * nq + item_q(u);
@@ -1131,8 +1185,8 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dQ sweep tiling: the forward's (each warp owns 16 q rows and HD / NSPLIT
 // columns of dQ; at hd 256 two warps share a row block and both compute
 // its S and dP).
-template <int HD> struct TcDq : TcFwd<HD> {
-  using TcFwd<HD>::BQ, TcFwd<HD>::BK, TcFwd<HD>::LD;
+template <int HD> struct TcDq : TcFwd<HD, 1> {
+  using TcFwd<HD, 1>::BQ, TcFwd<HD, 1>::BK, TcFwd<HD, 1>::LD;
   // Q, dO, then two stages of (K, V)
   static constexpr size_t SMEM = (size_t)(2 * BQ + 4 * BK) * LD * sizeof(bf16);
 };
@@ -1306,65 +1360,75 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct FaArgs {
   const void *q, *k, *v, *dout, *lse_in, *delta;
   void *o, *lse, *dq, *dk, *dv;
-  int* turns;  // the fused backward's, one per (bh, q tile)
+  void* planes;  // fp32 q, k, v: the scratch of their planes
+  int* turns;    // the fused backward's, one per (bh, q tile)
   int BH, Sq, Skv, group, causal, window, kv_len;
   float softcap, scale;
   cudaStream_t stream;
 };
 
-// the bf16 kernels copy 16 B at a time: their tensors must be so aligned
+// the tensor-core kernels and the split copy 16 B at a time: their tensors
+// must be so aligned
 bool tc_aligned(std::initializer_list<const void*> ps) {
   for (const void* p : ps)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
 }
 
+// bf16 elements of the planes of fp32 q (nq elements) and k, v (nkv each)
+long long plane_elems(long long nq, long long nkv) {
+  return kQkPlanes * (nq + nkv) + kVPlanes * nkv;
+}
+
+// fp32 q, k, v into their planes in a.planes (q's, then k's, then v's),
+// which a then points at in their place
+cudaError_t split_qkv(FaArgs& a, int hd) {
+  if (!a.planes) return cudaErrorInvalidValue;
+  const long long nq = (long long)a.BH * a.Sq * hd;
+  const long long nkv = (long long)(a.BH / a.group) * a.Skv * hd;
+  bf16* pq = static_cast<bf16*>(a.planes);
+  bf16* pk = pq + kQkPlanes * nq;
+  bf16* pv = pk + kQkPlanes * nkv;
+  const FaSplitQkv s{{{(const float*)a.q, pq, nq, kQkPlanes},
+                      {(const float*)a.k, pk, nkv, kQkPlanes},
+                      {(const float*)a.v, pv, nkv, kVPlanes}}};
+  a.q = pq;
+  a.k = pk;
+  a.v = pv;
+  return fa_split(s, a.stream);
+}
+
 template <typename T, int HD>
-cudaError_t launch_fwd(const FaArgs& a) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    using C = TcFwd<HD>;
-    if (!tc_aligned({a.q, a.k, a.v})) return cudaErrorMisalignedAddress;
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)C::SMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
-    fa_fwd_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (float*)a.o,
-        (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
-        a.scale, a.kv_len);
-  } else {
-    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-    const size_t smem = ((size_t)(BQ + 2 * BK) * (HD + 1) +
-                         (size_t)BQ * (BK + 1)) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + BQ - 1) / BQ, a.BH);
-    fa_fwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (float*)a.o,
-        (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
-        a.scale, a.kv_len);
+cudaError_t launch_fwd(FaArgs a) {
+  constexpr int NP = planes_of<T>;
+  using C = TcFwd<HD, NP>;
+  if (!tc_aligned({a.q, a.k, a.v, a.planes}))
+    return cudaErrorMisalignedAddress;
+  cudaError_t err;
+  if constexpr (NP > 1) {
+    if ((err = split_qkv(a, HD)) != cudaSuccess) return err;
   }
+  err = cudaFuncSetAttribute(fa_fwd_tc_kernel<HD, NP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
+  fa_fwd_tc_kernel<HD, NP><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (float*)a.o,
+      (float*)a.lse, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
+      a.scale, a.kv_len);
   return cudaGetLastError();
 }
 
 // the backward kernels: the fused one, and the two sweeps of the split one
 enum BwdKind { kFused, kDq, kDkv };
 
-// the fused backward's (q tile, kv tile) for one dtype and head dim
-template <typename T, int HD> struct FusedTiles {
-  static constexpr bool kTc = std::is_same_v<T, bf16>;
-  static constexpr int BQ = kTc ? TcBwd<HD>::BQ : FaTiles<HD>::BQ;
-  static constexpr int BK = kTc ? TcBwd<HD>::BK : FaTiles<HD>::BK;
-};
-
 template <typename T, int HD, BwdKind KIND>
-cudaError_t launch_bwd(const FaArgs& a) {
+cudaError_t launch_bwd(FaArgs a) {
   cudaError_t err;
-  if constexpr (std::is_same_v<T, bf16>) {
-    if (!tc_aligned({a.q, a.k, a.v, a.dout})) return cudaErrorMisalignedAddress;
+  if constexpr (std::is_same_v<T, bf16> || KIND == kFused) {
+    if (!tc_aligned({a.q, a.k, a.v, a.dout, a.planes}))
+      return cudaErrorMisalignedAddress;
     if constexpr (KIND == kDq) {
       using C = TcDq<HD>;
       err = cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<HD>,
@@ -1378,17 +1442,22 @@ cudaError_t launch_bwd(const FaArgs& a) {
           (float*)a.dq, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
           a.scale, a.kv_len);
     } else {
-      // the fused backward reads dO in fp32, the dK/dV sweep in bf16
+      // the fused backward reads dO in fp32, the dK/dV sweep in bf16; fp32
+      // q, k, v reach here only for the fused one
       constexpr bool kDQ = KIND == kFused;
+      constexpr int NP = planes_of<T>;
       using TO = std::conditional_t<kDQ, float, bf16>;
-      using C = TcBwd<HD>;
+      using C = TcBwd<HD, NP>;
+      if constexpr (NP > 1) {
+        if ((err = split_qkv(a, HD)) != cudaSuccess) return err;
+      }
       constexpr size_t smem = C::template smem<TO, kDQ>();
-      err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD, TO, kDQ>,
+      err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD, TO, kDQ, NP>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
-      fa_bwd_tc_kernel<HD, TO, kDQ><<<grid, C::THREADS, smem, a.stream>>>(
+      fa_bwd_tc_kernel<HD, TO, kDQ, NP><<<grid, C::THREADS, smem, a.stream>>>(
           (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
           (const TO*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
           (float*)a.dq, a.turns, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv,
@@ -1409,19 +1478,18 @@ cudaError_t launch_bwd(const FaArgs& a) {
         a.Skv, a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
   } else {
     constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-    constexpr bool kDQ = KIND == kFused;
     const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +
                          (size_t)2 * BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-    err = cudaFuncSetAttribute(fa_bwd_kernel<T, HD, kDQ>,
+    err = cudaFuncSetAttribute(fa_bwd_kernel<T, HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.Skv + BK - 1) / BK, a.BH / a.group);
-    fa_bwd_kernel<T, HD, kDQ><<<grid, kThreads, smem, a.stream>>>(
+    fa_bwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
-        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq, a.turns,
-        (float*)a.dk, (float*)a.dv, a.Sq, a.Skv, a.group, a.causal, a.window,
-        a.softcap, a.scale, a.kv_len);
+        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dk,
+        (float*)a.dv, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
+        a.scale, a.kv_len);
   }
   return cudaGetLastError();
 }
@@ -1448,13 +1516,8 @@ bool fused_tiles(int hd, int* bq, int* bk) {
   switch (hd) {
 #define RT_FA_CASE(HD)                                                  \
     case HD:                                                            \
-      if constexpr (std::is_same_v<T, bf16>) {                          \
-        *bq = TcBwd<HD>::BQ;                                            \
-        *bk = TcBwd<HD>::BK;                                            \
-      } else {                                                          \
-        *bq = FaTiles<HD>::BQ;                                          \
-        *bk = FaTiles<HD>::BK;                                          \
-      }                                                                 \
+      *bq = TcBwd<HD, planes_of<T>>::BQ;                                \
+      *bk = TcBwd<HD, planes_of<T>>::BK;                                \
       return true;
     RT_FA_CASE(16) RT_FA_CASE(32) RT_FA_CASE(64) RT_FA_CASE(128)
     RT_FA_CASE(256)
@@ -1486,13 +1549,34 @@ FaArgs bwd_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// bf16 elements of the plane scratch that rt_flash_fwd and rt_flash_bwd
+// take for q (nq elements) and k, v (nkv elements each) of a dtype: none
+// for bf16
+extern "C" long long rt_flash_plane_elems(int dtype, long long nq,
+                                          long long nkv) {
+  return dtype == rt::kFloat32 ? plane_elems(nq, nkv) : 0;
+}
+
+// One fp32 tensor x of n elements (n % 4 == 0, 16-B aligned) into np
+// (1-3) bf16 planes, plane p at planes + p n (fa_split_kernel)
+extern "C" int rt_flash_split(const void* x, void* planes, long long n,
+                              int np, void* stream) {
+  if (n % 4 || np < 1 || np > 3) return (int)cudaErrorInvalidValue;
+  if (!tc_aligned({x, planes})) return (int)cudaErrorMisalignedAddress;
+  const FaSplitQkv s{{{(const float*)x, (bf16*)planes, n, np},
+                      {nullptr, nullptr, 0, 0},
+                      {nullptr, nullptr, 0, 0}}};
+  return (int)fa_split(s, (cudaStream_t)stream);
+}
+
+// planes: rt_flash_plane_elems bf16 elements (null for bf16)
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int dtype, int BH, int Sq,
-                            int Skv, int hd, int group, int causal, int window,
-                            float softcap, float scale, int kv_len,
-                            void* stream) {
+                            void* planes, void* o, void* lse, int dtype,
+                            int BH, int Sq, int Skv, int hd, int group,
+                            int causal, int window, float softcap,
+                            float scale, int kv_len, void* stream) {
   FaArgs a{};
-  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.q = q; a.k = k; a.v = v; a.planes = planes; a.o = o; a.lse = lse;
   a.BH = BH; a.Sq = Sq; a.Skv = Skv; a.group = group; a.causal = causal;
   a.window = window; a.kv_len = kv_len; a.softcap = softcap; a.scale = scale;
   a.stream = (cudaStream_t)stream;
@@ -1510,9 +1594,10 @@ extern "C" int rt_flash_bwd_tiles(int dtype, int hd, int* bq, int* bk) {
 }
 
 // dq and turns (at least BH x ceil(Sq / BQ) ints) zeroed by the caller:
-// the kernel adds each kv tile's dQ into dq in its turn
+// the kernel adds each kv tile's dQ into dq in its turn; planes as for
+// rt_flash_fwd
 extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
+                            void* planes, const void* dout, const void* lse,
                             const void* delta, void* dq, void* dk, void* dv,
                             void* turns, long long n_turns, int dtype, int BH,
                             int Sq, int Skv, int hd, int group, int causal,
@@ -1524,6 +1609,7 @@ extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   FaArgs a = bwd_args(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Skv,
                       group, causal, window, softcap, scale, kv_len, stream);
+  a.planes = planes;
   a.turns = static_cast<int*>(turns);
   return dispatch<kFused>(dtype, hd, a);
 }

@@ -32,9 +32,11 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
-    "rt_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_plane_elems": [_I, _LL, _LL],
+    "rt_flash_split": [_P, _P, _LL, _I, _P],
+    "rt_flash_fwd": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_tiles": [_I, _I, _P, _P],
-    "rt_flash_bwd": [_P] * 10 + [_LL] + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd": [_P] * 11 + [_LL] + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_xent_tc_nsplit": [_I] * 3,
@@ -46,7 +48,8 @@ SIGNATURES = {
     "rt_ssd_intra_bwd_scratch_floats": [_I] * 3,
     "rt_ssd_intra_bwd": [_P] * 13 + [_LL] + [_I] * 5 + [_P],
 }
-RESTYPES = {"rt_ssd_intra_bwd_scratch_floats": _LL}   # others return int
+RESTYPES = {"rt_flash_plane_elems": _LL,   # others return int
+            "rt_ssd_intra_bwd_scratch_floats": _LL}
 
 _lock = threading.Lock()
 _lib = None

@@ -17,8 +17,12 @@ BH = B * Hkv * G kv-major (``bh // G`` is the kv head); k, v, dk, dv
 the two sweeps read it in q's dtype and raise ``TypeError`` on another
 (the plain versions take either).  Each wrapper carries ``launches``, the
 number of kernel launches it made, and ``launches_by_dtype``, the same
-count split by q's dtype (``"bfloat16"``, ``"float32"``): every wrapper
-launches a tensor-core kernel for bf16 and a CUDA-core kernel for fp32.
+count split by q's dtype (``"bfloat16"``, ``"float32"``).  Routes: every
+kernel runs on the tensor cores for bf16; for fp32 the forward and the
+fused backward run the same tensor-core kernels over bf16 planes of q, k
+and v, which a split pre-pass writes into scratch taken here (``_planes``;
+q's dtype sets only the pass count), and the two sweeps run fp32-FMA
+kernels on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -130,14 +134,28 @@ def _check_inputs(q, k, v, group):
                          f"v{tuple(v.shape)} group={group}")
 
 
+def _planes(lib, q, k):
+    """Scratch for the bf16 planes of fp32 q, k and v, which the kernels'
+    split pre-pass writes; None for bf16, which needs none."""
+    n = lib.rt_flash_plane_elems(build.dtype_code(q), q.numel(), k.numel())
+    return torch.empty((n,), dtype=torch.bfloat16, device=q.device) if n \
+        else None
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch_fwd(lib, stream, q, k, v, *, group, causal, window, softcap,
                 scale, kv_len):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     BH, Sq, hd = q.shape
     o = torch.empty((BH, Sq, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    planes = _planes(lib, q, k)
     err = lib.rt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(), build.dtype_code(q),
+                           _ptr(planes), o.data_ptr(), lse.data_ptr(),
+                           build.dtype_code(q),
                            BH, Sq, k.shape[1], hd, group, int(causal),
                            int(window), float(softcap), float(scale),
                            int(kv_len), stream)
@@ -187,8 +205,10 @@ def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
     BH, Sq, hd = q.shape
     n = BH * -(-Sq // fused_bwd_tiles(lib, q)[0])
     turns = torch.zeros(n, dtype=torch.int32, device=q.device)
-    err = lib.rt_flash_bwd(*(t.data_ptr() for t in ops + (dq, dk, dv)),
-                           turns.data_ptr(), n,
+    planes = _planes(lib, q, k)
+    ptrs = [t.data_ptr() for t in ops + (dq, dk, dv)]
+    ptrs.insert(3, _ptr(planes))   # after q, k, v
+    err = lib.rt_flash_bwd(*ptrs, turns.data_ptr(), n,
                            *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_fused")
     return dq, dk, dv

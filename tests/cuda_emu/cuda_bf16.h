@@ -6,6 +6,8 @@ struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};

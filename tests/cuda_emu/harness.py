@@ -29,16 +29,19 @@ def compiler():
     return shutil.which("g++")
 
 
-def build_library(out: pathlib.Path):
+def build_library(out: pathlib.Path, patch=None):
     """Compile every kernel source into ``out`` and return the bound
-    library (``build.bind``)."""
+    library (``build.bind``).  ``patch(name, text)``, where given, returns
+    the text to compile for source ``name`` (a variant of the kernels)."""
     cxx = compiler()
     flags = ["-std=c++20", "-O2", "-fPIC", "-pthread", "-w", f"-I{EMU}",
              f"-I{build.CSRC}"]
     objs, procs = [], []
     for name in build.SOURCES:
-        src = LAUNCH.sub(r"emu_launch(\1, \2, ",
-                         (build.CSRC / name).read_text())
+        src = (build.CSRC / name).read_text()
+        if patch is not None:
+            src = patch(name, src)
+        src = LAUNCH.sub(r"emu_launch(\1, \2, ", src)
         src = SHARED.sub(r"\1* \2 = (\1*)emu_dyn;", src)
         path = out / (name + ".cpp")
         path.write_text(src)

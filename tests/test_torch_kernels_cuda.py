@@ -8,9 +8,11 @@ fixture).  Needs no JAX, so it runs on a machine that has only PyTorch:
 Inputs in fp32 are compared at 1e-5 (forward) and 1e-4 (grads) relative
 to the output's scale: the kernels sum in another order than the plain
 versions.  No kernel has atomics (the fused attention backward adds the
-kv tiles' dQ in place in kv-tile order, each in its turn), so both
-attention backwards and the
-SSD forward and backward must repeat bit for bit.  Both SSD
+kv tiles' dQ in place in kv-tile order, each in its turn), so the
+attention forward, both attention backwards and the
+SSD forward and backward must repeat bit for bit.  The attention forward
+and fused backward run on the tensor cores for fp32 q, k, v too, over
+three bf16 planes of each.  Both SSD
 kernels run every product on the tensor cores (bf16 ``mma.sync``, each
 fp32 operand split into bf16 planes: three planes and six passes
 forward, two and three backward), so they are also checked with operands
@@ -66,6 +68,13 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     (2, 2, 100, 180, 64, True, 40, 50.0, torch.bfloat16),  # Skv > Sq, kv_len
     (1, 2, 150, 60, 32, True, 8, 0.0, torch.bfloat16),     # no valid key
     (2, 2, 150, 150, 256, True, 64, 50.0, torch.bfloat16),  # hd 256
+    # fp32 on the tensor cores (q, k, v in bf16 planes): hd 128 with and
+    # without the causal mask, hd 64 with Skv > Sq, window and softcap, hd
+    # 256 with window and softcap
+    (2, 2, 200, 200, 128, True, 0, 0.0, torch.float32),
+    (2, 2, 300, 300, 128, False, 0, 0.0, torch.float32),
+    (2, 2, 100, 160, 64, True, 32, 30.0, torch.float32),  # kv_len, hd 64
+    (1, 2, 400, 400, 256, True, 256, 50.0, torch.float32),
 ]
 
 
@@ -85,6 +94,8 @@ def test_flash_kernels_match_plain(cuda, case):
     o_p, lse_p = FK.flash_fwd_plain(q, k, v, **kw)
     _close(o, o_p, 1e-5)
     _close(lse, lse_p, 1e-5)
+    o2, lse2 = FK.flash_fwd(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32,
                       device=cuda)
     delta = torch.sum(do * o_p, dim=-1)

@@ -1,6 +1,9 @@
 """The CUDA kernel sources compiled for the host and run on the CPU,
-against their plain versions: flash attention here, the SSD and
-cross-entropy kernels in ``test_torch_kernels_emulated_ssd_xent.py``.
+against their plain versions: flash attention here (the fp32 route's own
+tiles, large scores and its split pre-pass in
+``test_torch_kernels_emulated_fa32.py``), the SSD and cross-entropy
+kernels in ``test_torch_kernels_emulated_ssd_xent.py`` and
+``test_torch_kernels_emulated_xent.py``.
 
 ``src/repro_torch/csrc/*.cu`` are portable CUDA C++ apart from the PTX
 helpers of ``csrc/tensor_core.cuh`` (mma.sync, ldmatrix, cp.async), which
@@ -10,12 +13,14 @@ with g++ against the stub headers in ``tests/cuda_emu``.  Each block
 runs as its launch's threads, the blocks one after another.  This checks
 the kernels' indexing, masking, tile skipping, online statistics, the
 fused backward's dQ turns and the tensor-core fragment layouts of the
-bf16 attention kernels here; the real compiler and the timings are
-checked on the card (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).
-Skips without g++.  Tolerances (fp32 accumulation in another order; on
-the tensor-core routes each fp32 operand also carries the ~2^-17
-relative residual of its bf16 hi/lo split): 1e-5 forward, 1e-4 grads,
-relative to the output's scale.
+attention kernels here (the forward and the fused backward on the tensor
+cores for both dtypes, fp32 q, k, v through their bf16 planes); the real
+compiler and the timings are checked on the card
+(``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
+Tolerances (fp32 accumulation in another order; on the tensor-core
+routes each fp32 operand also carries the residual of its bf16 planes,
+~2^-17 relative for hi/lo): 1e-5 forward, 1e-4 grads, relative to the
+output's scale.
 """
 
 import numpy as np
@@ -55,18 +60,27 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
 ]
 
 
-@pytest.mark.parametrize("case", FA, ids=str)
-def test_flash_kernels_emulated(lib, case):
+def _inputs(case, rng, q_scale=1.0):
+    """q, k, v and the kernels' keywords of an FA row, from rng."""
     BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
-    rng = np.random.default_rng(0)
     q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt)
                for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
     kw = dict(group=G, causal=causal, window=window, softcap=cap,
               scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
+    return (q * q_scale).to(dt), k, v, kw
+
+
+def _check_fwd_fused(lib, case, seed, q_scale=1.0):
+    """The forward (twice, bit-identical) and the fused backward (twice,
+    bit-identical) against their plain versions."""
+    rng = np.random.default_rng(seed)
+    q, k, v, kw = _inputs(case, rng, q_scale)
     o, lse = FK._launch_fwd(lib, 0, q, k, v, **kw)
     o_p, lse_p = FK.flash_fwd_plain(q, k, v, **kw)
     _close(o, o_p, 1e-5)
     _close(lse, lse_p, 1e-5)
+    o2, lse2 = FK._launch_fwd(lib, 0, q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32)
     delta = torch.sum(do * o_p, dim=-1)
     got = FK._launch_bwd(lib, 0, q, k, v, do, lse_p, delta, **kw)
@@ -79,15 +93,16 @@ def test_flash_kernels_emulated(lib, case):
 
 
 @pytest.mark.parametrize("case", FA, ids=str)
-def test_flash_split_kernels_emulated(lib, case):
+def test_flash_kernels_emulated(lib, case):
+    _check_fwd_fused(lib, case, 0)
+
+
+def _check_split(lib, case):
     """The two sweeps of the split backward (no atomics) against their
     plain versions; dO in q's dtype, as the sweeps read it."""
-    BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
+    dt = case[-1]
     rng = np.random.default_rng(2)
-    q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt)
-               for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
-    kw = dict(group=G, causal=causal, window=window, softcap=cap,
-              scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
+    q, k, v, kw = _inputs(case, rng)
     o, lse = FK.flash_fwd_plain(q, k, v, **kw)
     do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32).to(dt)
     delta = torch.sum(do.float() * o, dim=-1)
@@ -97,6 +112,11 @@ def test_flash_split_kernels_emulated(lib, case):
     want = FK.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("case", FA, ids=str)
+def test_flash_split_kernels_emulated(lib, case):
+    _check_split(lib, case)
 
 
 def _tile_masked(qa, qb, ka, kb, causal, window, kv_len):
@@ -111,6 +131,11 @@ def _tile_masked(qa, qb, ka, kb, causal, window, kv_len):
     (1, 2, 192, 192, 16, True, 40, 0.0, torch.float32),  # window band
     FA[11], FA[12],                                      # bf16, same
     (1, 2, 160, 160, 32, True, 48, 0.0, torch.bfloat16),  # band, bf16
+    # fp32 on the tensor cores: hd 128, and hd 256's own tiles (BQ 16,
+    # BK 32) under the causal triangle and a window band
+    (1, 2, 160, 160, 128, True, 0, 0.0, torch.float32),
+    (1, 1, 112, 112, 256, True, 0, 0.0, torch.float32),
+    (1, 2, 96, 96, 256, True, 40, 0.0, torch.float32),
 ], ids=str)
 def test_flash_fused_bwd_passes_every_turn(lib, case):
     """The fused backward's dQ turns: each kv tile the mask leaves a q tile
@@ -135,8 +160,10 @@ def test_flash_fused_bwd_passes_every_turn(lib, case):
     bq, bk = FK.fused_bwd_tiles(lib, q)
     nq, nk = -(-Sq // bq), -(-Skv // bk)
     turns = torch.zeros(BH * nq, dtype=torch.int32)
-    assert lib.rt_flash_bwd(*(t.data_ptr() for t in ops + (dq, dk, dv)),
-                            turns.data_ptr(), BH * nq,
+    planes = FK._planes(lib, q, k)   # fp32 q, k, v: their bf16 planes
+    ptrs = [t.data_ptr() for t in ops + (dq, dk, dv)]
+    ptrs.insert(3, FK._ptr(planes))
+    assert lib.rt_flash_bwd(*ptrs, turns.data_ptr(), BH * nq,
                             *FK._bwd_scalars(q, k, **kw), None) == 0
     for a, b in zip((dq, dk, dv), want):
         assert torch.equal(a, b)
