@@ -17,10 +17,10 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    the main attention shape in fp32 (the instantiations that the split
    step's fp32 pass and the fp32 smoke configs run: the forward and the
    fused backward on the tensor cores over three bf16 planes of q, k and
-   v, their bounds restated for their passes by ``split_bound``, the
-   fp32-FMA bound beside it on the "timing" line; the sweeps on the CUDA
-   cores), the gemma2-style and the ragged cases in fp32 too, and a small
-   odd SSD case (the fused
+   v, the two sweeps too, their bounds restated for their passes by
+   ``split_bound``, the fp32-FMA bound beside it on the "timing" line),
+   the gemma2-style and the ragged cases in fp32 too, and a small odd SSD
+   case (the fused
    backward gets an fp32 dO, the split sweeps dO in q's dtype); xent, on
    the tensor cores, with a bf16 h and an fp32 w at the qwen3 shape
    (untied), the tied auxiliary shape (T 2044), gemma2's softcap case (T
@@ -36,8 +36,8 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    and its bound restated for the tensor cores (3 bf16 passes; the
    fp32-FMA bound beside it on the "timing" line, as for xent).
    The build prints ptxas's registers, spills and static shared memory of
-   the tensor-core attention and xent kernels, their split pre-passes and
-   the SSD kernels.
+   the attention and xent kernels (all on the tensor cores), their split
+   pre-passes and the SSD kernels.
 4. References: the launcher's path on the qwen3-1.7b and mamba2-370m smoke
    configs from the same initial states on the card (kernels) and on the
    CPU (plain versions); the histories must agree.
@@ -96,9 +96,8 @@ seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5, 7 and 8, ``launches_by_path`` each run's
 count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
-dtype (the forward and the fused backward on the tensor cores over bf16
-planes, with their bf16 pass count and fp32-FMA bound; the two sweeps on
-the CUDA cores); the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
+dtype (every one on the tensor cores over bf16 planes, with its bf16
+pass count and fp32-FMA bound); the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
 tensor cores, counted by h's dtype; the xent rows add their bf16 pass
 count, the fp32-FMA bound for comparison and their times at the mamba2
 shape), the card line and,
@@ -217,20 +216,24 @@ REPEATS = 5              # attention: measurements per time, median kept
 WARMUP = 3               # attention: untimed calls before them
 ITERS_XENT = 2
 ITERS_SSD = 10
-# kernels whose ptxas report the build phase prints: the xent tensor-core
-# kernels, the split pre-pass and the SSD forward and backward
-PTXAS_REPORT = ("fa_fwd_tc_", "fa_bwd_tc_", "fa_split_", "xent_tc_",
-                "xent_split_", "ssd_y_", "ssd_state_", "ssd_bwd_")
+# kernels whose ptxas report the build phase prints: the attention and
+# xent tensor-core kernels, their split pre-passes and the SSD forward and
+# backward
+PTXAS_REPORT = ("fa_fwd_tc_", "fa_bwd_tc_", "fa_bwd_dq_tc_", "fa_split_",
+                "xent_tc_", "xent_split_", "ssd_y_", "ssd_state_",
+                "ssd_bwd_")
 # bf16 mma passes a product of the SSD kernels takes: the forward splits
 # each fp32 operand into three bf16 planes (held to 1e-5), the backward
 # into two (held to 1e-4); csrc/ssd_chunk.cu
 SSD_FWD_PASSES, SSD_BWD_PASSES = 6, 3
-# bf16 mma passes of the fp32 attention forward and fused backward, each
-# over one product of 2 hd flops an unmasked pair: q, k and v in three
-# planes; the forward's S = Q K^T 6 (i + j <= 2) and O += P V 5 (P hi/lo
-# against v's three), the backward's S 6 and dP, dV, dK, dQ 3 each (hi/lo
-# of both operands); csrc/flash_attention.cu
+# bf16 mma passes of the fp32 attention kernels, each over one product of
+# 2 hd flops an unmasked pair: q, k and v in three planes; the forward's S
+# = Q K^T 6 (i + j <= 2) and O += P V 5 (P hi/lo against v's three), the
+# backwards' S 6 and every other product 3 (hi/lo of both operands): fused
+# dP, dV, dK, dQ; dQ sweep dP, dQ; dK/dV sweep dP, dV, dK;
+# csrc/flash_attention.cu
 FA_FWD_PASSES, FA_BWD_PASSES = 6 + 5, 6 + 4 * 3
+FA_DQ_PASSES, FA_DKV_PASSES = 6 + 3 + 3, 6 + 3 * 3
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # split backward against fused, relative to each gradient leaf's scale
@@ -385,16 +388,21 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
         # the tensor-core instantiations: their passes over the planes,
         # beside the softmax's elementwise work (about 4 ops a pair
         # forward, 6 backward)
-        fwd_bytes = in_bytes + BH * S * (hd + 1) * 4
-        bwd_bytes = bwd_in["flash_bwd_fused"] + out_bytes["flash_bwd_fused"]
-        for name, n_products, ew, nbytes, passes in (
-                ("flash_fwd", 2, 4, fwd_bytes, FA_FWD_PASSES),
-                ("flash_bwd_fused", 5, 6, bwd_bytes, FA_BWD_PASSES)):
+        passes = {"flash_fwd": FA_FWD_PASSES,
+                  "flash_bwd_fused": FA_BWD_PASSES,
+                  "flash_bwd_dq": FA_DQ_PASSES,
+                  "flash_bwd_dkv": FA_DKV_PASSES}
+        nbytes = {"flash_fwd": in_bytes + BH * S * (hd + 1) * 4,
+                  **{name: bwd_in[name] + out_bytes[name] for name in bwd}}
+        n_products = {"flash_fwd": 2, **products}
+        for name in passes:
+            ew = 4 if name == "flash_fwd" else 6
             # split_bound over one product's flops with every pass of the
             # kernel; its fp32-FMA bound over all the products
-            bms, by, n, _ = split_bound(2 * hd * pairs, ew * pairs, nbytes,
-                                        passes)
-            fma_ms = bound_ms(nbytes, (2 * n_products * hd + ew) * pairs,
+            bms, by, n, _ = split_bound(2 * hd * pairs, ew * pairs,
+                                        nbytes[name], passes[name])
+            fma_ms = bound_ms(nbytes[name],
+                              (2 * n_products[name] * hd + ew) * pairs,
                               torch.float32)[0]
             res[name].update(bound=(bms, by), bound_passes=n,
                              bound_fp32_fma_ms=fma_ms)

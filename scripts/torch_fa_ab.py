@@ -8,10 +8,9 @@ Each TREE is the root of a checkout that has ``chip_smoke.py`` and
 ``src/repro_torch``; each runs in its own process, so each imports (and
 builds) its own kernels.  At B 8, S 512, Hkv 8, G 2, hd 128, causal, with
 inputs from seed 0: ``flash_fwd``, ``flash_bwd_fused``, ``flash_bwd_dq``
-and ``flash_bwd_dkv`` in bf16, and ``flash_fwd`` and ``flash_bwd_fused``
-in fp32, each timed with CUDA events (``chip_smoke.time_median``: the
-median of its ``REPEATS`` measurements of ``ITERS_ATTENTION`` calls
-after ``WARMUP``), and, where the tree has it, the fp32 split pre-pass
+and ``flash_bwd_dkv`` in bf16 and in fp32, each timed with CUDA events
+(``chip_smoke.time_median``: the median of its ``REPEATS`` measurements
+of ``ITERS_ATTENTION`` calls after ``WARMUP``), and, where the tree has it, the fp32 split pre-pass
 alone (``rt_flash_split`` over q, k and v).  Prints one JSON line per
 tree with the times (ms, [min, max]) and the card (nvidia-smi name,
 power limit).  ``--sass DIR`` also writes ``cuobjdump -sass`` of the
@@ -54,12 +53,11 @@ for dt in (torch.bfloat16, torch.float32):
     delta_q = torch.sum(do_q.float() * o, dim=-1)
     fns = {{"flash_fwd": lambda: FK.flash_fwd(q, k, v, **kw),
            "flash_bwd_fused": lambda: FK.flash_bwd_fused(
-               q, k, v, do, lse, delta, **kw)}}
-    if dt == torch.bfloat16:
-        fns["flash_bwd_dq"] = lambda: FK.flash_bwd_dq(
-            q, k, v, do_q, lse, delta_q, **kw)
-        fns["flash_bwd_dkv"] = lambda: FK.flash_bwd_dkv(
-            q, k, v, do_q, lse, delta_q, **kw)
+               q, k, v, do, lse, delta, **kw),
+           "flash_bwd_dq": lambda: FK.flash_bwd_dq(
+               q, k, v, do_q, lse, delta_q, **kw),
+           "flash_bwd_dkv": lambda: FK.flash_bwd_dkv(
+               q, k, v, do_q, lse, delta_q, **kw)}}
     lib = build.load()
     if dt == torch.float32 and hasattr(lib, "rt_flash_split"):
         planes = torch.empty(3 * (q.numel() + 2 * k.numel()),

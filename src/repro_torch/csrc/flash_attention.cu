@@ -21,12 +21,12 @@
 //
 // What bounds it on the H100: at the main path's shapes (S = 512, hd = 128)
 // attention does ~2*S*hd flops per loaded q/k/v element, so its floor is
-// the bf16 tensor cores' rate together with the bytes it must move (the
-// bytes bound is the larger at this shape, for every kernel here, the two
-// sweeps too).  The forward and the fused backward run on the tensor cores
-// for both dtypes; the two sweeps do for bf16 only:
+// the bf16 tensor cores' rate together with the bytes it must move (for
+// bf16 the bytes bound is the larger at this shape; fp32's passes, below,
+// make the operations the larger).  Every kernel runs on the tensor cores
+// for both dtypes; no attention product runs as fp32 FMAs:
 //
-// bf16 q, k, v (the main path): every kernel runs on the tensor cores
+// bf16 q, k, v (the main path): the three tensor-core kernels
 // (fa_fwd_tc_kernel, fa_bwd_tc_kernel, fa_bwd_dq_tc_kernel;
 // tensor_core.cuh): warp-level mma.sync m16n8k16 bf16 -> fp32 with
 // operands read from shared memory by ldmatrix (.trans for V, dO, Q and K
@@ -50,8 +50,8 @@
 // of two n-tiles is the A fragment of one k-step); the fused kernel's
 // dS^T goes through shared memory once, for dQ.
 //
-// fp32 q, k, v, forward and fused backward: the same two kernels, with
-// every fp32 operand in bf16 planes (TF32 would miss the fp32 checks).  A
+// fp32 q, k, v: the same three kernels, with every fp32 operand in bf16
+// planes (TF32 would miss the fp32 checks).  A
 // pre-pass (fa_split_kernel) writes each of q, k and v as three planes,
 // x = p0 + p1 + p2 exactly, each the round to nearest of what the planes
 // before it leave, so p0 + p1 is split_bf16x2's hi + lo (~2^-17 |x|); the
@@ -63,22 +63,20 @@
 // forward's 1e-5 check on o (PERF.md, scripts/torch_emu_fa_error.py).
 // The forward's O += P V takes five passes (P hi/lo against V's three
 // planes, i + j <= 2), into a fresh fragment per kv tile: V in hi/lo
-// alone left ~2^-17 of V in o, within 1.5x of the check.  The fused
-// backward's other products take three passes (hi.hi, hi.lo, lo.hi) of
-// planes 0 and 1 of both operands: dP = dO V^T, dV += P^T dO, dK += dS^T
-// Q, dQ += dS K.  The planes fill shared memory, so the fp32 tiles differ
-// (TcFwd, TcBwd).  What bounds them: at the main shape the passes (11
-// forward, 18 backward, each over 2 hd flops an unmasked pair: 0.048 and
-// 0.078 ms at the bf16 rate) outweigh the bytes (0.030, 0.050 ms).
-//
-// The two sweeps in fp32 are fp32-FMA kernels on the CUDA cores (tiles of
-// Q/K/V/dO in shared memory, converted to fp32 once per tile load; each
-// thread owns a 16 x 16-strided block of every tile product; rows of
-// padded stride hd + 1 keep the shared-memory walks bank-conflict free).
+// alone left ~2^-17 of V in o, within 1.5x of the check.  The backward's
+// other products take three passes (hi.hi, hi.lo, lo.hi) of planes 0 and
+// 1 of both operands: dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K,
+// with the fp32 dO (the sweeps read it in q's dtype) split into hi and lo
+// in the kernel: fused S 6 + 4 x 3 = 18 passes, dQ sweep S 6 + dP 3 + dQ 3
+// = 12, dK/dV sweep S 6 + 3 x 3 = 15.  The planes fill shared memory, so
+// the fp32 tiles differ (TcFwd, TcBwd, TcDq).  What bounds them: at the
+// main shape the passes (11 forward, 18 fused, 12 and 15 the sweeps, each
+// over 2 hd flops an unmasked pair: 0.048, 0.078, 0.052 and 0.065 ms at
+// the bf16 rate) outweigh the bytes (0.030, 0.050, 0.040 and 0.040 ms).
 //
 // All skip kv tiles that the mask removes entirely (causal upper
 // triangle, outside the window, past kv_len), which the TPU's sequential
-// grid could not do.  The bf16 kernels order their grids so that the
+// grid could not do.  They order their grids so that the
 // heaviest CTAs under the causal mask start first (last q tiles in the
 // forward and the dQ sweep, first kv tiles in the backward).
 //
@@ -105,11 +103,10 @@
 // the sum the reference's partials strategy forms).
 //
 // Two-sweep backward, deterministic: the dK/dV sweep is the fused kernel's
-// loop without its dQ (for bf16 fa_bwd_tc_kernel with kDQ = false, also
-// without the dS^T tiles and with dO read as it is; for fp32
-// fa_bwd_kernel); the dQ sweep runs one CTA per (bh, q tile) that
-// loops over the kv tiles the mask leaves, recomputes P and dS for each,
-// keeps dQ in registers and writes it once.  Neither sweep has atomics, so
+// loop without its dQ (fa_bwd_tc_kernel with kDQ = false: no dS^T tiles,
+// no turns, dO read in q's dtype); the dQ sweep runs one CTA per (bh, q
+// tile) that loops over the kv tiles the mask leaves, recomputes P and dS
+// for each, keeps dQ in registers and writes it once.  Neither sweep has atomics, so
 // both give bit-identical results run to run, at the price of recomputing
 // P (and dP) twice.  In the backward a masked P is exactly zero, so
 // skipping a fully masked tile is exact for every row, rows with no valid
@@ -125,12 +122,6 @@ namespace {
 
 using rt::kNegInf;
 using rt::kThreads;
-using rt::to_f32;
-
-// (BQ, BK) per head dim: shared memory stays under 227 KB and the
-// per-thread register blocks stay small.
-template <int HD> struct FaTiles { static constexpr int BQ = 64, BK = 64; };
-template <> struct FaTiles<256> { static constexpr int BQ = 32, BK = 32; };
 
 __device__ __forceinline__ bool fa_keep(int qp, int kp, int causal,
                                         int window, int kv_len) {
@@ -179,263 +170,10 @@ __device__ __forceinline__ bool fa_row_empty(int q, int Skv, int causal,
   return lo > hi;
 }
 
-// One (q tile, kv tile) of the backward: P = exp(softcap(scale * Q K^T) -
-// lse), masked to exact zeros, into sP (when given) and dS = P * (dO V^T -
-// delta) * softcap chain * scale into sS.  Thread (ty, tx) owns rows
-// ty * RQ + r and columns tx + 16 c of both tiles.
-template <int HD, int BQ, int BK>
-__device__ __forceinline__ void bwd_p_ds(
-    const float* sQ, const float* sO, const float* sK, const float* sV,
-    const float* sL, const float* sD, float* sP, float* sS, int q0, int k0,
-    int Sq, int causal, int window, int kv_len, float softcap, float scale) {
-  constexpr int LD = HD + 1, LP = BK + 1, RQ = BQ / 16, CK = BK / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[RQ][CK], dp[RQ][CK];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r)
-#pragma unroll
-    for (int c = 0; c < CK; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float kv[CK], vv[CK];
-#pragma unroll
-    for (int c = 0; c < CK; ++c) {
-      kv[c] = sK[(tx + 16 * c) * LD + d];
-      vv[c] = sV[(tx + 16 * c) * LD + d];
-    }
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const float qv = sQ[(ty * RQ + r) * LD + d] * scale;
-      const float ov = sO[(ty * RQ + r) * LD + d];
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        s[r][c] += qv * kv[c];
-        dp[r][c] += ov * vv[c];  // dP = dO V^T
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int rl = ty * RQ + r;
-    const int qp = q0 + rl;
-#pragma unroll
-    for (int c = 0; c < CK; ++c) {
-      float x = s[r][c], chain = 1.f;
-      if (softcap != 0.f) {
-        x = tanhf(x / softcap) * softcap;
-        const float u = x / softcap;
-        chain = 1.f - u * u;  // d softcap / d s_raw
-      }
-      const bool ok =
-          qp < Sq && fa_keep(qp, k0 + tx + 16 * c, causal, window, kv_len);
-      const float p = ok ? expf(x - sL[rl]) : 0.f;
-      if (sP) sP[rl * LP + tx + 16 * c] = p;
-      sS[rl * LP + tx + 16 * c] = p * (dp[r][c] - sD[rl]) * chain * scale;
-    }
-  }
-}
-
-// dK/dV sweep of the two-sweep backward for fp32 q, k, v: one CTA per
-// (bkv, kv tile) loops over the group's heads and the q tiles the mask
-// leaves, with dK and dV in registers; written once.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-              int group, int causal, int window, float softcap, float scale,
-              int kv_len) {
-  constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-  constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RK = BK / 16, CD = HD / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;            // BK x LD
-  float* sV = sK + BK * LD;    // BK x LD
-  float* sQ = sV + BK * LD;    // BQ x LD (unscaled)
-  float* sO = sQ + BQ * LD;    // BQ x LD (dO)
-  float* sP = sO + BQ * LD;    // BQ x LP
-  float* sS = sP + BQ * LP;    // BQ x LP (dS)
-  float* sL = sS + BQ * LP;    // BQ (lse)
-  float* sD = sL + BQ;         // BQ (delta)
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int kb = min(k0 + BK, Skv) - 1;
-  const T* kg = k + (size_t)bkv * Skv * HD;
-  const T* vg = v + (size_t)bkv * Skv * HD;
-  for (int e = tid; e < BK * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    const bool in = k0 + r < Skv;
-    sK[r * LD + c] = in ? to_f32(kg[(size_t)(k0 + r) * HD + c]) : 0.f;
-    sV[r * LD + c] = in ? to_f32(vg[(size_t)(k0 + r) * HD + c]) : 0.f;
-  }
-
-  float dk_acc[RK][CD], dv_acc[RK][CD];
-#pragma unroll
-  for (int r = 0; r < RK; ++r)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int u = 0; u < group * nq; ++u) {
-    const int g = u % group, iq = fa_bwd_item_q(u, group, nq);
-    const int q0 = iq * BQ;
-    if (fa_tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, kb, causal, window,
-                       kv_len))
-      continue;  // uniform over the block; the tile adds exact zeros
-    const size_t bh = (size_t)bkv * group + g;
-    const T* qg = q + bh * Sq * HD;
-    const float* og = dout + bh * Sq * HD;
-    __syncthreads();  // previous smem reads done (and sK/sV loaded)
-    for (int e = tid; e < BQ * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD;
-      const bool in = q0 + r < Sq;
-      sQ[r * LD + c] = in ? to_f32(qg[(size_t)(q0 + r) * HD + c]) : 0.f;
-      sO[r * LD + c] = in ? og[(size_t)(q0 + r) * HD + c] : 0.f;
-    }
-    if (tid < BQ) {
-      const bool in = q0 + tid < Sq;
-      sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
-      sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    bwd_p_ds<HD, BQ, BK>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, causal,
-                         window, kv_len, softcap, scale);
-    __syncthreads();  // sP, sS complete
-
-    // dV += P^T dO ; dK += dS^T Q
-    for (int i = 0; i < BQ; ++i) {
-      float ov[CD], qv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        ov[c] = sO[i * LD + tx + 16 * c];
-        qv[c] = sQ[i * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < RK; ++r) {
-        const float pv = sP[i * LP + ty * RK + r];
-        const float sv = sS[i * LP + ty * RK + r];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          dv_acc[r][c] += pv * ov[c];
-          dk_acc[r][c] += sv * qv[c];
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int row = k0 + ty * RK + r;
-    if (row < Skv) {
-      float* dkg = dk + ((size_t)bkv * Skv + row) * HD;
-      float* dvg = dv + ((size_t)bkv * Skv + row) * HD;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        dkg[tx + 16 * c] = dk_acc[r][c];
-        dvg[tx + 16 * c] = dv_acc[r][c];
-      }
-    }
-  }
-}
-
-// dQ sweep of the two-sweep backward: one CTA per (bh, q tile) loops over
-// the kv tiles the mask leaves, with dQ in registers; written once.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int Sq, int Skv, int group, int causal, int window,
-                 float softcap, float scale, int kv_len) {
-  constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-  constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, CD = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x LD (unscaled)
-  float* sO = sQ + BQ * LD;    // BQ x LD (dO)
-  float* sK = sO + BQ * LD;    // BK x LD
-  float* sV = sK + BK * LD;    // BK x LD
-  float* sS = sV + BK * LD;    // BQ x LP (dS)
-  float* sL = sS + BQ * LP;    // BQ (lse)
-  float* sD = sL + BQ;         // BQ (delta)
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int qb = min(q0 + BQ, Sq) - 1;
-  const T* qg = q + bh * Sq * HD;
-  const float* og = dout + bh * Sq * HD;
-  const T* kg = k + (bh / group) * Skv * HD;
-  const T* vg = v + (bh / group) * Skv * HD;
-  for (int e = tid; e < BQ * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    const bool in = q0 + r < Sq;
-    sQ[r * LD + c] = in ? to_f32(qg[(size_t)(q0 + r) * HD + c]) : 0.f;
-    sO[r * LD + c] = in ? og[(size_t)(q0 + r) * HD + c] : 0.f;
-  }
-  if (tid < BQ) {
-    const bool in = q0 + tid < Sq;
-    sL[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
-    sD[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
-  }
-
-  float dq_acc[RQ][CD];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dq_acc[r][c] = 0.f;
-
-  const int nk = (Skv + BK - 1) / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    if (fa_tile_masked(q0, qb, k0, min(k0 + BK, Skv) - 1, causal, window,
-                       kv_len))
-      continue;  // uniform over the block; the tile adds exact zeros
-    __syncthreads();  // previous tile's sK/sS reads done (and sQ/sO loaded)
-    for (int e = tid; e < BK * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD;
-      const bool in = k0 + r < Skv;
-      sK[r * LD + c] = in ? to_f32(kg[(size_t)(k0 + r) * HD + c]) : 0.f;
-      sV[r * LD + c] = in ? to_f32(vg[(size_t)(k0 + r) * HD + c]) : 0.f;
-    }
-    __syncthreads();
-    bwd_p_ds<HD, BQ, BK>(sQ, sO, sK, sV, sL, sD, nullptr, sS, q0, k0, Sq,
-                         causal, window, kv_len, softcap, scale);
-    __syncthreads();  // sS complete
-
-    // dQ += dS K
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int rl = ty * RQ + r;
-      for (int kk = 0; kk < BK; ++kk) {
-        const float sv = sS[rl * LP + kk];
-#pragma unroll
-        for (int c = 0; c < CD; ++c)
-          dq_acc[r][c] += sv * sK[kk * LD + tx + 16 * c];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int row = q0 + ty * RQ + r;
-    if (row < Sq) {
-      float* dqg = dq + (bh * Sq + row) * HD;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) dqg[tx + 16 * c] = dq_acc[r][c];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels: the forward, the fused backward and the two
-// sweeps of the split backward for T = __nv_bfloat16 (see the note at the
-// head of the file)
+// Tensor-core kernels: the forward, the fused backward and the two sweeps
+// of the split backward, over bf16 q, k, v or the bf16 planes of fp32 ones
+// (see the note at the head of the file)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -802,8 +540,9 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // both compute their S^T and dP^T).  For dQ = dS K (the fused backward)
 // the same warps split the BQ x HD tile into 16-row blocks x DQW columns.
 // fp32 q, k, v (NP > 1): K's and Q's planes and V's first two fill shared
-// memory (hd 128: 183,808 B, one CTA an SM); at hd 256 the tiles shrink to
-// BK 32, BQ 16 (171,776 B).
+// memory (hd 128: 183,808 B with dQ, 173,568 B for the dK/dV sweep, one
+// CTA an SM); at hd 256 the tiles shrink to BK 32, BQ 16 (171,776 B with
+// dQ).
 template <int HD, int NP> struct TcBwd {
   // planes of V, and of Q and K outside the score product
   static constexpr int NV = NP > 1 ? 2 : 1;
@@ -828,12 +567,12 @@ template <int HD, int NP> struct TcBwd {
   }
 };
 
-// TO float, kDQ: the fused backward (fp32 dO split into hi + lo, dQ summed
-// in kv-tile order through the turn counters), over bf16 q, k, v (NP 1) or
-// the planes of fp32 ones (NP planes of q and k, of which dK and dQ read
-// the first two, and the first two of v's, laid out as for the
-// forward).  TO bf16, !kDQ, NP 1: the dK/dV sweep of the
-// two-sweep backward (dO read as it is; no dS^T tiles, no dQ).
+// kDQ: the fused backward (an fp32 dO split into hi + lo, dQ summed in
+// kv-tile order through the turn counters); !kDQ: the dK/dV sweep of the
+// two-sweep backward (dO in q's dtype; no dS^T tiles, no dQ).  Over bf16
+// q, k, v (NP 1) or the planes of fp32 ones (NP planes of q and k, of
+// which dK and dQ read the first two, and the first two of v's, laid out
+// as for the forward), which need an fp32 dO.
 template <int HD, typename TO, bool kDQ, int NP>
 __global__ void __launch_bounds__(TcBwd<HD, NP>::THREADS)
 fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -847,7 +586,7 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using C = TcBwd<HD, NP>;
   constexpr bool kSplitO = std::is_same_v<TO, float>;
   static_assert(kSplitO || std::is_same_v<TO, bf16>, "dO is fp32 or bf16");
-  static_assert(NP == 1 || (kSplitO && kDQ), "planes: the fused kernel");
+  static_assert(NP == 1 || kSplitO, "planes need an fp32 dO");
   constexpr int NV = C::NV;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS;
   constexpr int NT = C::THREADS, DW = HD / C::NSPLIT, DQW = C::DQW;
@@ -1182,37 +921,57 @@ fa_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dQ sweep tiling: the forward's (each warp owns 16 q rows and HD / NSPLIT
-// columns of dQ; at hd 256 two warps share a row block and both compute
-// its S and dP).
-template <int HD> struct TcDq : TcFwd<HD, 1> {
-  using TcFwd<HD, 1>::BQ, TcFwd<HD, 1>::BK, TcFwd<HD, 1>::LD;
-  // Q, dO, then two stages of (K, V)
-  static constexpr size_t SMEM = (size_t)(2 * BQ + 4 * BK) * LD * sizeof(bf16);
+// dQ sweep tiling: each warp owns 16 q rows and HD / NSPLIT columns of dQ
+// (at hd 256 two warps share a row block and both compute its S and dP).
+// bf16: the forward's tiles; Q, dO, then two stages of (K, V).  fp32 (NP >
+// 1): Q's planes and dO's hi and lo stay for the whole kv loop, and each of
+// the two stages holds K's planes and V's first two (hd 128: BQ 128, BK
+// 16, 217,600 B, one CTA of 8 warps an SM, 4% faster on the card than BQ
+// 64, BK 32 with 4 warps; hd 256: BQ 32, BK 16, 168,960 B).
+template <int HD, int NP> struct TcDq {
+  using TO = std::conditional_t<(NP > 1), float, bf16>;  // dO, q's dtype
+  // planes of V, and of dO and of K outside the score product
+  static constexpr int NV = NP > 1 ? 2 : 1;
+  static constexpr int NSPLIT = HD > 128 ? 2 : 1;
+  static constexpr int BQ = NP > 1 ? (HD > 128 ? 32 : 128) : 64;
+  static constexpr int BK = NP > 1 ? 16 : (HD > 128 ? 32 : 64);
+  static constexpr int THREADS = 32 * (BQ / 16) * NSPLIT;
+  static constexpr int LD = HD + 8;  // padded rows: ldmatrix conflict-free
+  static constexpr size_t SMEM =
+      (size_t)((NP + NV) * BQ + 2 * (NP + NV) * BK) * LD * sizeof(bf16);
 };
 
-// dQ sweep of the two-sweep backward for bf16 q, k, v, dO: one CTA per
-// (bh, q tile) keeps Q and dO in shared memory and dQ in registers, streams
-// the kv tiles that the mask leaves through two cp.async stages, and writes
-// dQ once (no atomics).  Per kv tile: S = Q K^T and dP = dO V^T in one pass
-// each, P and dS in registers, dQ += dS K in two (dS hi, lo).  A masked P is
-// exactly zero here, so skipping fully masked tiles is exact for every row.
-template <int HD>
-__global__ void __launch_bounds__(TcDq<HD>::THREADS)
+// dQ sweep of the two-sweep backward: one CTA per (bh, q tile) keeps Q and
+// dO in shared memory and dQ in registers, streams the kv tiles that the
+// mask leaves through two cp.async stages, and writes dQ once (no
+// atomics).  Per kv tile, bf16 q, k, v, dO: S = Q K^T and dP = dO V^T in
+// one pass each, P and dS in registers, dQ += dS K in two (dS hi, lo).
+// fp32 (NP planes of q, k and v, laid out as for the forward; dO split
+// into hi and lo once per CTA as it is loaded, since every kv tile reads
+// it): S in the planes' six passes, each k-step's into a fresh fragment;
+// dP = dO V^T and dQ += dS K in three (hi.hi, hi.lo, lo.hi), dQ into a
+// fresh fragment per kv tile that is added in fp32, so that the tensor
+// cores' rounding toward zero does not build up over the kv loop.  A
+// masked P is exactly zero here, so skipping fully masked tiles is exact
+// for every row.
+template <int HD, int NP>
+__global__ void __launch_bounds__(TcDq<HD, NP>::THREADS)
 fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const bf16* __restrict__ v,
+                    const typename TcDq<HD, NP>::TO* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Skv, int group, int causal, int window,
                     float softcap, float scale, int kv_len) {
-  using C = TcDq<HD>;
+  using C = TcDq<HD, NP>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NT = C::THREADS;
+  constexpr int NV = C::NV;
   constexpr int DW = HD / C::NSPLIT;       // dQ columns per warp
   constexpr int NS = BK / 8, NO = DW / 8;  // n-tiles of S and of dQ
   extern __shared__ __align__(16) bf16 smem_bf[];
-  bf16* sQ = smem_bf;         // BQ x LD
-  bf16* sO = sQ + BQ * LD;    // dO, BQ x LD
-  bf16* sKV = sO + BQ * LD;   // stage s: K at 2 s BK LD, V after it
+  bf16* sQ = smem_bf;              // NP planes of BQ x LD
+  bf16* sO = sQ + NP * BQ * LD;    // dO (bf16), or its hi and lo, BQ x LD
+  bf16* sKV = sO + NV * BQ * LD;   // stage s: K's planes, then V's
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1220,11 +979,35 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const int qb = min(q0 + BQ, Sq) - 1;
+  // plane strides of q, and of k and v
+  const size_t qps = (size_t)gridDim.x * Sq * HD;
+  const size_t kps = (size_t)(gridDim.x / group) * Skv * HD;
   const bf16* kg = k + (bh / group) * Skv * HD;
   const bf16* vg = v + (bh / group) * Skv * HD;
 
-  tc_load_rows<BQ, HD, LD, NT>(sQ, q + bh * Sq * HD, q0, Sq);
-  tc_load_rows<BQ, HD, LD, NT>(sO, dout + bh * Sq * HD, q0, Sq);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    tc_load_rows<BQ, HD, LD, NT>(sQ + p * BQ * LD, q + p * qps + bh * Sq * HD,
+                                 q0, Sq);
+  if constexpr (NP == 1) {
+    tc_load_rows<BQ, HD, LD, NT>(sO, dout + bh * Sq * HD, q0, Sq);
+  } else {
+    // dO (fp32) -> dO hi + dO lo, four elements a thread
+    const float* og = dout + bh * Sq * HD;
+    for (int e = threadIdx.x; e < BQ * HD / 4; e += NT) {
+      const int r = e / (HD / 4), c = e % (HD / 4) * 4;
+      const float4 x =
+          q0 + r < Sq
+              ? *reinterpret_cast<const float4*>(og + (size_t)(q0 + r) * HD + c)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint32_t hi[2], lo[2];
+      rt::split_bf16x2(x.x, x.y, hi[0], lo[0]);
+      rt::split_bf16x2(x.z, x.w, hi[1], lo[1]);
+      *reinterpret_cast<uint2*>(sO + r * LD + c) = make_uint2(hi[0], hi[1]);
+      *reinterpret_cast<uint2*>(sO + (BQ + r) * LD + c) =
+          make_uint2(lo[0], lo[1]);
+    }
+  }
   // lse (times log2(e)) and delta of the thread's rows g and g + 8
   float lse2[2], dlt[2];
 #pragma unroll
@@ -1243,9 +1026,15 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return j;
   };
   auto load_kv = [&](int j, int stage) {
-    bf16* sK = sKV + stage * 2 * BK * LD;
-    tc_load_rows<BK, HD, LD, NT>(sK, kg, j * BK, Skv);
-    tc_load_rows<BK, HD, LD, NT>(sK + BK * LD, vg, j * BK, Skv);
+    bf16* sK = sKV + stage * (NP + NV) * BK * LD;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      tc_load_rows<BK, HD, LD, NT>(sK + p * BK * LD, kg + p * kps, j * BK,
+                                   Skv);
+#pragma unroll
+    for (int p = 0; p < NV; ++p)
+      tc_load_rows<BK, HD, LD, NT>(sK + (NP + p) * BK * LD, vg + p * kps,
+                                   j * BK, Skv);
   };
 
   const float scale2 = scale * kLog2e;
@@ -1268,11 +1057,12 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       rt::cp_async_wait<0>();
     }
     __syncthreads();  // tile j (and Q, dO) landed for every thread
-    const bf16* sK = sKV + stage * 2 * BK * LD;
-    const bf16* sV = sK + BK * LD;
+    const bf16* sK = sKV + stage * (NP + NV) * BK * LD;
+    const bf16* sV = sK + NP * BK * LD;
 
     // S = Q K^T and dP = dO V^T: bf16 products are exact in fp32, one pass
-    // each
+    // each; fp32 S the planes' six passes, each k-step's into a fresh
+    // fragment, and dP three (oh.v0, ol.v0, oh.v1)
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -1280,19 +1070,42 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      rt::ldmatrix_x4(aq, sQ + tc_a_off(rb, kk * 16, LD));
-      rt::ldmatrix_x4(ao, sO + tc_a_off(rb, kk * 16, LD));
+      uint32_t aq[NP][4], ao[NV][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        rt::ldmatrix_x4(aq[p], sQ + p * BQ * LD + tc_a_off(rb, kk * 16, LD));
+#pragma unroll
+      for (int p = 0; p < NV; ++p)
+        rt::ldmatrix_x4(ao[p], sO + p * BQ * LD + tc_a_off(rb, kk * 16, LD));
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         const int off = tc_bnk_off(n * 8, kk * 16, LD);
-        uint32_t bk[4], bv[4];
-        rt::ldmatrix_x4(bk, sK + off);
-        rt::ldmatrix_x4(bv, sV + off);
-        rt::mma_bf16(s[n], aq, bk[0], bk[1]);
-        rt::mma_bf16(s[n + 1], aq, bk[2], bk[3]);
-        rt::mma_bf16(dp[n], ao, bv[0], bv[1]);
-        rt::mma_bf16(dp[n + 1], ao, bv[2], bv[3]);
+        uint32_t bk[NP][4], bv[NV][4];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          rt::ldmatrix_x4(bk[p], sK + p * BK * LD + off);
+#pragma unroll
+        for (int p = 0; p < NV; ++p)
+          rt::ldmatrix_x4(bv[p], sV + p * BK * LD + off);
+        if constexpr (NP == 1) {
+          mma_planes<NP>(s[n], s[n + 1], aq, bk);
+          rt::mma_bf16(dp[n], ao[0], bv[0][0], bv[0][1]);
+          rt::mma_bf16(dp[n + 1], ao[0], bv[0][2], bv[0][3]);
+        } else {
+          float f[2][4] = {};
+          mma_planes<NP>(f[0], f[1], aq, bk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] += f[0][e];
+            s[n + 1][e] += f[1][e];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            rt::mma_bf16(dp[n + h], ao[0], bv[0][2 * h], bv[0][2 * h + 1]);
+            rt::mma_bf16(dp[n + h], ao[1], bv[0][2 * h], bv[0][2 * h + 1]);
+            rt::mma_bf16(dp[n + h], ao[0], bv[1][2 * h], bv[1][2 * h + 1]);
+          }
+        }
       }
     }
     // dS into dp: P in base 2 (lse2 holds lse times log2(e)), exact zeros
@@ -1323,19 +1136,49 @@ fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[n][e] = p * (dp[n][e] - dlt[r]) * chain * scale;
       }
 
-    // dQ += dS K with dS = dS hi + dS lo (two passes; K is exact bf16)
+    // dQ += dS K with dS = dS hi + dS lo: two passes against a bf16 K
+    // (exact); three against K's planes (sh.k0, sl.k0, sh.k1)
+    if constexpr (NP == 1) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sh[4], sl[4];
-      tc_c_to_a(dp, kk, sh, sl);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t sh[4], sl[4];
+        tc_c_to_a(dp, kk, sh, sl);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+          rt::mma_bf16(acc[n], sh, b[0], b[1]);
+          rt::mma_bf16(acc[n], sl, b[0], b[1]);
+          rt::mma_bf16(acc[n + 1], sh, b[2], b[3]);
+          rt::mma_bf16(acc[n + 1], sl, b[2], b[3]);
+        }
+      }
+    } else {
+      uint32_t sh[BK / 16][4], sl[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) tc_c_to_a(dp, kk, sh[kk], sl[kk]);
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
-        uint32_t b[4];
-        rt::ldmatrix_x4_trans(b, sK + tc_bkn_off(kk * 16, d0 + n * 8, LD));
-        rt::mma_bf16(acc[n], sh, b[0], b[1]);
-        rt::mma_bf16(acc[n], sl, b[0], b[1]);
-        rt::mma_bf16(acc[n + 1], sh, b[2], b[3]);
-        rt::mma_bf16(acc[n + 1], sl, b[2], b[3]);
+        float f[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t b[NV][4];
+#pragma unroll
+          for (int p = 0; p < NV; ++p)
+            rt::ldmatrix_x4_trans(
+                b[p], sK + p * BK * LD + tc_bkn_off(kk * 16, d0 + n * 8, LD));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            rt::mma_bf16(f[h], sh[kk], b[0][2 * h], b[0][2 * h + 1]);
+            rt::mma_bf16(f[h], sl[kk], b[0][2 * h], b[0][2 * h + 1]);
+            rt::mma_bf16(f[h], sh[kk], b[1][2 * h], b[1][2 * h + 1]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[n][e] += f[0][e];
+          acc[n + 1][e] += f[1][e];
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before its reload
@@ -1425,71 +1268,41 @@ enum BwdKind { kFused, kDq, kDkv };
 
 template <typename T, int HD, BwdKind KIND>
 cudaError_t launch_bwd(FaArgs a) {
+  constexpr int NP = planes_of<T>;
+  if (!tc_aligned({a.q, a.k, a.v, a.dout, a.planes}))
+    return cudaErrorMisalignedAddress;
   cudaError_t err;
-  if constexpr (std::is_same_v<T, bf16> || KIND == kFused) {
-    if (!tc_aligned({a.q, a.k, a.v, a.dout, a.planes}))
-      return cudaErrorMisalignedAddress;
-    if constexpr (KIND == kDq) {
-      using C = TcDq<HD>;
-      err = cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)C::SMEM);
-      if (err != cudaSuccess) return err;
-      const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
-      fa_bwd_dq_tc_kernel<HD><<<grid, C::THREADS, C::SMEM, a.stream>>>(
-          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-          (const bf16*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
-          (float*)a.dq, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
-          a.scale, a.kv_len);
-    } else {
-      // the fused backward reads dO in fp32, the dK/dV sweep in bf16; fp32
-      // q, k, v reach here only for the fused one
-      constexpr bool kDQ = KIND == kFused;
-      constexpr int NP = planes_of<T>;
-      using TO = std::conditional_t<kDQ, float, bf16>;
-      using C = TcBwd<HD, NP>;
-      if constexpr (NP > 1) {
-        if ((err = split_qkv(a, HD)) != cudaSuccess) return err;
-      }
-      constexpr size_t smem = C::template smem<TO, kDQ>();
-      err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD, TO, kDQ, NP>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
-      fa_bwd_tc_kernel<HD, TO, kDQ, NP><<<grid, C::THREADS, smem, a.stream>>>(
-          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-          (const TO*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
-          (float*)a.dq, a.turns, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv,
-          a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
-    }
-  } else if constexpr (KIND == kDq) {
-    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-    const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +
-                         (size_t)BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<T, HD>,
+  if constexpr (NP > 1) {
+    if ((err = split_qkv(a, HD)) != cudaSuccess) return err;
+  }
+  if constexpr (KIND == kDq) {
+    using C = TcDq<HD, NP>;
+    err = cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<HD, NP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)C::SMEM);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + BQ - 1) / BQ, a.BH);
-    fa_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
-        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dq, a.Sq,
-        a.Skv, a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
+    const dim3 grid(a.BH, (a.Sq + C::BQ - 1) / C::BQ);
+    fa_bwd_dq_tc_kernel<HD, NP><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const typename C::TO*)a.dout, (const float*)a.lse_in,
+        (const float*)a.delta, (float*)a.dq, a.Sq, a.Skv, a.group, a.causal,
+        a.window, a.softcap, a.scale, a.kv_len);
   } else {
-    constexpr int BQ = FaTiles<HD>::BQ, BK = FaTiles<HD>::BK;
-    const size_t smem = ((size_t)(2 * BK + 2 * BQ) * (HD + 1) +
-                         (size_t)2 * BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-    err = cudaFuncSetAttribute(fa_bwd_kernel<T, HD>,
+    // the fused backward reads dO in fp32, the dK/dV sweep in q's dtype
+    constexpr bool kDQ = KIND == kFused;
+    using TO = std::conditional_t<kDQ, float, T>;
+    using C = TcBwd<HD, NP>;
+    constexpr size_t smem = C::template smem<TO, kDQ>();
+    err = cudaFuncSetAttribute(fa_bwd_tc_kernel<HD, TO, kDQ, NP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Skv + BK - 1) / BK, a.BH / a.group);
-    fa_bwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.dout,
-        (const float*)a.lse_in, (const float*)a.delta, (float*)a.dk,
-        (float*)a.dv, a.Sq, a.Skv, a.group, a.causal, a.window, a.softcap,
-        a.scale, a.kv_len);
+    const dim3 grid(a.BH / a.group, (a.Skv + C::BK - 1) / C::BK);
+    fa_bwd_tc_kernel<HD, TO, kDQ, NP><<<grid, C::THREADS, smem, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const TO*)a.dout, (const float*)a.lse_in, (const float*)a.delta,
+        (float*)a.dq, a.turns, (float*)a.dk, (float*)a.dv, a.Sq, a.Skv,
+        a.group, a.causal, a.window, a.softcap, a.scale, a.kv_len);
   }
   return cudaGetLastError();
 }
@@ -1533,13 +1346,14 @@ int dispatch(int dtype, int hd, const FaArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-FaArgs bwd_args(const void* q, const void* k, const void* v,
+FaArgs bwd_args(const void* q, const void* k, const void* v, void* planes,
                 const void* dout, const void* lse, const void* delta,
                 void* dq, void* dk, void* dv, int BH, int Sq, int Skv,
                 int group, int causal, int window, float softcap, float scale,
                 int kv_len, void* stream) {
   FaArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
+  a.q = q; a.k = k; a.v = v; a.planes = planes;
+  a.dout = dout; a.lse_in = lse; a.delta = delta;
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.BH = BH; a.Sq = Sq; a.Skv = Skv; a.group = group; a.causal = causal;
   a.window = window; a.kv_len = kv_len; a.softcap = softcap; a.scale = scale;
@@ -1549,7 +1363,7 @@ FaArgs bwd_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// bf16 elements of the plane scratch that rt_flash_fwd and rt_flash_bwd
+// bf16 elements of the plane scratch that rt_flash_fwd and the backwards
 // take for q (nq elements) and k, v (nkv elements each) of a dtype: none
 // for bf16
 extern "C" long long rt_flash_plane_elems(int dtype, long long nq,
@@ -1607,36 +1421,39 @@ extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v,
   if (rt_flash_bwd_tiles(dtype, hd, &bq, &bk) != 0 ||
       n_turns < (long long)BH * ((Sq + bq - 1) / bq))
     return (int)cudaErrorInvalidValue;
-  FaArgs a = bwd_args(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Skv,
-                      group, causal, window, softcap, scale, kv_len, stream);
-  a.planes = planes;
+  FaArgs a = bwd_args(q, k, v, planes, dout, lse, delta, dq, dk, dv, BH, Sq,
+                      Skv, group, causal, window, softcap, scale, kv_len,
+                      stream);
   a.turns = static_cast<int*>(turns);
   return dispatch<kFused>(dtype, hd, a);
 }
 
+// The two sweeps of the split backward: dout in q's dtype; planes as for
+// rt_flash_fwd (each sweep splits fp32 q, k, v itself)
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, int dtype, int BH,
-                               int Sq, int Skv, int hd, int group, int causal,
-                               int window, float softcap, float scale,
-                               int kv_len, void* stream) {
+                               void* planes, const void* dout,
+                               const void* lse, const void* delta, void* dq,
+                               int dtype, int BH, int Sq, int Skv, int hd,
+                               int group, int causal, int window,
+                               float softcap, float scale, int kv_len,
+                               void* stream) {
   return dispatch<kDq>(dtype, hd,
-                       bwd_args(q, k, v, dout, lse, delta, dq, nullptr,
-                                nullptr, BH, Sq, Skv, group, causal, window,
-                                softcap, scale, kv_len, stream));
+                       bwd_args(q, k, v, planes, dout, lse, delta, dq,
+                                nullptr, nullptr, BH, Sq, Skv, group, causal,
+                                window, softcap, scale, kv_len, stream));
 }
 
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv,
-                                int dtype, int BH, int Sq, int Skv, int hd,
-                                int group, int causal, int window,
+                                void* planes, const void* dout,
+                                const void* lse, const void* delta, void* dk,
+                                void* dv, int dtype, int BH, int Sq, int Skv,
+                                int hd, int group, int causal, int window,
                                 float softcap, float scale, int kv_len,
                                 void* stream) {
   return dispatch<kDkv>(dtype, hd,
-                        bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                 BH, Sq, Skv, group, causal, window, softcap,
-                                 scale, kv_len, stream));
+                        bwd_args(q, k, v, planes, dout, lse, delta, nullptr,
+                                 dk, dv, BH, Sq, Skv, group, causal, window,
+                                 softcap, scale, kv_len, stream));
 }
 
 extern "C" const char* rt_error_string(int err) {

@@ -37,8 +37,8 @@ SIGNATURES = {
     "rt_flash_fwd": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_flash_bwd_tiles": [_I, _I, _P, _P],
     "rt_flash_bwd": [_P] * 11 + [_LL] + [_I] * 8 + [_F, _F, _I, _P],
-    "rt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
-    "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "rt_flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "rt_xent_tc_nsplit": [_I] * 3,
     "rt_xent_split": [_P] * 3 + [_I] * 3 + [_LL, _LL, _P],
     "rt_xent_split_h": [_P] * 3 + [_I] * 2 + [_P],

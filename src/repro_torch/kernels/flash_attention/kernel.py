@@ -17,12 +17,12 @@ BH = B * Hkv * G kv-major (``bh // G`` is the kv head); k, v, dk, dv
 the two sweeps read it in q's dtype and raise ``TypeError`` on another
 (the plain versions take either).  Each wrapper carries ``launches``, the
 number of kernel launches it made, and ``launches_by_dtype``, the same
-count split by q's dtype (``"bfloat16"``, ``"float32"``).  Routes: every
-kernel runs on the tensor cores for bf16; for fp32 the forward and the
-fused backward run the same tensor-core kernels over bf16 planes of q, k
-and v, which a split pre-pass writes into scratch taken here (``_planes``;
-q's dtype sets only the pass count), and the two sweeps run fp32-FMA
-kernels on the CUDA cores.
+count split by q's dtype (``"bfloat16"``, ``"float32"``).  Every kernel
+runs on the tensor cores for both dtypes: for fp32 each one runs the same
+tensor-core kernel as for bf16 over bf16 planes of q, k and v, which its
+split pre-pass writes into scratch taken here (``_planes``; q's dtype sets
+only the pass count, and the sweeps split an fp32 dO into hi and lo in the
+kernel).
 """
 
 from __future__ import annotations
@@ -195,6 +195,14 @@ def fused_bwd_tiles(lib, q):
     return bq.value, bk.value
 
 
+def _bwd_ptrs(planes, tensors):
+    """The backwards' pointers: q, k, v (the first three of ``tensors``),
+    the plane scratch (null for bf16), then the rest."""
+    ptrs = [t.data_ptr() for t in tensors]
+    ptrs.insert(3, _ptr(planes))
+    return ptrs
+
+
 def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
     ops = _bwd_operands(q, k, v, do, lse, delta)
     # dQ is summed in place in kv-tile order, one turn counter per
@@ -206,9 +214,8 @@ def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
     n = BH * -(-Sq // fused_bwd_tiles(lib, q)[0])
     turns = torch.zeros(n, dtype=torch.int32, device=q.device)
     planes = _planes(lib, q, k)
-    ptrs = [t.data_ptr() for t in ops + (dq, dk, dv)]
-    ptrs.insert(3, _ptr(planes))   # after q, k, v
-    err = lib.rt_flash_bwd(*ptrs, turns.data_ptr(), n,
+    err = lib.rt_flash_bwd(*_bwd_ptrs(planes, ops + (dq, dk, dv)),
+                           turns.data_ptr(), n,
                            *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_fused")
     return dq, dk, dv
@@ -217,7 +224,8 @@ def _launch_bwd(lib, stream, q, k, v, do, lse, delta, **kw):
 def _launch_bwd_dq(lib, stream, q, k, v, do, lse, delta, **kw):
     ops = _split_operands(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    err = lib.rt_flash_bwd_dq(*(t.data_ptr() for t in ops + (dq,)),
+    planes = _planes(lib, q, k)
+    err = lib.rt_flash_bwd_dq(*_bwd_ptrs(planes, ops + (dq,)),
                               *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_dq")
     return dq
@@ -227,7 +235,8 @@ def _launch_bwd_dkv(lib, stream, q, k, v, do, lse, delta, **kw):
     ops = _split_operands(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    err = lib.rt_flash_bwd_dkv(*(t.data_ptr() for t in ops + (dk, dv)),
+    planes = _planes(lib, q, k)
+    err = lib.rt_flash_bwd_dkv(*_bwd_ptrs(planes, ops + (dk, dv)),
                                *_bwd_scalars(q, k, **kw), stream)
     build.check(lib, err, "flash_bwd_dkv")
     return dk, dv

@@ -1,7 +1,9 @@
 // Host stand-in for the subset of the CUDA runtime that the port's kernels
 // use, so tests can compile src/repro_torch/csrc/*.cu with a C++20 host
 // compiler and run the kernels on the CPU: each block runs as blockDim.x
-// std::threads sharing one barrier, blocks run one after another.
+// fibers on the calling thread, which switch only where a lane waits at a
+// barrier (emu_next), so no lane waits on the OS scheduler however busy
+// the machine is; blocks run one after another.
 // __syncthreads_or becomes a block-wide barrier exchange, valid because
 // every kernel calls it with all threads of the block; __shfl_xor_sync
 // and __shfl_sync (a broadcast from one lane) become warp-wide ones (each
@@ -13,17 +15,19 @@
 // only two calls later, after every lane of its warp has passed the
 // barrier of the call between, so no lane still reads it.
 #pragma once
+#include <sys/mman.h>
+
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <memory>
-#include <thread>
 #include <vector>
+#if !defined(__x86_64__)
+#include <ucontext.h>
+#endif
 using std::max;
 using std::min;
 #define __global__
@@ -39,16 +43,31 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3 { unsigned x, y, z; };
+// a barrier of `expected` lanes; gen counts the times it has opened
+struct EmuBarrier {
+  unsigned expected, count = 0, gen = 0;
+};
+// the running lane's view: emu_launch and emu_next set it
 inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
-inline thread_local std::barrier<>* emu_bar;
-inline thread_local std::barrier<>* emu_warp_bar;  // this thread's warp
+inline thread_local EmuBarrier* emu_bar;
+inline thread_local EmuBarrier* emu_warp_bar;  // this thread's warp
 inline thread_local float* emu_fslots;        // 2 sets of 1 per thread
 inline thread_local int* emu_islots;
 inline thread_local char* emu_dyn;
 inline thread_local uint32_t* emu_uslots;     // 2 sets of 6 per thread
 inline thread_local const void** emu_pslots;  // 2 sets of 1 per thread
 inline thread_local unsigned emu_calls;       // warp-wide exchanges so far
+void emu_yield(bool in_warp);
+inline void emu_wait(EmuBarrier* b, bool in_warp) {
+  const unsigned gen = b->gen;
+  if (++b->count == b->expected) {
+    b->count = 0;
+    ++b->gen;
+    return;
+  }
+  while (b->gen == gen) emu_yield(in_warp);
+}
 typedef int cudaError_t;
 const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
@@ -59,8 +78,8 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
-inline void emu_syncwarp() { emu_warp_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu_wait(emu_bar, false); }
+inline void emu_syncwarp() { emu_wait(emu_warp_bar, true); }
 // the first slot of this call's set, in slots of one thread's width
 inline unsigned emu_set() { return (emu_calls++ & 1u) * blockDim.x; }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
@@ -87,39 +106,180 @@ inline float fmaxf(float a, float b) { return a > b ? a : b; }
 // L2-only (.cg) loads and stores: plain ones on the host
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline void __stcg(T* p, T v) { *p = v; }
+
+// Fibers.  x86-64: emu_switch saves the callee-saved registers and the
+// SSE / x87 control words on the running stack, stores its stack pointer
+// in *save and resumes the stack at load (no system call); elsewhere
+// ucontext.
+#if defined(__x86_64__)
+extern "C" [[gnu::naked, gnu::noipa]] inline void emu_switch(void**,
+                                                                void*) {
+  asm("pushq %rbp\n pushq %rbx\n pushq %r12\n pushq %r13\n pushq %r14\n"
+      " pushq %r15\n subq $8, %rsp\n stmxcsr (%rsp)\n fnstcw 4(%rsp)\n"
+      " movq %rsp, (%rdi)\n movq %rsi, %rsp\n ldmxcsr (%rsp)\n"
+      " fldcw 4(%rsp)\n addq $8, %rsp\n popq %r15\n popq %r14\n"
+      " popq %r13\n popq %r12\n popq %rbx\n popq %rbp\n ret");
+}
+struct EmuContext {
+  void* sp;
+};
+#else
+struct EmuContext {
+  ucontext_t uc;
+};
+#endif
+
+struct EmuLane {
+  EmuContext ctx;
+  unsigned calls;  // emu_calls
+  bool done;
+};
+
+// the running block: its lanes, their barriers, and the kernel call
+struct EmuBlock {
+  std::vector<EmuLane> lanes;
+  std::vector<EmuBarrier> warp_bars;
+  EmuBarrier bar;
+  EmuContext host;  // the launching thread, resumed once every lane is done
+  unsigned cur, live;
+  void (*run)(void*);
+  void* call;
+};
+inline thread_local EmuBlock* emu_blk;
+
+inline void emu_jump(EmuContext* from, EmuContext* to) {
+#if defined(__x86_64__)
+  emu_switch(&from->sp, to->sp);
+#else
+  swapcontext(&from->uc, &to->uc);
+#endif
+}
+
+// Leave the running lane (saving it in `from`) for the next live lane of
+// its warp (in_warp) or of the block.  A warp thus runs in lockstep from
+// one block barrier to the next while the other warps wait at it: the
+// warps drift as far apart as the barriers let them, so a missing block
+// barrier shows as a wrong result.
+inline void emu_next(EmuContext* from, bool in_warp) {
+  EmuBlock* b = emu_blk;
+  unsigned n = b->cur;
+  b->lanes[n].calls = emu_calls;
+  if (b->live == 0) return emu_jump(from, &b->host);
+  const unsigned w0 = in_warp ? n & ~31u : 0;
+  const unsigned size = in_warp ? b->warp_bars[n / 32].expected
+                                : (unsigned)b->lanes.size();
+  do n = w0 + (n - w0 + 1) % size; while (b->lanes[n].done);
+  if (n == b->cur) {
+    std::fprintf(stderr, "emu: lane %u waits at a barrier no other lane "
+                 "can reach (block %u, %u)\n", n, blockIdx.x, blockIdx.y);
+    std::abort();
+  }
+  b->cur = n;
+  threadIdx = {n, 0, 0};
+  emu_warp_bar = &b->warp_bars[n / 32];
+  emu_calls = b->lanes[n].calls;
+  emu_jump(from, &b->lanes[n].ctx);
+}
+
+inline void emu_yield(bool in_warp) {
+  emu_next(&emu_blk->lanes[emu_blk->cur].ctx, in_warp);
+}
+
+[[noreturn]] inline void emu_lane_main() {
+  EmuBlock* b = emu_blk;
+  b->run(b->call);
+  b->lanes[b->cur].done = true;
+  --b->live;
+  EmuContext gone;
+  emu_next(&gone, false);
+  __builtin_unreachable();
+}
+
+// The lanes' stacks, kEmuStack bytes each above a guard page: mapped once
+// per OS thread and remapped when a launch has more lanes (pages are
+// touched only as used).
+constexpr size_t kEmuStack = 256 << 10, kEmuGuard = 4096;
+inline char* emu_stacks(unsigned lanes) {
+  static thread_local char* base = nullptr;
+  static thread_local unsigned n = 0;
+  constexpr size_t step = kEmuGuard + kEmuStack;
+  if (lanes > n) {
+    if (base) munmap(base, n * step);
+    void* p = mmap(nullptr, lanes * step, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) std::abort();
+    base = static_cast<char*>(p);
+    for (unsigned i = 0; i < lanes; ++i)
+      mprotect(base + i * step, kEmuGuard, PROT_NONE);
+    n = lanes;
+  }
+  return base;
+}
+
+// a lane's first switch enters emu_lane_main at the top of its stack
+inline void emu_start(EmuContext* c, char* stack) {
+#if defined(__x86_64__)
+  auto* top = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uintptr_t>(stack + kEmuStack) & ~uintptr_t(15));
+  uint64_t* sp = top - 9;
+  std::memset(sp, 0, 9 * sizeof(uint64_t));
+  top[-2] = reinterpret_cast<uint64_t>(&emu_lane_main);  // emu_switch's ret
+  uint32_t csr;
+  uint16_t cw;
+  asm volatile("stmxcsr %0\n fnstcw %1" : "=m"(csr), "=m"(cw));
+  std::memcpy(sp, &csr, 4);
+  std::memcpy(reinterpret_cast<char*>(sp) + 4, &cw, 2);
+  c->sp = sp;
+#else
+  getcontext(&c->uc);
+  c->uc.uc_stack.ss_sp = stack;
+  c->uc.uc_stack.ss_size = kEmuStack;
+  c->uc.uc_link = nullptr;
+  makecontext(&c->uc, emu_lane_main, 0);
+#endif
+}
+
 template <class F, class... Args>
 void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
                 Args... args) {
+  auto call = [&] { kern(args...); };
+  EmuBlock b;
+  b.run = [](void* c) { (*static_cast<decltype(call)*>(c))(); };
+  b.call = &call;
+  b.lanes.resize(block.x);
+  for (unsigned w = 0; w < block.x; w += 32)
+    b.warp_bars.push_back({std::min(32u, block.x - w)});
+  std::vector<float> fs(2 * block.x);
+  std::vector<int> is(block.x);
+  std::vector<uint32_t> us(2 * 6 * block.x);
+  std::vector<const void*> ps(2 * block.x);
+  char* stacks = emu_stacks(block.x);
+  emu_blk = &b;
+  blockDim = block;
+  gridDim = grid;
+  emu_bar = &b.bar;
+  emu_fslots = fs.data();
+  emu_islots = is.data();
+  emu_uslots = us.data();
+  emu_pslots = ps.data();
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::vector<char> dyn(smem + 16);
-      std::vector<float> fs(2 * block.x);
-      std::vector<int> is(block.x);
-      std::vector<uint32_t> us(2 * 6 * block.x);
-      std::vector<const void*> ps(2 * block.x);
-      std::barrier<> bar(block.x);
-      std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-      for (unsigned w = 0; w < block.x; w += 32)
-        warp_bars.push_back(std::make_unique<std::barrier<>>(
-            std::min<std::ptrdiff_t>(32, block.x - w)));
-      std::vector<std::thread> ts;
-      for (unsigned t = 0; t < block.x; ++t)
-        ts.emplace_back([&, t] {
-          threadIdx = {t, 0, 0};
-          blockIdx = {bx, by, 0};
-          blockDim = block;
-          gridDim = grid;
-          emu_bar = &bar;
-          emu_warp_bar = warp_bars[t / 32].get();
-          emu_fslots = fs.data();
-          emu_islots = is.data();
-          emu_dyn = dyn.data();
-          emu_uslots = us.data();
-          emu_pslots = ps.data();
-          emu_calls = 0;
-          kern(args...);
-        });
-      for (auto& th : ts) th.join();
+      emu_dyn = dyn.data();
+      blockIdx = {bx, by, 0};
+      b.bar = {block.x};
+      for (unsigned t = 0; t < block.x; ++t) {
+        b.lanes[t] = {{}, 0, false};
+        emu_start(&b.lanes[t].ctx,
+                  stacks + t * (kEmuGuard + kEmuStack) + kEmuGuard);
+      }
+      b.cur = 0;
+      b.live = block.x;
+      threadIdx = {0, 0, 0};
+      emu_warp_bar = &b.warp_bars[0];
+      emu_calls = 0;
+      emu_jump(&b.host, &b.lanes[0].ctx);
     }
+  emu_blk = nullptr;
 }
 #include "ptx_emu.h"

@@ -11,8 +11,8 @@ versions.  No kernel has atomics (the fused attention backward adds the
 kv tiles' dQ in place in kv-tile order, each in its turn), so the
 attention forward, both attention backwards and the
 SSD forward and backward must repeat bit for bit.  The attention forward
-and fused backward run on the tensor cores for fp32 q, k, v too, over
-three bf16 planes of each.  Both SSD
+and both backwards (fused, and the split one's two sweeps) run on the
+tensor cores for fp32 q, k, v too, over three bf16 planes of each.  Both SSD
 kernels run every product on the tensor cores (bf16 ``mma.sync``, each
 fp32 operand split into bf16 planes: three planes and six passes
 forward, two and three backward), so they are also checked with operands
@@ -107,12 +107,18 @@ def test_flash_kernels_match_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("case", FA, ids=str)
+# a row may add a factor on q: x 30 puts the scaled scores at about +-30,
+# where the exponential carries the scores' error into P and dS
+SPLIT_LARGE_SCORES = [(2, 2, 200, 200, 128, True, 0, 0.0, torch.float32, 30.0)]
+
+
+@pytest.mark.parametrize("case", FA + SPLIT_LARGE_SCORES, ids=str)
 def test_flash_split_kernels_match_plain_and_repeat(cuda, case):
-    BKV, G, Sq, Skv, hd, causal, window, cap, dt = case
+    BKV, G, Sq, Skv, hd, causal, window, cap, dt, *q_scale = case
     rng = np.random.default_rng(3)
     q, k, v = (torch.tensor(rng.normal(0, 1, s), dtype=dt, device=cuda)
                for s in ((BKV * G, Sq, hd), (BKV, Skv, hd), (BKV, Skv, hd)))
+    q = q * (q_scale[0] if q_scale else 1.0)
     kw = dict(group=G, causal=causal, window=window, softcap=cap,
               scale=1 / np.sqrt(hd), kv_len=Skv - 3 if Skv > Sq else Skv)
     o, lse = FK.flash_fwd_plain(q, k, v, **kw)

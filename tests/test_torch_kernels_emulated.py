@@ -1,8 +1,9 @@
 """The CUDA kernel sources compiled for the host and run on the CPU,
 against their plain versions: flash attention here (the fp32 route's own
 tiles, large scores and its split pre-pass in
-``test_torch_kernels_emulated_fa32.py``), the SSD and cross-entropy
-kernels in ``test_torch_kernels_emulated_ssd_xent.py`` and
+``test_torch_kernels_emulated_fa32.py``, the fp32 split backward's two
+sweeps in ``test_torch_kernels_emulated_fa32_split.py``), the SSD and
+cross-entropy kernels in ``test_torch_kernels_emulated_ssd_xent.py`` and
 ``test_torch_kernels_emulated_xent.py``.
 
 ``src/repro_torch/csrc/*.cu`` are portable CUDA C++ apart from the PTX
@@ -10,12 +11,13 @@ helpers of ``csrc/tensor_core.cuh`` (mma.sync, ldmatrix, cp.async), which
 ``tests/cuda_emu/ptx_emu.h`` replaces with host versions that follow the
 PTX ISA's fragment layouts; ``tests/cuda_emu/harness.py`` compiles them
 with g++ against the stub headers in ``tests/cuda_emu``.  Each block
-runs as its launch's threads, the blocks one after another.  This checks
+runs as its launch's threads (fibers: each warp runs alone from one block
+barrier to the next), the blocks one after another.  This checks
 the kernels' indexing, masking, tile skipping, online statistics, the
 fused backward's dQ turns and the tensor-core fragment layouts of the
-attention kernels here (the forward and the fused backward on the tensor
-cores for both dtypes, fp32 q, k, v through their bf16 planes); the real
-compiler and the timings are checked on the card
+attention kernels here (every one on the tensor cores for both dtypes,
+fp32 q, k, v through their bf16 planes); the real compiler and the
+timings are checked on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).  Skips without g++.
 Tolerances (fp32 accumulation in another order; on the tensor-core
 routes each fp32 operand also carries the residual of its bf16 planes,
@@ -97,24 +99,33 @@ def test_flash_kernels_emulated(lib, case):
     _check_fwd_fused(lib, case, 0)
 
 
-def _check_split(lib, case):
-    """The two sweeps of the split backward (no atomics) against their
-    plain versions; dO in q's dtype, as the sweeps read it."""
+def _split_inputs(case, q_scale=1.0):
+    """q, k, v, dO (in q's dtype, as the sweeps read it), lse, delta and
+    the keywords of an FA row for the split sweeps."""
     dt = case[-1]
     rng = np.random.default_rng(2)
-    q, k, v, kw = _inputs(case, rng)
+    q, k, v, kw = _inputs(case, rng, q_scale)
     o, lse = FK.flash_fwd_plain(q, k, v, **kw)
     do = torch.tensor(rng.normal(0, 1, o.shape), dtype=torch.float32).to(dt)
     delta = torch.sum(do.float() * o, dim=-1)
-    _close(FK._launch_bwd_dq(lib, 0, q, k, v, do, lse, delta, **kw),
-           FK.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), 1e-4)
-    got = FK._launch_bwd_dkv(lib, 0, q, k, v, do, lse, delta, **kw)
-    want = FK.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return (q, k, v, do, lse, delta), kw
+
+
+def _check_split(lib, case, q_scale=1.0):
+    """The two sweeps of the split backward (no atomics) against their
+    plain versions."""
+    args, kw = _split_inputs(case, q_scale)
+    _close(FK._launch_bwd_dq(lib, 0, *args, **kw),
+           FK.flash_bwd_dq_plain(*args, **kw), 1e-4)
+    got = FK._launch_bwd_dkv(lib, 0, *args, **kw)
+    want = FK.flash_bwd_dkv_plain(*args, **kw)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("case", FA, ids=str)
+# the fp32 rows run in test_torch_kernels_emulated_fa32_split.py
+@pytest.mark.parametrize("case", [c for c in FA if c[-1] == torch.bfloat16],
+                         ids=str)
 def test_flash_split_kernels_emulated(lib, case):
     _check_split(lib, case)
 
@@ -161,9 +172,8 @@ def test_flash_fused_bwd_passes_every_turn(lib, case):
     nq, nk = -(-Sq // bq), -(-Skv // bk)
     turns = torch.zeros(BH * nq, dtype=torch.int32)
     planes = FK._planes(lib, q, k)   # fp32 q, k, v: their bf16 planes
-    ptrs = [t.data_ptr() for t in ops + (dq, dk, dv)]
-    ptrs.insert(3, FK._ptr(planes))
-    assert lib.rt_flash_bwd(*ptrs, turns.data_ptr(), BH * nq,
+    assert lib.rt_flash_bwd(*FK._bwd_ptrs(planes, ops + (dq, dk, dv)),
+                            turns.data_ptr(), BH * nq,
                             *FK._bwd_scalars(q, k, **kw), None) == 0
     for a, b in zip((dq, dk, dv), want):
         assert torch.equal(a, b)

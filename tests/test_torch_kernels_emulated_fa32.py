@@ -5,8 +5,9 @@ tensor cores (``csrc/flash_attention.cu``; see
 1e-5 forward, 1e-4 grads, relative to the output's scale).  Here: the
 fp32 tiles' own branches (unmasked tiles, Skv > Sq with kv_len, a window
 band), scores scaled to about +-30, and the split pre-pass's planes; the
-other fp32 rows run with the bf16 ones in ``test_torch_kernels_emulated.py``.
-Skips without g++.
+other fp32 rows run with the bf16 ones in ``test_torch_kernels_emulated.py``,
+and the split backward's sweeps over these rows in
+``test_torch_kernels_emulated_fa32_split.py``.  Skips without g++.
 """
 
 import numpy as np
@@ -44,11 +45,6 @@ LARGE_SCORES = [
 @pytest.mark.parametrize("case", FA32, ids=str)
 def test_flash_kernels_emulated_fp32(lib, case):
     fa._check_fwd_fused(lib, case, 0)
-
-
-@pytest.mark.parametrize("case", FA32, ids=str)
-def test_flash_split_kernels_emulated_fp32(lib, case):
-    fa._check_split(lib, case)
 
 
 @pytest.mark.parametrize("case", LARGE_SCORES, ids=str)
