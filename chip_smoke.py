@@ -53,7 +53,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    rounds x 2K(s_d + s_aux) + bytes_received with the sizes from
    ``repro_torch.core.comm_model``, and ``sim_time`` = the rounds'
    slowest clients + bytes_received / BANDWIDTH_BPS + epochs x
-   ``ampere_server_epoch_time``, summed in the Runner's order.
+   ``ampere_server_epoch_time``, summed in the Runner's order.  Then the
+   qwen3-1.7b path again from the same init with ``--quantize-acts``
+   (int8 payloads, one fp32 scale a token): its kernels launch, its losses
+   are finite and below ln V, the store holds 64 x (seq x d_model + seq x
+   4 + seq x 4) bytes, and ``comm_bytes`` and ``sim_time`` fall from the
+   fp32 run's by exactly the upload bytes saved and their time on the
+   link.
 6. Profile: one server train step of each main path at its shape (8 x 512
    qwen3-1.7b, 8 x 2048 mamba2-370m) under ``torch.profiler`` after one
    untimed step and 3 steps timed without it (CUDA events): device time
@@ -81,6 +87,28 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    round 0 and rerun from its workdir matches the uninterrupted card run
    within the same tolerances (torch's own CUDA backward ops are not all
    deterministic, so not bit for bit).
+9. Vision: the paper's classifiers at their published configs
+   (mobilenet-l, vgg11, vit-s, swin-t; 32x32x3, 10 classes) through
+   ``run_training`` with ``examples/quickstart.py``'s federation (8
+   clients, cohort 4, H 8, device batch 16, server batch 32, Dirichlet
+   0.33, momentum, inverse_time), 512 training and 128 eval samples, 2
+   device rounds, 12 server epochs, split point 1, each at its
+   ``VISION_LR``: finite losses, ``bytes_received`` = 512 x (the
+   activations' elements x 4 + 4), ``comm_bytes`` and ``sim_time`` as in
+   phase 5, the merged model at val acc >= 0.5 and val loss <= ln 10 -
+   0.5, and no hand-written kernel
+   launched (the reference's vision path reaches no Pallas kernel); each
+   arch's phase walls beside the card's name and power limit, then one
+   server step at batch 32 from the trained state, timed and profiled as
+   in phase 6.
+10. Vision experiment: the four smoke classifiers through
+   ``run_experiment`` on the card and on the CPU from the same CPU-seeded
+   init (lr ``VISION_EXPERIMENT_LR``): losses within 1e-4 relative,
+   accuracies within 1e-2, ``comm_bytes`` and ``sim_time`` equal, with
+   TF32 off for cuBLAS and cuDNN (the tolerance assumes it), as the
+   port's entry points set it (``repro_torch.device.pin_fp32``): the
+   script leaves PyTorch's flags alone, logs them at the start and fails
+   if either is still on after the runs.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -93,8 +121,8 @@ accumulation in another order).
 
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
-sum over the path runs of 5, 7 and 8, ``launches_by_path`` each run's
-count; the attention rows are the bf16 tensor-core kernels,
+sum over the path runs of 5 (the int8 run too), 7, 8, 9 and 10,
+``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
 pass count and fp32-FMA bound); the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
@@ -207,6 +235,29 @@ MAIN_PATHS = {
         "ssd_intra", "ssd_intra_bwd", "xent_fwd", "xent_bwd")),
 }
 SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
+INT8_ARCH = "qwen3-1.7b"     # its main path runs again with int8 payloads
+# phase 9: the paper's classifiers at their published configs, with
+# examples/quickstart.py's federation (8 clients, cohort 4, H 8, device
+# batch 16, server batch 32, Dirichlet 0.33, momentum, inverse_time)
+VISION_ARCHS = ("mobilenet-l", "vgg11", "vit-s", "swin-t")
+# each arch's rate: the lowest final merged val loss after 8 server epochs
+# over lr 0.2 to 0.0005 (scripts/torch_vision_lr_probe.py on the card;
+# PERF.md): at 0.2 the server phase of mobilenet-l, vit-s and swin-t
+# diverges and vgg11 never trains (heavy-ball momentum 0.9 from a random
+# server block, no warm-up, no clipping)
+VISION_LR = {"mobilenet-l": 0.01, "vgg11": 0.005, "vit-s": 0.0005,
+             "swin-t": 0.005}
+VISION_ARGS = ["--clients", "8", "--cohort", "4", "--local-steps", "8",
+               "--batch-size", "16", "--server-batch", "32", "--alpha",
+               "0.33", "--seed", "0"]
+VISION_TRAIN, VISION_EVAL = 512, 128
+VISION_ROUNDS, VISION_EPOCHS = 2, 12
+# the merged model must have learnt the classes: accuracy 5x chance and
+# val loss 0.5 under ln 10 (an untrained one sits near 0.1 and ln 10)
+VISION_MIN_ACC, VISION_LOSS_MARGIN = 0.5, 0.5
+# phase 10: the smoke configs through run_experiment, card against CPU, at
+# one rate at which all four train at this size (ViT/Swin diverge at 0.2)
+VISION_EXPERIMENT_LR = 0.05
 TRAIN_SAMPLES = 64
 EVAL_SAMPLES = 8
 DEVICE_ROUNDS = 2
@@ -704,13 +755,18 @@ def read_launches() -> dict:
     return out
 
 
-def main_path(dev, arch):
+def main_path(dev, arch, quantize=False):
+    """One main path through the launcher; with ``quantize`` the store
+    keeps and ships int8 activations (one fp32 scale a row).  Returns the
+    launches and the history."""
     spec = MAIN_PATHS[arch]
     seq, lr = spec["seq"], spec["lr"]
     cfg = registry.get_config(arch)
     argv = ["--arch", arch, "--clients", "4", "--cohort", "2",
             "--local-steps", "2", "--batch-size", "4", "--server-batch", "8",
             "--seq-len", str(seq), "--lr", str(lr), "--seed", "0"]
+    if quantize:
+        argv.append("--quantize-acts")
     largs = launch_train.make_parser().parse_args(argv)
     train = full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
     evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
@@ -724,14 +780,20 @@ def main_path(dev, arch):
     launches = read_launches()
     hist = out["history"]
     nbytes = out["store"].bytes_received
-    log("main_path", arch=cfg.name, layers=cfg.num_layers,
+    log("main_path_int8" if quantize else "main_path", arch=cfg.name,
+        layers=cfg.num_layers,
         d_model=cfg.d_model, vocab=cfg.vocab_size, seq=seq, lr=lr,
         seconds=out["seconds"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         device=hist["device"], server=hist["server"], launches=launches,
         comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
         bytes_received=nbytes)
-    check_accounting(cfg, run_cfg, seq, hist, out["store"])
+    # a sample ships (seq x d_model) activations, fp32 or int8 with one
+    # fp32 scale per token, and its seq int32 labels
+    per_sample = (seq * cfg.d_model + seq * 4 if quantize
+                  else seq * cfg.d_model * 4) + seq * 4
+    check_accounting(cfg, run_cfg, seq, hist, out["store"],
+                     TRAIN_SAMPLES * per_sample)
     losses = [r[k] for ph in ("device", "server") for r in hist[ph]
               for k in ("loss", "val_loss")]
     if len(hist["device"]) != DEVICE_ROUNDS or \
@@ -750,28 +812,56 @@ def main_path(dev, arch):
               out["merged_params"]["embed"].items()}
     if shapes != {"table": (cfg.vocab_size, cfg.d_model)}:
         raise AssertionError(f"merged params: unexpected {shapes}")
+    return launches, hist
+
+
+def int8_main_path(dev, fp32_hist):
+    """The int8 main path against the fp32 one from the same init: the
+    upload shrinks to int8 payloads, and ``comm_bytes`` and ``sim_time``
+    fall by exactly that upload's bytes and their time on the link."""
+    launches, hist = main_path(dev, INT8_ARCH, quantize=True)
+    cfg = registry.get_config(INT8_ARCH)
+    seq = MAIN_PATHS[INT8_ARCH]["seq"]
+    fp32_bytes = TRAIN_SAMPLES * (seq * cfg.d_model * 4 + seq * 4)
+    int8_bytes = TRAIN_SAMPLES * (seq * cfg.d_model + seq * 4 + seq * 4)
+    saved = fp32_bytes - int8_bytes
+    comm_ok = hist["comm_bytes"] == fp32_hist["comm_bytes"] - saved
+    time_moved = fp32_hist["sim_time"] - hist["sim_time"]
+    time_ok = math.isclose(time_moved, saved / comm_model.BANDWIDTH_BPS,
+                           rel_tol=1e-9)
+    log("int8_vs_fp32", arch=INT8_ARCH, fp32_bytes=fp32_bytes,
+        int8_bytes=int8_bytes, comm_bytes_fp32=fp32_hist["comm_bytes"],
+        comm_bytes_int8=hist["comm_bytes"], sim_time_moved_s=time_moved,
+        upload_s_saved=saved / comm_model.BANDWIDTH_BPS,
+        comm_ok=comm_ok, time_ok=time_ok)
+    if not (comm_ok and time_ok):
+        raise AssertionError("int8 main path: comm_bytes / sim_time do not "
+                             "move by the upload's bytes")
     return launches
 
 
-def check_accounting(cfg, run_cfg, seq, hist, store):
-    """The main path's bytes and simulated time, recomputed from the
-    port's comm model at full width (analytic: no device number)."""
+def check_accounting(cfg, run_cfg, seq, hist, store, want_bytes, *,
+                     rounds=DEVICE_ROUNDS, epochs=SERVER_EPOCHS):
+    """A path's bytes and simulated time, recomputed from the port's comm
+    model at full width (analytic: no device number): the store holds
+    ``want_bytes``, ``comm_bytes`` = rounds x 2K(s_d + s_aux) + those
+    bytes, ``sim_time`` = the rounds' slowest clients + the upload + the
+    server epochs, in the Runner's order."""
     nbytes = store.bytes_received
-    want_bytes = TRAIN_SAMPLES * (seq * cfg.d_model * 4 + seq * 4)
     sizes = comm_model.split_sizes(build_model(cfg), run_cfg.split,
                                    seq_len=seq)
     K = run_cfg.fed.clients_per_round
-    want_comm = DEVICE_ROUNDS * 2 * K * (sizes.device + sizes.aux) + nbytes
+    want_comm = rounds * 2 * K * (sizes.device + sizes.aux) + nbytes
     rng = np.random.default_rng(run_cfg.fed.seed)
     want_time = 0.0              # summed in the Runner's order
-    for rnd in range(DEVICE_ROUNDS):
+    for rnd in range(rounds):
         want_time += aggregation.sample_cohort(rng, run_cfg.fed,
                                                rnd)["round_time"]
     want_time += nbytes / comm_model.BANDWIDTH_BPS
     epoch_s = comm_model.ampere_server_epoch_time(
         build_model(cfg), run_cfg.split, comm_model.TimeModel(),
         n_samples=store.num_samples(), seq_len=seq, sizes=sizes)
-    for _ in range(SERVER_EPOCHS):
+    for _ in range(epochs):
         want_time += epoch_s
     got = (nbytes, hist["comm_bytes"], hist["sim_time"])
     want = (want_bytes, want_comm, want_time)
@@ -855,6 +945,141 @@ def experiment(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: the paper's vision classifiers
+# ---------------------------------------------------------------------------
+
+
+def profile_vision_step(dev, model, run_cfg, out):
+    """A server train step at the server batch from the trained server
+    state over the store's first samples, profiled by
+    :func:`profile_server_step`."""
+    step = steps.make_server_train_step(model, run_cfg)
+    bs = run_cfg.fed.server_batch_size
+    batch = {k: torch.as_tensor(v[:bs], device=dev)
+             for k, v in out["store"].pool().items()}
+    state = steps.init_server_state(model, run_cfg,
+                                    out["server_state"]["server"])
+    profile_server_step(dev, f"vision:{model.cfg.name}", step, state, batch,
+                        batch=bs)
+
+
+def vision_run(dev, arch, lr, epochs=None):
+    """One paper classifier at its published config through the launcher
+    at ``lr`` (``epochs`` server epochs, ``VISION_EPOCHS`` by default):
+    (run_cfg, the launcher's result, launches)."""
+    cfg = registry.get_config(arch)
+    largs = launch_train.make_parser().parse_args(
+        ["--arch", arch, *VISION_ARGS, "--lr", str(lr)])
+    run_cfg = launch_train.build_run_cfg(largs)
+    model = build_model(cfg)
+    train = make_dataset_for_model(model, VISION_TRAIN, seed=0)
+    evald = make_dataset_for_model(model, VISION_EVAL, seed=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = launch_train.run_training(
+        cfg, run_cfg, train, evald, device=dev, device_rounds=VISION_ROUNDS,
+        server_epochs=epochs or VISION_EPOCHS)
+    return run_cfg, out, read_launches()
+
+
+def vision_path(dev, arch):
+    """``vision_run`` at ``VISION_LR``: finite losses, the store's and the
+    comm model's bytes and times, the merged model through the gate
+    (``VISION_MIN_ACC``, ``VISION_LOSS_MARGIN`` under ln(classes)), and
+    no hand-written kernel launched (the reference's vision path reaches
+    no Pallas kernel)."""
+    cfg = registry.get_config(arch)
+    model = build_model(cfg)
+    lr = VISION_LR[arch]
+    run_cfg, out, launches = vision_run(dev, arch, lr)
+    hist = out["history"]
+    acts = model.activation_spec(1, split_point=run_cfg.split.split_point,
+                                 dtype="float32")
+    log("vision", arch=cfg.name, family=cfg.family, layers=cfg.num_layers,
+        lr=lr, act_shape=list(acts.shape[1:]), seconds=out["seconds"],
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        device=hist["device"], server=hist["server"],
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        bytes_received=out["store"].bytes_received,
+        launches=sum(launches.values()), card=card_line())
+    check_accounting(cfg, run_cfg, 0, hist, out["store"],
+                     VISION_TRAIN * (math.prod(acts.shape) * 4 + 4),
+                     rounds=VISION_ROUNDS, epochs=VISION_EPOCHS)
+    losses = [r[k] for ph in ("device", "server") for r in hist[ph]
+              for k in ("loss", "val_loss")]
+    if len(hist["device"]) != VISION_ROUNDS or \
+            len(hist["server"]) != VISION_EPOCHS or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: history not finite/complete: {hist}")
+    last = hist["server"][-1]
+    if not (last["val_acc"] >= VISION_MIN_ACC and last["val_loss"] <=
+            math.log(cfg.num_classes) - VISION_LOSS_MARGIN):
+        raise AssertionError(
+            f"{arch}: merged model below the gate (acc >= {VISION_MIN_ACC}, "
+            f"val loss <= ln {cfg.num_classes} - {VISION_LOSS_MARGIN}): "
+            f"{hist}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: the vision path launched a "
+                             f"hand-written kernel: {launches}")
+    profile_vision_step(dev, model, run_cfg, out)
+    return launches
+
+
+def vision_spec(arch, results_dir) -> ExperimentSpec:
+    run = RunConfig(arch=arch, fed=FedConfig(**EXPERIMENT_FED),
+                    optim=OptimConfig(name="momentum",
+                                      lr=VISION_EXPERIMENT_LR,
+                                      schedule="inverse_time",
+                                      decay_gamma=0.005))
+    return ExperimentSpec(
+        name=f"chip_smoke_{arch}", arch=arch, smoke=True, run=run,
+        data=DataSpec(train_samples=64, eval_samples=16),
+        max_rounds=2, max_server_epochs=2, patience=50,
+        results_dir=str(results_dir))
+
+
+def vision_experiment(dev):
+    """The four smoke classifiers through run_experiment on the card and
+    on the CPU from the same CPU-seeded init: losses within 1e-4
+    relative, accuracies within 1e-2, comm_bytes and sim_time equal (TF32
+    is off for cuBLAS and cuDNN, which this tolerance assumes)."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in VISION_ARCHS:
+            reset_launches()
+            card = run_experiment(vision_spec(arch, tmp), device=dev,
+                                  write_results=False)
+            for name, n in read_launches().items():
+                launches[name] = launches.get(name, 0) + n
+            cpu = run_experiment(vision_spec(arch, tmp), device="cpu",
+                                 write_results=False)
+            h_card, h_cpu = (o["results"]["ampere"]["history"]
+                             for o in (card, cpu))
+            log("vision_experiment", arch=f"{arch}-smoke", card=h_card,
+                cpu=h_cpu, rel_tol=1e-4)
+            _histories_close(h_card, h_cpu, f"{arch} smoke card vs cpu")
+            for key in ("comm_bytes", "sim_time"):
+                if h_card[key] != h_cpu[key]:
+                    raise AssertionError(f"{arch} smoke {key}: "
+                                         f"{h_card[key]} vs {h_cpu[key]}")
+    if any(launches.values()):
+        raise AssertionError(f"vision experiment launched a hand-written "
+                             f"kernel: {launches}")
+    flags = tf32_flags()
+    log("precision", **flags)
+    if any(flags.values()):
+        raise AssertionError(f"TF32 on after the port's entry points: "
+                             f"{flags}")
+    return launches
+
+
+def tf32_flags() -> dict:
+    return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cublas_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
 def _flat(tree, path=""):
     """(path, leaf) pairs of a nested dict/list of tensors."""
     if isinstance(tree, (list, tuple)):
@@ -902,6 +1127,17 @@ def _union_us(intervals):
 
 
 def profile_step(dev, arch):
+    """One server train step of an LM main path at its shape (8 x seq),
+    profiled by :func:`profile_server_step`."""
+    model, run_cfg, srv, batch = server_step_inputs(dev, arch)
+    step = steps.make_server_train_step(model, run_cfg, impl="kernel")
+    state = steps.init_server_state(model, run_cfg, srv)
+    del srv
+    profile_server_step(dev, arch, step, state, batch,
+                        seq=MAIN_PATHS[arch]["seq"], batch=8)
+
+
+def profile_server_step(dev, arch, step, state, inputs, **shape):
     """One server train step under torch.profiler, after one untimed step
     and PROFILE_STEPS steps timed without the profiler (CUDA events; the
     profiler's CPU tracing slows the host's ~10^4 launches a step, so its
@@ -911,18 +1147,14 @@ def profile_step(dev, arch):
     intervals over the unprofiled step's median time (kernel durations do
     not depend on the host), with the share over the profiled step's wall
     time beside it, and the peak memory of the timed steps."""
-    model, run_cfg, srv, batch = server_step_inputs(dev, arch)
-    step = steps.make_server_train_step(model, run_cfg, impl="kernel")
-    state = steps.init_server_state(model, run_cfg, srv)
-    del srv
-    state, _ = step(state, batch)
+    state, _ = step(state, inputs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = []
     for _ in range(PROFILE_STEPS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        state, _ = step(state, batch)
+        state, _ = step(state, inputs)
         end.record()
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
@@ -932,7 +1164,7 @@ def profile_step(dev, arch):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = step(state, inputs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     loss = float(m["loss"])
@@ -946,7 +1178,7 @@ def profile_step(dev, arch):
                            n + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
     if device_ms <= 0:
-        log("profile", arch=arch, wall_s=wall, loss=loss,
+        log("profile", arch=arch, **shape, wall_s=wall, loss=loss,
             step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
             peak_mem_gib=peak_gib, device_time="not measured",
             device_busy_share="not measured")
@@ -957,7 +1189,7 @@ def profile_step(dev, arch):
     ssd = {name: v for name, v in by_name.items() if "ssd_" in name}
     ssd_ms = sum(ms for ms, _ in ssd.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
-    log("profile", arch=arch, seq=MAIN_PATHS[arch]["seq"], batch=8,
+    log("profile", arch=arch, **shape,
         step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
         wall_s=wall, loss=loss, peak_mem_gib=peak_gib, device_ms=device_ms,
         device_union_ms=union_ms,
@@ -1062,12 +1294,11 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     log("card", nvidia_smi=card, torch=torch.__version__,
-        cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0))
+        cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+        **tf32_flags())
     t = time.perf_counter()
     path = build_with_ptxas_report()
     log("build", seconds=time.perf_counter() - t, library=str(path))
@@ -1123,9 +1354,17 @@ def main() -> int:
 
     for arch in MAIN_PATHS:
         smoke_reference(dev, arch)
-    by_path = {arch: main_path(dev, arch) for arch in MAIN_PATHS}
+    by_path, hists = {}, {}
+    for arch in MAIN_PATHS:
+        by_path[arch], hists[arch] = main_path(dev, arch)
+    torch.cuda.empty_cache()
+    by_path[f"{INT8_ARCH}:int8"] = int8_main_path(dev, hists[INT8_ARCH])
     torch.cuda.empty_cache()
     by_path["experiment"] = experiment(dev)
+    torch.cuda.empty_cache()
+    for arch in VISION_ARCHS:
+        by_path[f"vision:{arch}"] = vision_path(dev, arch)
+    by_path["vision_experiment"] = vision_experiment(dev)
     torch.cuda.empty_cache()
     for arch in MAIN_PATHS:
         profile_step(dev, arch)

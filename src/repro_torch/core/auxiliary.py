@@ -1,12 +1,15 @@
-"""Lightweight auxiliary network (Ampere §3.2.2), LM path, as
+"""Lightweight auxiliary network (Ampere §3.2.2), as
 ``repro.core.auxiliary``.
 
 theta~(d) connects the device block's output to a local loss so the device
-trains with no server gradients: layer 1 is a clone of the first
+trains with no server gradients.  Layer 1 is a clone of the first
 server-block layer (layer p) with its internal widths scaled by
-``aux_ratio`` (residual width kept), layer 2 is the LM head — tied to the
-device-side embedding table by default, or a dense (D, V) head with
-``aux_head="dense"``.
+``aux_ratio``.  LM: the residual width is kept, and layer 2 is the LM
+head — tied to the device-side embedding table by default, or a dense
+(D, V) head with ``aux_head="dense"``.  Vision: ViT and Swin keep
+``d_model`` and scale the heads and MLP; a CNN clone scales its output
+channels and exists only while ``p < num_layers``; layer 2 is GAP + FC
+to the classes.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import losses
+from repro_torch.models import cnn as CNN
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models import vit as VIT
+from repro_torch.models.model_api import apply_vision_layer, is_vit
 
 
 def scaled_lm_cfg(cfg, ratio: float):
@@ -45,6 +51,8 @@ def resolve_aux_head(split_cfg) -> str:
 
 def init_aux(model, gen, split_cfg, device="cpu"):
     """Build theta~(d) for splitting ``model`` at split_cfg.split_point."""
+    if model.kind != "lm":
+        return _init_vision_aux(model.cfg, gen, split_cfg, device)
     cfg = model.cfg
     aux = {}
     if split_cfg.aux_clone_first_server_layer:
@@ -57,11 +65,42 @@ def init_aux(model, gen, split_cfg, device="cpu"):
     return aux
 
 
+def _init_vision_aux(cfg, gen, split_cfg, device):
+    p, ratio = split_cfg.split_point, split_cfg.aux_ratio
+    clone = split_cfg.aux_clone_first_server_layer
+    aux = {}
+    if is_vit(cfg):
+        if clone:
+            aux["block"] = VIT.init_vit_layer(gen, cfg, max(1, p),
+                                              in_dim=cfg.d_model,
+                                              width_scale=ratio,
+                                              device=device)
+        aux["head"] = CNN.init_head(gen, cfg, cfg.d_model, device)
+        return aux
+    in_ch = CNN.cnn_channels(cfg, p - 1) if p > 0 else cfg.in_channels
+    out_ch = in_ch
+    if clone and p < cfg.num_layers:
+        aux["block"] = CNN.init_vision_layer(gen, cfg, p, in_ch=in_ch,
+                                             width_scale=ratio, device=device)
+        out_ch = CNN.cnn_channels(cfg, p, ratio)
+    aux["head"] = CNN.init_head(gen, cfg, out_ch, device)
+    return aux
+
+
 def aux_hidden(model, aux_params, activations, split_cfg, *, positions=None,
                impl="kernel"):
     """Run the aux layer-1 clone (if present) over split activations."""
     cfg = model.cfg
     x = activations.to(L.dt(cfg.dtype))
+    if model.kind != "lm":
+        if "block" not in aux_params:
+            return x
+        p = split_cfg.split_point
+        if is_vit(cfg):
+            _, heads, _ = VIT.vit_scaled_dims(cfg, split_cfg.aux_ratio)
+            return apply_vision_layer(cfg, aux_params["block"], x, max(1, p),
+                                      heads=heads)
+        return apply_vision_layer(cfg, aux_params["block"], x, p)
     if "block" in aux_params:
         acfg = scaled_lm_cfg(cfg, split_cfg.aux_ratio)
         B, S = x.shape[:2]
@@ -75,9 +114,13 @@ def aux_hidden(model, aux_params, activations, split_cfg, *, positions=None,
 def aux_loss(model, aux_params, device_params, activations, batch, split_cfg,
              *, positions=None, impl="kernel"):
     """Local loss F_k^(d) (Eq. 8): aux network over the device-block
-    activations against the next tokens.  Returns (loss, metrics)."""
+    activations against the next tokens or the labels.  Returns (loss,
+    metrics)."""
     h = aux_hidden(model, aux_params, activations, split_cfg,
                    positions=positions, impl=impl)
+    if model.kind != "lm":
+        logits = CNN.apply_head(model.cfg, aux_params["head"], h)
+        return losses.classification_loss(logits, batch["labels"])
     if resolve_aux_head(split_cfg) == "dense":
         head_w = aux_params["head"]["w"]
     else:

@@ -1,6 +1,5 @@
 """Analytic communication/computation cost model (paper §4.2, Eqs. 5,
-27-31) and the wall-time simulator, as ``repro.core.comm_model`` for the
-LM families.
+27-31) and the wall-time simulator, as ``repro.core.comm_model``.
 
 Every byte count is exact: sizes come from a parameter tree initialized
 on PyTorch's ``meta`` device (shapes and dtypes, no storage), where the
@@ -9,8 +8,8 @@ config without allocating it.  Counts are Python ints and times Python
 floats, computed in the reference's order, so both packages give the
 same numbers bit for bit.  The hardware constants are the paper's
 testbed (Jetson Nano devices, 50 Mbps device-server links, an A6000
-server).  The vision branches wait for the vision archs (ROADMAP.md
-queue A3).
+server).  A vision model counts one "token" a sample, and its
+activations' shape comes from running layers [0, p) on ``meta``.
 """
 
 from __future__ import annotations
@@ -41,11 +40,9 @@ def abstract_params(model):
     return model.init(torch.Generator(), "meta")
 
 
-def _lm_only(model):
-    if model.kind != "lm":
-        raise NotImplementedError(
-            f"comm_model: {model.cfg.name} is a vision arch; its branches "
-            "come with the vision models (ROADMAP.md queue A3)")
+def _tokens(model, seq_len: int) -> int:
+    """Tokens a sample: the sequence for an LM, 1 for a classifier."""
+    return seq_len if model.kind == "lm" else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,24 +60,29 @@ class SplitSizes:
 
 def split_sizes(model, split_cfg, *, seq_len: int = 0,
                 act_dtype_bytes: Optional[int] = None) -> SplitSizes:
-    _lm_only(model)
     p = split_cfg.split_point
     params = abstract_params(model)
     dev, srv = model.split_params(params, p)
     aux = auxiliary.init_aux(model, torch.Generator(), split_cfg, "meta")
     cfg = model.cfg
-    P = cfg.pattern_period
-    per_layer = [tree_bytes(splitting.loose_layer(params["blocks"], i, P))
-                 for i in range(cfg.num_layers)]
-    embed = tree_bytes(params["embed"])
-    head = tree_bytes({k: params[k] for k in ("final_norm", "head")
-                       if k in params})
     # one sample's activations at the cut, shipped at ``ab`` bytes an
-    # element, and its token labels
+    # element, and its labels (the tokens, or one int32 class)
     acts = model.activation_spec(1, seq_len, split_point=p, dtype="float32")
-    labels = model.input_spec(1, seq_len)
     ab = act_dtype_bytes or DTYPE_BYTES
-    act = acts.numel() * ab + labels.numel() * labels.element_size()
+    if model.kind == "lm":
+        P = cfg.pattern_period
+        per_layer = [tree_bytes(splitting.loose_layer(params["blocks"], i, P))
+                     for i in range(cfg.num_layers)]
+        embed = tree_bytes(params["embed"])
+        head = tree_bytes({k: params[k] for k in ("final_norm", "head")
+                           if k in params})
+        labels = model.input_spec(1, seq_len)
+        act = acts.numel() * ab + labels.numel() * labels.element_size()
+    else:
+        per_layer = [tree_bytes(lp) for lp in params["layers"]]
+        embed = 0
+        head = tree_bytes(params["head"])
+        act = acts.numel() * ab + 4
     return SplitSizes(
         device=tree_bytes(dev), aux=tree_bytes(aux), server=tree_bytes(srv),
         act_per_sample=act, per_layer=tuple(per_layer), head=head,
@@ -145,11 +147,10 @@ def device_flops_per_sample(model, split_cfg, algo: str, *,
                             sizes: Optional[SplitSizes] = None) -> float:
     """Training FLOPs executed ON THE DEVICE per sample (fwd+bwd ~ 3x fwd):
     6 * params_on_device per token."""
-    _lm_only(model)
     sizes = sizes or split_sizes(model, split_cfg, seq_len=max(seq_len, 1))
     dev_params = sizes.device / 4            # fp32 bytes -> param count
     aux_params = sizes.aux / 4
-    tokens = seq_len
+    tokens = _tokens(model, seq_len)
     if algo == "fedavg":
         total = (sizes.device + sizes.server) / 4
         return 6.0 * total * tokens
@@ -170,13 +171,12 @@ class TimeModel:
 def _epoch_terms(algo, model, split_cfg, tm, n_samples, seq_len, sizes):
     """The reference's per-epoch terms, each formed in its order:
     (sizes, t_dev, t_srv, t_model_x, t_act, tokens)."""
-    _lm_only(model)
     sizes = sizes or split_sizes(model, split_cfg, seq_len=max(seq_len, 1))
     fl_dev = device_flops_per_sample(model, split_cfg, algo, seq_len=seq_len,
                                      sizes=sizes)
     t_dev = fl_dev * n_samples / (tm.device_gflops * 1e9 * tm.speed_factor)
     srv_params = sizes.server / 4
-    tokens = seq_len
+    tokens = _tokens(model, seq_len)
     t_srv = 6.0 * srv_params * tokens * n_samples / (tm.server_gflops * 1e9)
     t_model_x = 2 * (sizes.device + (sizes.aux if algo in ("ampere", "splitgp")
                                      else 0)) / tm.bandwidth
@@ -213,9 +213,8 @@ def epoch_time(algo: str, model, split_cfg, tm: TimeModel, *,
 def ampere_server_epoch_time(model, split_cfg, tm: TimeModel, *,
                              n_samples: int, seq_len: int = 0,
                              sizes: Optional[SplitSizes] = None) -> float:
-    _lm_only(model)
     sizes = sizes or split_sizes(model, split_cfg, seq_len=max(seq_len, 1))
-    tokens = seq_len
+    tokens = _tokens(model, seq_len)
     return (6.0 * (sizes.server / 4) * tokens * n_samples
             / (tm.server_gflops * 1e9))
 

@@ -1,7 +1,8 @@
 """Evaluation of the merged model (validation metrics of the server
-phase), as ``repro.core.evaluate`` for the LM path: full (B, S, V) logits,
-next-token loss and accuracy; and :class:`EarlyStopper`, the paper's
-patience rule on those metrics."""
+phase), as ``repro.core.evaluate``: for an LM full (B, S, V) logits,
+next-token loss and accuracy, for a classifier the cross-entropy and
+accuracy over the labels; and :class:`EarlyStopper`, the paper's patience
+rule on those metrics."""
 
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ from repro_torch.core import losses
 
 @torch.no_grad()
 def eval_step(model, params, batch):
+    if model.kind != "lm":
+        out = model.apply(params, batch["images"])
+        loss, m = losses.classification_loss(out["logits"], batch["labels"])
+        return loss, m["acc"]
     out = model.apply(params, batch["tokens"], remat="none")
     loss, _ = losses.lm_loss_from_logits(out["logits"], batch["tokens"])
     pred = torch.argmax(out["logits"][:, :-1], dim=-1)

@@ -1,10 +1,21 @@
-"""Loss functions of the LM path."""
+"""Loss functions of the LM and vision paths."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.xent import ops as xent_ops
+
+
+def classification_loss(logits, labels):
+    """Softmax CE for the vision path: logits (B, C), labels (B,) int.
+    Returns (loss, {"loss", "acc"})."""
+    logf = logits.float()
+    lse = torch.logsumexp(logf, dim=-1)
+    corr = torch.gather(logf, -1, labels.long()[:, None])[:, 0]
+    loss = torch.mean(lse - corr)
+    acc = torch.mean((torch.argmax(logf, -1) == labels.long()).float())
+    return loss, {"loss": loss, "acc": acc}
 
 
 def lm_loss_from_hidden(hidden, head_w, tokens, *, softcap: float = 0.0,

@@ -1,4 +1,4 @@
-"""Split-point machinery (Ampere §3.2.1), static cut, LM path.
+"""Split-point machinery (Ampere §3.2.1), static cut.
 
 Splits a model at layer ``p`` into a *device block* (embedding + layers
 [0, p)) and a *server block* (layers [p, L) + final norm + head), provides
@@ -7,7 +7,9 @@ end-to-end evaluation — as ``repro.core.splitting``, with the same trees:
 the device block carries its layers as a list of loose per-layer trees,
 the server block keeps loose ``layers_head`` for the partial leading
 period plus the stacked trailing repetitions, and a tied head is
-materialized as an untied (D, V) head at split time.
+materialized as an untied (D, V) head at split time.  A vision model's
+halves are ``{"layers": [...]}`` and ``{"layers": [...], "head": ...}``,
+and its server forward returns the logits.
 
 Heterogeneous cuts (``loose_until``, ``entry``) are the fleet slice.
 """
@@ -19,7 +21,9 @@ import dataclasses
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import model_api as M
 from repro_torch.models import transformer as T
+from repro_torch.models.cnn import apply_head
 
 
 def loose_layer(blocks, layer_idx: int, period: int):
@@ -35,6 +39,10 @@ def _stack(trees):
 
 def split_params(model, params, p: int):
     cfg = model.cfg
+    if model.kind != "lm":
+        return ({"layers": list(params["layers"][:p])},
+                {"layers": list(params["layers"][p:]),
+                 "head": params["head"]})
     P = cfg.pattern_period
     R = cfg.num_layers // P
     r0 = -(-p // P)  # first complete repetition owned by the server
@@ -59,7 +67,7 @@ def merged_config(model):
     """Config of the merged model: tied archs become untied because the
     server head was materialized at split time."""
     cfg = model.cfg
-    if cfg.tie_embeddings:
+    if model.kind == "lm" and cfg.tie_embeddings:
         return dataclasses.replace(cfg, tie_embeddings=False)
     return cfg
 
@@ -68,6 +76,9 @@ def merge_params(model, device, server, p: int):
     """Re-assemble a full parameter tree from the two halves (the loose /
     stacked boundary comes from ``len(server["layers_head"])``)."""
     cfg = model.cfg
+    if model.kind != "lm":
+        return {"layers": list(device["layers"][:p]) + list(server["layers"]),
+                "head": server["head"]}
     P = cfg.pattern_period
     R = cfg.num_layers // P
     lh_end = p + len(server["layers_head"])
@@ -91,6 +102,11 @@ def device_forward(model, device_params, inputs, p: int, *, positions=None,
                    impl="kernel", remat: str = "none"):
     """Embedding + layers [0, p) -> activations xi (the one-shot payload)."""
     cfg = model.cfg
+    if model.kind != "lm":
+        x = inputs
+        for i in range(p):
+            x = M.apply_vision_layer(cfg, device_params["layers"][i], x, i)
+        return x
     B, S = inputs.shape
     x = L.embed(device_params["embed"], inputs, cfg.dtype,
                 multiplier=cfg.embedding_multiplier)
@@ -104,10 +120,16 @@ def device_forward(model, device_params, inputs, p: int, *, positions=None,
 
 def server_forward(model, server_params, activations, p: int, *,
                    positions=None, impl="kernel", remat="block"):
-    """Layers [p, L) + final norm; the head weight is exposed separately."""
+    """Layers [p, L) + final norm, the head weight exposed separately; a
+    vision model's layers [p, L) and head, with its logits."""
     cfg = model.cfg
-    B, S = activations.shape[:2]
     x = activations.to(L.dt(cfg.dtype))
+    if model.kind != "lm":
+        for k, lp in enumerate(server_params["layers"]):
+            x = M.apply_vision_layer(cfg, lp, x, p + k)
+        return {"hidden": x,
+                "logits": apply_head(cfg, server_params["head"], x)}
+    B, S = activations.shape[:2]
     if positions is None:
         positions = T.default_positions(cfg, B, S, x.device)
     fn = T.checkpointed_block_apply if remat == "block" else T.block_apply

@@ -21,6 +21,7 @@ from repro_torch.core import aggregation, auxiliary, losses, splitting
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models.layers import dt
 from repro_torch.optim import clip_by_global_norm, make_optimizer, make_schedule
+from repro_torch.runtime import compression
 
 
 def _leaves_requiring_grad(tree):
@@ -51,8 +52,8 @@ def make_client_round_fn(model, run_cfg, *, impl="kernel"):
     H = run_cfg.fed.local_steps
 
     def local_loss(device_params, aux_params, batch):
-        acts = splitting.device_forward(model, device_params, batch["tokens"],
-                                        p, impl=impl)
+        acts = splitting.device_forward(model, device_params,
+                                        batch[model.input_key], p, impl=impl)
         loss, _ = auxiliary.aux_loss(model, aux_params, device_params, acts,
                                      batch, split_cfg, impl=impl)
         return loss
@@ -111,8 +112,13 @@ def make_server_train_step(model, run_cfg, *, impl="kernel"):
     remat = run_cfg.sharding.remat
 
     def loss_fn(server_params, batch):
-        out = splitting.server_forward(model, server_params, batch["acts"], p,
+        acts = batch["acts"]
+        if "acts_scale" in batch:   # an int8 payload, quantized until here
+            acts = compression.dequantize_int8(acts, batch["acts_scale"])
+        out = splitting.server_forward(model, server_params, acts, p,
                                        impl=impl, remat=remat)
+        if model.kind != "lm":
+            return losses.classification_loss(out["logits"], batch["labels"])
         return losses.lm_loss_from_hidden(
             out["hidden"], splitting.server_head_weight(server_params),
             batch["tokens"], softcap=cfg.final_softcap,
@@ -148,7 +154,8 @@ def init_server_state(model, run_cfg, server_params):
 def make_server_epoch_fn(model, run_cfg, *, impl="kernel"):
     """``epoch_fn(state, pool, idx)``: one server epoch over ``idx``, an
     (nb, batch) index matrix into the device-resident consolidated
-    ``pool``; returns the new state and the (nb,) per-batch losses."""
+    ``pool`` (an int8 payload stays quantized there; the step dequantizes
+    each batch); returns the new state and the (nb,) per-batch losses."""
     step = make_server_train_step(model, run_cfg, impl=impl)
 
     def epoch_fn(state, pool, idx):

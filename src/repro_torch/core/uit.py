@@ -22,10 +22,12 @@ auxiliary network down and up for every cohort client
 transport), the upload moves the store's bytes once, and the clock adds
 the round's slowest client, the upload over the testbed link and each
 server epoch's analytic compute time.  History records and totals match
-the JAX trainer's.  A pool above ``run.device_pool_budget_mb`` raises
-(the reference's host-streaming fallbacks are not ported).  Transport,
-observability, streaming, fleet, heterogeneous cuts and int8 activations
-are later slices (ROADMAP.md).
+the JAX trainer's.  With ``run.split.quantize_activations`` the store
+keeps int8 payloads, the upload moves those bytes, and the server pool
+stays int8 on the device (its step dequantizes each batch).  A pool above
+``run.device_pool_budget_mb`` raises (the reference's host-streaming
+fallbacks are not ported).  Transport, observability, streaming, fleet
+and heterogeneous cuts are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ class AmpereTrainer:
                                       seq_len=self._seq_len())
 
     def _seq_len(self) -> int:
+        if self.model.kind != "lm":
+            return 0
         return int(self.clients[0].dataset.arrays["tokens"].shape[1])
 
     def _one_way_bytes(self) -> int:
@@ -190,7 +194,7 @@ class AmpereTrainer:
             batch = self._tensors({k: v[s:s + bs] for k, v in
                                    self.eval_data.arrays.items()})
             acts = splitting.device_forward(self.model, dev_state["device"],
-                                            batch["tokens"], p)
+                                            batch[self.model.input_key], p)
             loss, m = auxiliary.aux_loss(self.model, dev_state["aux"],
                                          dev_state["device"], acts, batch,
                                          self.run.split)
@@ -204,19 +208,22 @@ class AmpereTrainer:
     @torch.no_grad()
     def generate_activations(self, dev_state, store: ActivationStore,
                              batch_size: int = 64):
-        """Every client's activations into ``store``; the one-shot upload
-        is priced as the reference's ``upload="serial"``: all stored bytes
-        through one shared server link."""
+        """Every client's activations into ``store``, with their labels
+        (the tokens, or the classes); the one-shot upload is priced as the
+        reference's ``upload="serial"``: all stored bytes (int8 ones when
+        the store quantizes) through one shared server link."""
         p = self.run.split.split_point
         for client in self.clients:
-            tokens = client.dataset.arrays["tokens"]
+            arrays = client.dataset.arrays
             for s in range(0, len(client.dataset), batch_size):
-                tok = tokens[s:s + batch_size]
+                inp = arrays[self.model.input_key][s:s + batch_size]
                 acts = splitting.device_forward(
                     self.model, dev_state["device"],
-                    torch.as_tensor(tok, device=self.device), p)
+                    torch.as_tensor(inp, device=self.device), p)
                 store.add(client.client_id,
-                          {"acts": acts.float().cpu().numpy(), "tokens": tok})
+                          {"acts": acts.float().cpu().numpy(),
+                           self.model.label_key: arrays[self.model.label_key][
+                               s:s + batch_size]})
         self.runner.account(
             comm_bytes=store.bytes_received,
             sim_time=store.bytes_received / comm_model.BANDWIDTH_BPS)
@@ -237,6 +244,7 @@ class AmpereTrainer:
         merged_model = build_model(splitting.merged_config(self.model))
         epochs = max_epochs if max_epochs is not None else run.fed.server_epochs
         bs = run.fed.server_batch_size
+        # an int8 pool is admitted, uploaded and kept as int8
         self._check_budget("server-phase activation pool", store.pool_nbytes())
         pool = self._tensors(store.pool())
         epoch_sim_time = comm_model.ampere_server_epoch_time(

@@ -1,6 +1,8 @@
 """Activation consolidation store (Ampere §3.2.3 + Algorithm 1 lines
-16-19), as ``repro.data.activation_store``: fp32 payloads, in memory and
-optionally persisted as disk shards.
+16-19), as ``repro.data.activation_store``: fp32 payloads, or int8 with
+one fp32 scale per row of the last axis (``quantize_int8``, beyond the
+paper: the one-shot transfer shrinks 4x), in memory and optionally
+persisted as disk shards.
 
 * The consolidated pool 𝒜 across all clients, in client insertion order;
   each client's own pool stays addressable through ``client_id=``.
@@ -14,8 +16,10 @@ optionally persisted as disk shards.
   order.
 
 ``add`` stores synchronously, in call order (the order the reference's
-writer thread keeps).  int8 payloads (ROADMAP.md queue A2), the writer
-thread, cut tags and the streaming ring are later slices.
+writer thread keeps).  ``pool`` keeps an int8 payload quantized, with its
+``acts_scale``, for the device-resident server phase, whose step
+dequantizes each batch (``runtime.compression.dequantize_int8``).  The
+writer thread, cut tags and the streaming ring are later slices.
 """
 
 from __future__ import annotations
@@ -29,12 +33,8 @@ import numpy as np
 class ActivationStore:
     def __init__(self, directory: Optional[str] = None,
                  quantize_int8: bool = False, seed: int = 0):
-        if quantize_int8:
-            raise NotImplementedError(
-                "int8 activation payloads are not ported yet (ROADMAP.md "
-                "queue A2)")
         self.dir = directory
-        self.quantize = False
+        self.quantize = quantize_int8
         self.rng = np.random.default_rng(seed)
         self._mem: Dict[int, List[dict]] = {}
         self.bytes_received = 0
@@ -50,27 +50,37 @@ class ActivationStore:
 
     @staticmethod
     def shard_nbytes(shard: dict, quantize: bool = False) -> int:
-        """Stored bytes for ``shard``: the fp32 payload plus every other
-        array that rides along (the labels)."""
-        if quantize:
-            raise NotImplementedError(
-                "int8 activation payloads (ROADMAP.md queue A2)")
+        """Stored bytes for ``shard`` under ``quantize``: the payload (fp32,
+        or int8 plus one fp32 scale a row) and every other array that
+        rides along (the labels)."""
         acts = np.asarray(shard["acts"])
-        return acts.size * 4 + sum(np.asarray(v).nbytes
-                                   for k, v in shard.items()
-                                   if k not in ("acts", "acts_scale"))
+        if quantize:
+            nbytes = acts.size + (acts.size // acts.shape[-1]) * 4
+        else:
+            nbytes = acts.size * 4
+        return nbytes + sum(np.asarray(v).nbytes for k, v in shard.items()
+                            if k not in ("acts", "acts_scale"))
 
     @staticmethod
     def prepare_shard(shard: dict, quantize: bool = False):
-        """Normalize one shard for storage: an fp32 payload.  Returns
-        ``(prepared_shard, stored_nbytes)``."""
-        if quantize:
-            raise NotImplementedError(
-                "int8 activation payloads (ROADMAP.md queue A2)")
+        """Normalize one shard for storage: an fp32 payload, or int8 and
+        its per-row absmax scale (the reference's numpy, so the stored
+        arrays are identical).  Returns ``(prepared_shard,
+        stored_nbytes)``."""
         shard = dict(shard)
-        shard["acts"] = np.asarray(shard["acts"]).astype(np.float32)
-        nbytes = shard["acts"].nbytes + sum(
-            np.asarray(v).nbytes for k, v in shard.items() if k != "acts")
+        acts = np.asarray(shard["acts"])
+        if quantize:
+            scale = np.abs(acts).max(axis=-1, keepdims=True) / 127.0
+            scale = np.maximum(scale, 1e-12)
+            q = np.clip(np.round(acts / scale), -127, 127).astype(np.int8)
+            shard["acts"] = q
+            shard["acts_scale"] = scale.astype(np.float32)
+            nbytes = q.nbytes + shard["acts_scale"].nbytes
+        else:
+            shard["acts"] = acts.astype(np.float32)
+            nbytes = shard["acts"].nbytes
+        nbytes += sum(np.asarray(v).nbytes for k, v in shard.items()
+                      if k not in ("acts", "acts_scale"))
         return shard, nbytes
 
     def _store(self, client_id: int, shard: dict):
@@ -95,7 +105,8 @@ class ActivationStore:
 
     def pool(self, client_id: Optional[int] = None) -> dict:
         """The consolidated (or one client's) pool as one dict of arrays,
-        in client insertion order, as the reference lays it out."""
+        in client insertion order, as the reference lays it out; an int8
+        payload stays quantized, with its ``acts_scale``."""
         shards = self._shards(client_id)
         if not shards:
             return {}
@@ -103,7 +114,8 @@ class ActivationStore:
                 for k in shards[0]}
 
     def pool_nbytes(self, client_id: Optional[int] = None) -> int:
-        """Bytes the pool occupies, summed per shard (no copy)."""
+        """Bytes the (quantized) pool occupies, summed per shard (no
+        copy): the device-memory admission check of the server phase."""
         return sum(np.asarray(v).nbytes
                    for s in self._shards(client_id) for v in s.values())
 

@@ -50,7 +50,8 @@ def resolve_setup(spec: ExperimentSpec):
     cfg = registry.get_smoke_config(spec.arch) if spec.smoke \
         else registry.get_config(spec.arch)
     model = build_model(cfg)
-    data_kw = {"seq_len": spec.data.seq_len} if spec.data.seq_len else {}
+    data_kw = {"seq_len": spec.data.seq_len} if (
+        model.kind == "lm" and spec.data.seq_len) else {}
     train = make_dataset_for_model(model, spec.data.train_samples,
                                    seed=spec.data.train_seed, **data_kw)
     eval_data = make_dataset_for_model(model, spec.data.eval_samples,

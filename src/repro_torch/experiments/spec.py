@@ -386,11 +386,8 @@ class ExperimentSpec:
                     f"{num_layers - 1}] for arch {self.arch!r} "
                     f"({num_layers} layers: the device block needs at "
                     "least one layer and the server block keeps one)")
-            if isinstance(cfg, VisionConfig):
-                problems.append(
-                    f"arch {self.arch!r} is a vision model, not ported yet "
-                    "(ROADMAP.md queue A3)")
-            elif cfg.moe.enabled or cfg.attn_layer_period:
+            if not isinstance(cfg, VisionConfig) and (
+                    cfg.moe.enabled or cfg.attn_layer_period):
                 problems.append(
                     f"arch {self.arch!r} ({cfg.family}) is not ported yet "
                     "(ROADMAP.md queue A7)")
@@ -460,8 +457,4 @@ class ExperimentSpec:
             if value is not None:
                 problems.append(f"spec.{name} is set but the port cannot "
                                 f"run it yet (ROADMAP.md queue {item})")
-        if self.run.split.quantize_activations:
-            problems.append("run.split.quantize_activations: int8 "
-                            "activations are not ported yet (ROADMAP.md "
-                            "queue A2)")
         return problems

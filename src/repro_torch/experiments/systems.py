@@ -49,6 +49,8 @@ class SystemContext:
 
     @property
     def seq_len(self) -> int:
+        if self.model.kind != "lm":
+            return 0
         return int(self.clients[0].dataset.arrays["tokens"].shape[1])
 
 

@@ -7,11 +7,17 @@ final JSON summary of ``repro.launch.train``: the last server record,
 testbed's simulated wall clock).  ``--workdir`` keeps checkpoints (every
 ``--checkpoint-every`` rounds and epochs), the round journal, the metrics
 log and the activation shards there; a rerun with the same workdir
-resumes.  Runs on CUDA unless ``--device cpu``.
+resumes.  ``--quantize-acts`` stores and uploads int8 activations.
+``--arch`` takes the LM archs and the paper's vision classifiers
+(``mobilenet-l``, ``vgg11``, ``vit-s``, ``swin-t``; ``--seq-len`` is an LM
+option).  Runs on CUDA unless ``--device cpu``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --smoke --algo ampere --device-rounds 2 --server-epochs 2 --seq-len 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-l \\
+      --smoke --device cpu --device-rounds 2 --server-epochs 2 \\
+      --quantize-acts
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --smoke --device cpu --device-rounds 1 --server-epochs 1 \\
       --workdir /tmp/ampere --checkpoint-every 1
@@ -42,7 +48,8 @@ def build_run_cfg(args) -> RunConfig:
         arch=args.arch,
         algo=args.algo,
         split=SplitConfig(split_point=args.split_point,
-                          aux_ratio=args.aux_ratio),
+                          aux_ratio=args.aux_ratio,
+                          quantize_activations=args.quantize_acts),
         fed=FedConfig(num_clients=args.clients,
                       clients_per_round=args.cohort,
                       local_steps=args.local_steps,
@@ -99,7 +106,7 @@ def run_training(cfg, run_cfg, train, evald, *, device=None,
     lap("device")
     store = ActivationStore(
         directory=os.path.join(workdir, "acts") if workdir else None,
-        seed=run_cfg.seed)
+        quantize_int8=run_cfg.split.quantize_activations, seed=run_cfg.seed)
     store = trainer.generate_activations(dev_state, store)
     lap("transfer")
     srv_state = trainer.run_server_phase(dev_state, srv_params, store,
@@ -122,6 +129,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--split-point", type=int, default=1)
     ap.add_argument("--aux-ratio", type=float, default=0.5)
+    ap.add_argument("--quantize-acts", action="store_true",
+                    help="int8 activation payloads (one scale a row)")
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--cohort", type=int, default=4)
     ap.add_argument("--local-steps", type=int, default=8)

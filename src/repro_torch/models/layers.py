@@ -39,6 +39,8 @@ def cast(x, dtype_name: str):
 
 
 def normal_init(gen, shape, std=0.02, dtype="float32", device="cpu"):
+    if torch.device(device).type == "meta":   # a shape: nothing to draw
+        return torch.empty(shape, dtype=dt(dtype), device="meta")
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (x * std).to(dt(dtype))
 
@@ -134,6 +136,22 @@ def rmsnorm(p, x, eps: float = 1e-6, compute_dtype="bfloat16",
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     y = y * (p["scale"].float() + scale_offset)
+    return y.to(dt(compute_dtype))
+
+
+def init_layernorm(dim: int, param_dtype="float32", device="cpu"):
+    return {"scale": ones_init((dim,), param_dtype, device),
+            "bias": zeros_init((dim,), param_dtype, device)}
+
+
+def layernorm(p, x, eps: float = 1e-6, compute_dtype="float32"):
+    """LayerNorm over the last axis, statistics in fp32 (population
+    variance, eps inside the rsqrt)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
     return y.to(dt(compute_dtype))
 
 

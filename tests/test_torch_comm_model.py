@@ -213,15 +213,24 @@ def test_split_point_monotonicity_uit():
 
 
 def test_unknown_algo_and_vision_raise():
+    """Unknown algorithms raise.  (The name is kept from when a vision
+    arch raised here too; the vision branch is now held to the reference
+    by ``test_vision_split_sizes_equal_reference``.)"""
     sizes = _sizes("qwen3-1.7b")
     with pytest.raises(ValueError, match="unknown algo"):
         T.comm_volume("nope", sizes, epochs=1, n_samples=1)
     with pytest.raises(ValueError, match="unknown algo"):
         T.comm_rounds("nope", epochs=1, iters_per_epoch=1)
 
-    class Vision:
-        kind = "vision"
-        cfg = t_registry.get_smoke_config("vit-s")
 
-    with pytest.raises(NotImplementedError, match="A3"):
-        T.split_sizes(Vision(), TSplit(), seq_len=1)
+@pytest.mark.parametrize("arch", ["vit-s", "mobilenet-l"])
+def test_vision_split_sizes_equal_reference(arch):
+    """The vision branch of split_sizes (was: it raised for a vision
+    arch): every cut of the smoke config, one label of 4 bytes a sample."""
+    jm = j_build(j_registry.get_smoke_config(arch))
+    tm = t_build(t_registry.get_smoke_config(arch))
+    for p in range(1, tm.num_layers):
+        j = J.split_sizes(jm, JSplit(split_point=p), seq_len=1)
+        t = T.split_sizes(tm, TSplit(split_point=p), seq_len=1)
+        assert t == T.SplitSizes(**dataclasses.asdict(j)), p
+        assert t.embed == 0

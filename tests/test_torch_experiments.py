@@ -46,6 +46,7 @@ from repro_torch.experiments import (AmpereSystem, CutPolicy, DataSpec,
 from repro_torch.interop import from_numpy_tree
 from repro_torch.runtime.checkpoint import (CheckpointCorruptError,
                                             Checkpointer)
+from repro_torch.runtime.compression import dequantize_int8
 from repro_torch.runtime.fault_tolerance import RoundJournal
 
 ARCH = "qwen3-1.7b"
@@ -275,8 +276,17 @@ def test_store_persists_shards_and_reloads(tmp_path):
     assert back.num_samples() == 15
     np.testing.assert_array_equal(back.pool(0)["acts"], st.pool(0)["acts"])
     assert st.pool()["acts"].dtype == np.float32
-    with pytest.raises(NotImplementedError, match="A2"):
-        ActivationStore(quantize_int8=True)
+    # an int8 store: one fp32 scale a row, the labels as they are
+    q = ActivationStore(directory=str(tmp_path / "q"), quantize_int8=True)
+    q.add(1, shard)
+    assert q.bytes_received == 5 * 4 * 8 + 5 * 4 * 4 + 5 * 4 * 4
+    assert q.pool()["acts"].dtype == np.int8
+    assert q.pool()["acts_scale"].shape == (5, 4, 1)
+    back = load_store(str(tmp_path / "q")).pool()
+    deq = dequantize_int8(torch.from_numpy(back["acts"]),
+                          torch.from_numpy(back["acts_scale"])).numpy()
+    np.testing.assert_allclose(deq, shard["acts"],
+                               atol=np.abs(shard["acts"]).max() / 254)
 
 
 def test_pool_over_budget_raises(tmp_path):
@@ -554,8 +564,7 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
     ("cut", CutPolicy(mode="per_profile"), "A5"),
     ("trace_path", "/nonexistent/trace.jsonl", "A5"),
     ("systems", ("ampere", "splitfed"), "A4"),
-    ("arch", "vit-s", "A3"),
-    ("run", TRun(arch=ARCH, split=TSplit(quantize_activations=True)), "A2"),
+    ("arch", "qwen2-moe-a2.7b", "A7"),
 ])
 def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
     spec = dataclasses.replace(_t_spec("results/t"), **{feature: value})
@@ -563,6 +572,20 @@ def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
     assert f"queue {item}" in problems, problems
     with pytest.raises(ValueError, match=item):
         run_experiment(spec, dry_run=True)
+
+
+@pytest.mark.parametrize("arch", ["mobilenet-l", "vgg11", "vit-s",
+                                  "swin-t"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_vision_and_int8_specs_validate_clean(arch, quantize):
+    """The vision archs (queue A3) and int8 activations (A2) run now."""
+    spec = _t_spec("r", arch=arch, run=TRun(
+        arch=arch, split=TSplit(quantize_activations=quantize)))
+    assert spec.validate() == []
+    assert run_experiment(spec, dry_run=True)["valid"]
+    lm = _t_spec("r", run=TRun(arch=ARCH, split=TSplit(
+        quantize_activations=quantize)))
+    assert lm.validate() == []
 
 
 def test_spec_keeps_reference_checks():

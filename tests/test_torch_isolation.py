@@ -33,7 +33,10 @@ import repro_torch.experiments.runner
 import repro_torch.experiments.spec
 import repro_torch.experiments.systems
 import repro_torch.launch.train
+import repro_torch.models.cnn
+import repro_torch.models.vit
 import repro_torch.runtime.checkpoint
+import repro_torch.runtime.compression
 import repro_torch.runtime.fault_tolerance
 import repro_torch.runtime.metrics
 import chip_smoke
