@@ -85,8 +85,13 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    losses within 1e-4 relative, next-token accuracy within 1e-2,
    ``comm_bytes`` and ``sim_time`` equal; then a card run killed after
    round 0 and rerun from its workdir matches the uninterrupted card run
-   within the same tolerances (torch's own CUDA backward ops are not all
-   deterministic, so not bit for bit).
+   bit for bit (the kernels and PyTorch's ops on this path repeat exactly;
+   PERF.md, Findings).
+   Then the same experiment on the card with ``device_pool_budget_mb``
+   0, fp32 and int8: the device phase uploads each round's batches and
+   the server phase streams the store's batches through
+   ``DevicePrefetcher`` (pinned memory, a side stream, an event wait),
+   and each history equals (``==``) the resident card run's.
 9. Vision: the paper's classifiers at their published configs
    (mobilenet-l, vgg11, vit-s, swin-t; 32x32x3, 10 classes) through
    ``run_training`` with ``examples/quickstart.py``'s federation (8
@@ -102,13 +107,34 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    server step at batch 32 from the trained state, timed and profiled as
    in phase 6.
 10. Vision experiment: the four smoke classifiers through
-   ``run_experiment`` on the card and on the CPU from the same CPU-seeded
-   init (lr ``VISION_EXPERIMENT_LR``): losses within 1e-4 relative,
+   ``run_experiment`` on the card twice (bit for bit the same: the port
+   pins cuDNN's deterministic algorithms) and on the CPU from the same
+   CPU-seeded init (lr ``VISION_EXPERIMENT_LR``): losses within 1e-4 relative,
    accuracies within 1e-2, ``comm_bytes`` and ``sim_time`` equal, with
    TF32 off for cuBLAS and cuDNN (the tolerance assumes it), as the
    port's entry points set it (``repro_torch.device.pin_fp32``): the
    script leaves PyTorch's flags alone, logs them at the start and fails
    if either is still on after the runs.
+11. Baselines: (a) ``launch.train.run_baseline`` with SplitFed and with
+   FedAvg on full-width, full-depth qwen3-1.7b (phase 5's corpus, seq
+   512, lr 0.02, 4 clients, cohort 2, H 2, device batch 4, 2 rounds, 8
+   eval samples): SplitFed launches the attention pair and the xent pair
+   (its backward crosses the cut), FedAvg the attention pair and no xent
+   kernel (its loss is the reference's from materialized logits); every
+   loss finite, the merged model's val loss lower after round 1 than
+   after round 0; ``comm_bytes`` = rounds x 2K x ((2 x act_per_sample x b
+   x H + 2 s_d) // 2) for SplitFed and rounds x 2K x the model's bytes
+   for FedAvg, ``sim_time`` the rounds' ``epoch_time``; the round time
+   and peak memory beside the card's name and power limit.  (b) Ampere
+   against SplitFed on the published mobilenet-l through
+   ``run_experiment`` (phase 9's federation, samples, rounds and
+   ``VISION_LR``, 2 server epochs): both accountings ``==`` the comm
+   model's, and the traffic Ampere saves.  (c) The seven synchronous
+   systems on the qwen3-1.7b smoke spec through ``run_experiment``, card
+   against CPU from the same CPU-seeded init: losses within 1e-4
+   relative, accuracies within 1e-2, ``comm_bytes`` and ``sim_time``
+   equal (SCAFFOLD keeps a control tree per client: run at this size
+   only).
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -121,7 +147,8 @@ accumulation in another order).
 
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
-sum over the path runs of 5 (the int8 run too), 7, 8, 9 and 10,
+sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
+runs too), 9, 10 and 11,
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -158,6 +185,7 @@ from repro_torch.configs.base import (FedConfig, OptimConfig,  # noqa: E402
                                       RunConfig)
 from repro_torch.core import (aggregation, comm_model, splitting,  # noqa: E402
                               steps)
+from repro_torch.core import uit  # noqa: E402
 from repro_torch.core.uit import AmpereTrainer  # noqa: E402
 from repro_torch.data import (ActivationStore, Dataset, federate,  # noqa: E402
                               make_dataset_for_model, make_lm_dataset)
@@ -262,6 +290,18 @@ TRAIN_SAMPLES = 64
 EVAL_SAMPLES = 8
 DEVICE_ROUNDS = 2
 SERVER_EPOCHS = 1
+# phase 11: the synchronous baselines.  (a) SplitFed and FedAvg on the
+# full-width qwen3-1.7b main path, with the kernels each must launch; (b)
+# Ampere against SplitFed on the published mobilenet-l, server epochs cut
+# to COMPARISON_EPOCHS; (c) every synchronous system on the qwen3 smoke
+# spec, card against CPU
+BASELINE_ARCH = "qwen3-1.7b"
+BASELINE_KERNELS = {
+    "splitfed": ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"),
+    "fedavg": ("flash_fwd", "flash_bwd_fused")}
+COMPARISON_EPOCHS = 2
+SYNC_SYSTEMS = ("splitfed", "splitfed_mb", "splitfedv2", "splitgp",
+                "scaffold", "pipar", "fedavg")
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
 WARMUP = 3               # attention: untimed calls before them
@@ -698,8 +738,8 @@ def smoke_reference(dev, arch):
     states, on the card and on the CPU: histories agree."""
     cfg = registry.get_smoke_config(arch)
     args = launch_train.make_parser().parse_args(
-        ["--clients", "4", "--cohort", "2", "--local-steps", "2",
-         "--batch-size", "4", "--server-batch", "8"])
+        ["--arch", arch, "--clients", "4", "--cohort", "2", "--local-steps",
+         "2", "--batch-size", "4", "--server-batch", "8"])
     run_cfg = launch_train.build_run_cfg(args)
     model = build_model(cfg)
     train = make_dataset_for_model(model, 64, seq_len=32, seed=0)
@@ -932,7 +972,9 @@ def experiment(dev):
         resumed=h_res, summary=card["summary"]["ampere"], rel_tol=1e-4,
         launches=launches)
     _histories_close(h_card, h_cpu, "experiment card vs cpu")
-    _histories_close(h_res, h_card, "experiment resumed vs uninterrupted")
+    if h_res != h_card:
+        raise AssertionError(f"experiment resumed vs uninterrupted: {h_res} "
+                             f"vs {h_card}")
     for h in (h_cpu, h_res):
         for key in ("comm_bytes", "sim_time"):
             if h[key] != h_card[key]:
@@ -942,6 +984,69 @@ def experiment(dev):
     for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
         if launches[f"{name}_fp32"] <= 0:
             raise AssertionError(f"experiment never launched {name}")
+    return launches, h_card
+
+
+def _budget_spec(results_dir, budget_mb, quantize):
+    spec = experiment_spec(results_dir)
+    run = dataclasses.replace(
+        spec.run, device_pool_budget_mb=budget_mb,
+        split=dataclasses.replace(spec.run.split,
+                                  quantize_activations=quantize))
+    return dataclasses.replace(spec, run=run)
+
+
+class _CountedPrefetcher(uit.DevicePrefetcher):
+    """``DevicePrefetcher`` counting the card batches it hands over."""
+    batches = 0
+
+    def __iter__(self):
+        for batch in super().__iter__():
+            if any(t.device.type != "cuda" for t in batch.values()):
+                raise AssertionError("the prefetcher yielded a host batch")
+            _CountedPrefetcher.batches += 1
+            yield batch
+
+
+def host_streaming(dev, card_hist):
+    """The phase 8 experiment on the card with ``device_pool_budget_mb``
+    0, fp32 and int8: the device phase uploads each round's batches and
+    the server phase streams the store's batches through the
+    ``DevicePrefetcher`` (pinned memory, a side stream, an event wait);
+    each history equals (``==``) the resident card run's, fp32 against
+    phase 8's, int8 against a resident int8 run.  Launches: the two
+    streamed runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_resident = run_experiment(
+            _budget_spec(os.path.join(tmp, "int8"), 1024, True), device=dev)
+        prefetcher, uit.DevicePrefetcher = (uit.DevicePrefetcher,
+                                            _CountedPrefetcher)
+        try:
+            reset_launches()
+            streamed = {q: run_experiment(
+                _budget_spec(os.path.join(tmp, f"stream{q}"), 0, q),
+                device=dev) for q in (False, True)}
+            launches = read_launches()
+        finally:
+            uit.DevicePrefetcher = prefetcher
+    want = {False: card_hist,
+            True: int8_resident["results"]["ampere"]["history"]}
+    got = {q: o["results"]["ampere"]["history"] for q, o in streamed.items()}
+    log("host_streaming", arch="qwen3-1.7b", budget_mb=0,
+        prefetched_batches=_CountedPrefetcher.batches,
+        fp32=got[False], int8=got[True], int8_resident=want[True],
+        launches=launches)
+    # 2 runs x 2 epochs x (64 samples // server batch 8)
+    if _CountedPrefetcher.batches != 2 * 2 * 8:
+        raise AssertionError(f"host streaming: the prefetcher handed over "
+                             f"{_CountedPrefetcher.batches} batches")
+    for q in (False, True):
+        if got[q] != want[q]:
+            raise AssertionError(f"host streaming (int8 {q}) vs resident: "
+                                 f"{got[q]} vs {want[q]}")
+    for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
+        if launches[f"{name}_fp32"] <= 0:
+            raise AssertionError(f"host streaming never launched {name}")
     return launches
 
 
@@ -1053,6 +1158,14 @@ def vision_experiment(dev):
                                   write_results=False)
             for name, n in read_launches().items():
                 launches[name] = launches.get(name, 0) + n
+            # cuDNN's deterministic algorithms (device.pin_deterministic):
+            # a second card run repeats the first bit for bit
+            again = run_experiment(vision_spec(arch, tmp), device=dev,
+                                   write_results=False)
+            if again["results"]["ampere"]["history"] != \
+                    card["results"]["ampere"]["history"]:
+                raise AssertionError(f"{arch} smoke: a second card run "
+                                     "differs from the first")
             cpu = run_experiment(vision_spec(arch, tmp), device="cpu",
                                  write_results=False)
             h_card, h_cpu = (o["results"]["ampere"]["history"]
@@ -1073,6 +1186,200 @@ def vision_experiment(dev):
         raise AssertionError(f"TF32 on after the port's entry points: "
                              f"{flags}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the synchronous baselines
+# ---------------------------------------------------------------------------
+
+
+def baseline_accounting(cfg, run_cfg, seq, hist, algo, rounds):
+    """A baseline's bytes and simulated time, recomputed from the port's
+    comm model (analytic: no device number): per round, SFL moves 2K x
+    (H iterations of activations and gradients + the device block down and
+    up) // 2 x 2, FedAvg 2K x the whole model; the clock adds each round's
+    ``epoch_time`` (every SFL variant but PiPar priced as SplitFed, as the
+    reference prices it), in the Runner's order."""
+    model = build_model(cfg)
+    sizes = comm_model.split_sizes(model, run_cfg.split, seq_len=max(seq, 1))
+    fed = run_cfg.fed
+    K, H, b = fed.clients_per_round, fed.local_steps, fed.device_batch_size
+    if algo == "fedavg":
+        per_round = 2 * K * comm_model.tree_bytes(
+            comm_model.abstract_params(model))
+    else:
+        per_round = 2 * K * ((2 * sizes.act_per_sample * b * H
+                              + 2 * sizes.device) // 2)
+    epoch_s = comm_model.epoch_time(
+        algo if algo in ("fedavg", "pipar") else "splitfed", model,
+        run_cfg.split, comm_model.TimeModel(), n_samples=b * H,
+        batch_size=b, seq_len=seq, sizes=sizes)
+    want_time = 0.0              # summed in the Runner's order
+    for _ in range(rounds):
+        want_time += epoch_s
+    got = (hist["comm_bytes"], hist["sim_time"])
+    want = (rounds * per_round, want_time)
+    log("baseline_accounting", arch=cfg.name, algo=algo,
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        per_round_bytes=per_round, round_s=epoch_s, ok=got == want)
+    if got != want:
+        raise AssertionError(f"{cfg.name} {algo} accounting: (comm_bytes, "
+                             f"sim_time) {got} != {want}")
+
+
+def baseline_path(dev, algo):
+    """``algo``'s trainer on full-width, full-depth qwen3-1.7b through
+    ``launch.train.run_baseline`` (the main path's corpus, seq and lr, 4
+    clients, cohort 2, H 2, device batch 4, ``DEVICE_ROUNDS`` rounds):
+    its kernels launched (FedAvg's loss is the reference's from
+    materialized logits, so no cross-entropy kernel), every loss finite,
+    the merged model's val loss lower after the second round than after
+    the first, and the accounting of :func:`baseline_accounting`."""
+    arch = BASELINE_ARCH
+    seq, lr = MAIN_PATHS[arch]["seq"], MAIN_PATHS[arch]["lr"]
+    cfg = registry.get_config(arch)
+    largs = launch_train.make_parser().parse_args(
+        ["--arch", arch, "--algo", algo, "--clients", "4", "--cohort", "2",
+         "--local-steps", "2", "--batch-size", "4", "--seq-len", str(seq),
+         "--lr", str(lr), "--seed", "0"])
+    run_cfg = launch_train.build_run_cfg(largs)
+    train = full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
+    evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = launch_train.run_baseline(cfg, run_cfg, train, evald, device=dev,
+                                    rounds=DEVICE_ROUNDS)
+    launches = read_launches()
+    hist = out["history"]
+    log("baseline", arch=cfg.name, algo=algo, layers=cfg.num_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, seq=seq, lr=lr,
+        seconds=out["seconds"],
+        round_s=out["seconds"]["rounds"] / DEVICE_ROUNDS,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        rounds=hist["rounds"], launches=launches,
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        card=card_line())
+    del out
+    baseline_accounting(cfg, run_cfg, seq, hist, algo, DEVICE_ROUNDS)
+    recs = hist["rounds"]
+    if len(recs) != DEVICE_ROUNDS or not all(
+            math.isfinite(r[k]) for r in recs for k in ("loss", "val_loss")):
+        raise AssertionError(f"{algo}: history not finite/complete: {hist}")
+    if not recs[1]["val_loss"] < recs[0]["val_loss"]:
+        raise AssertionError(f"{algo}: merged val loss did not fall from "
+                             f"round 0 to round 1: {recs}")
+    for name in BASELINE_KERNELS[algo]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{algo} never launched {name}")
+    if algo == "fedavg" and launches["xent_fwd"] + launches["xent_bwd"]:
+        raise AssertionError(f"fedavg launched the xent kernels: {launches}")
+    return launches
+
+
+def paper_comparison(dev):
+    """Ampere against SplitFed on the published mobilenet-l through
+    ``run_experiment`` (the vision phase's federation, samples, rounds and
+    ``VISION_LR``; ``COMPARISON_EPOCHS`` server epochs): both accountings
+    ``==`` the comm model's, and the device-server traffic Ampere saves."""
+    arch = "mobilenet-l"
+    cfg = registry.get_config(arch)
+    fed = FedConfig(num_clients=8, clients_per_round=4, local_steps=8,
+                    device_batch_size=16, server_batch_size=32,
+                    dirichlet_alpha=0.33, seed=0)
+    run = RunConfig(arch=arch, fed=fed, optim=OptimConfig(
+        name="momentum", lr=VISION_LR[arch], schedule="inverse_time",
+        decay_gamma=0.005))
+    spec = ExperimentSpec(
+        name="chip_smoke_comparison", systems=("ampere", "splitfed"),
+        arch=arch, smoke=False, run=run,
+        data=DataSpec(train_samples=VISION_TRAIN, eval_samples=VISION_EVAL),
+        max_rounds=VISION_ROUNDS, max_server_epochs=COMPARISON_EPOCHS,
+        patience=50)
+    reset_launches()
+    t = time.perf_counter()
+    out = run_experiment(spec, device=dev, write_results=False)
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    amp, sfl = (out["results"][n] for n in ("ampere", "splitfed"))
+    acts = build_model(cfg).activation_spec(1, dtype="float32")
+    check_accounting(cfg, run, 0, amp["history"], amp["store"],
+                     VISION_TRAIN * (math.prod(acts.shape) * 4 + 4),
+                     rounds=VISION_ROUNDS, epochs=COMPARISON_EPOCHS)
+    baseline_accounting(cfg, run, 0, sfl["history"], "splitfed",
+                        VISION_ROUNDS)
+    a_bytes = amp["history"]["comm_bytes"]
+    s_bytes = sfl["history"]["comm_bytes"]
+    log("paper_comparison", arch=cfg.name, seconds=seconds,
+        ampere_comm_bytes=a_bytes, splitfed_comm_bytes=s_bytes,
+        comm_reduction=1 - a_bytes / s_bytes,
+        ampere_sim_time_s=amp["history"]["sim_time"],
+        splitfed_sim_time_s=sfl["history"]["sim_time"],
+        ampere_final=amp["history"]["server"][-1],
+        splitfed_final=sfl["history"]["rounds"][-1], card=card_line())
+    if not 0 < a_bytes < s_bytes:
+        raise AssertionError(f"comparison: Ampere {a_bytes} B vs SplitFed "
+                             f"{s_bytes} B")
+    if any(launches.values()):
+        raise AssertionError(f"comparison launched a hand-written kernel: "
+                             f"{launches}")
+    return launches
+
+
+def baselines_experiment(dev):
+    """The seven synchronous systems on the qwen3-1.7b smoke spec through
+    run_experiment on the card and on the CPU from the same CPU-seeded
+    init: losses within 1e-4 relative, accuracies within 1e-2,
+    comm_bytes and sim_time equal (SCAFFOLD's per-client controls only at
+    this size)."""
+    run = RunConfig(arch="qwen3-1.7b", fed=FedConfig(**EXPERIMENT_FED),
+                    optim=OptimConfig(name="momentum", lr=0.2,
+                                      schedule="inverse_time",
+                                      decay_gamma=0.005))
+    spec = ExperimentSpec(
+        name="chip_smoke_baselines", systems=SYNC_SYSTEMS,
+        arch="qwen3-1.7b", run=run,
+        data=DataSpec(train_samples=64, eval_samples=16, seq_len=32),
+        max_rounds=2, patience=50)
+    reset_launches()
+    card = run_experiment(spec, device=dev, write_results=False)
+    launches = read_launches()
+    cpu = run_experiment(spec, device="cpu", write_results=False)
+    for name in SYNC_SYSTEMS:
+        h_card, h_cpu = (o["results"][name]["history"] for o in (card, cpu))
+        log("baselines_experiment", system=name, card=h_card, cpu=h_cpu,
+            rel_tol=1e-4)
+        if not len(h_card["rounds"]) == len(h_cpu["rounds"]) == 2:
+            raise AssertionError(f"{name}: {h_card} vs {h_cpu}")
+        for x, y in zip(h_card["rounds"], h_cpu["rounds"]):
+            for key in ("loss", "val_loss"):
+                if not abs(x[key] - y[key]) <= 1e-4 * abs(y[key]):
+                    raise AssertionError(f"{name} {key}: {x} vs {y}")
+            if not abs(x["val_acc"] - y["val_acc"]) <= 1e-2:
+                raise AssertionError(f"{name} val_acc: {x} vs {y}")
+        for key in ("comm_bytes", "sim_time"):
+            if h_card[key] != h_cpu[key]:
+                raise AssertionError(f"{name} {key}: {h_card[key]} vs "
+                                     f"{h_cpu[key]}")
+    # the smoke config computes in fp32: its rows are the *_fp32 ones
+    for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
+        if launches[f"{name}_fp32"] <= 0:
+            raise AssertionError(f"baselines experiment never launched "
+                                 f"{name}")
+    return launches
+
+
+def baselines(dev) -> dict:
+    """Phase 11: launches by path of (a), (b) and (c)."""
+    by_path = {}
+    for algo in BASELINE_KERNELS:
+        by_path[f"baseline:{algo}"] = baseline_path(dev, algo)
+        torch.cuda.empty_cache()
+    by_path["paper_comparison"] = paper_comparison(dev)
+    torch.cuda.empty_cache()
+    by_path["baselines_experiment"] = baselines_experiment(dev)
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def tf32_flags() -> dict:
@@ -1360,12 +1667,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path[f"{INT8_ARCH}:int8"] = int8_main_path(dev, hists[INT8_ARCH])
     torch.cuda.empty_cache()
-    by_path["experiment"] = experiment(dev)
+    by_path["experiment"], card_hist = experiment(dev)
+    torch.cuda.empty_cache()
+    by_path["host_streaming"] = host_streaming(dev, card_hist)
     torch.cuda.empty_cache()
     for arch in VISION_ARCHS:
         by_path[f"vision:{arch}"] = vision_path(dev, arch)
     by_path["vision_experiment"] = vision_experiment(dev)
     torch.cuda.empty_cache()
+    by_path.update(baselines(dev))
     for arch in MAIN_PATHS:
         profile_step(dev, arch)
         torch.cuda.empty_cache()

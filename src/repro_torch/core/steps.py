@@ -38,6 +38,22 @@ def _grads(loss, tree):
     return tree_map(lambda _: next(it), tree)
 
 
+def value_and_grad(loss_fn, tree, *args):
+    """``(loss, d loss / d tree)`` of ``loss_fn(tree, *args)``, as
+    ``jax.value_and_grad``: the loss detached, one gradient a leaf."""
+    tree = _leaves_requiring_grad(tree)
+    loss = loss_fn(tree, *args)
+    return loss.detach(), _grads(loss, tree)
+
+
+@torch.no_grad()
+def sgd(par, grads, lr):
+    """One plain SGD step, done in fp32 and cast back to each leaf's dtype
+    (Eq. 9)."""
+    return tree_map(lambda q, g: (q.float() - lr * g.float()).to(q.dtype),
+                    par, grads)
+
+
 # ---------------------------------------------------------------------------
 # Ampere device phase
 # ---------------------------------------------------------------------------
@@ -63,14 +79,10 @@ def make_client_round_fn(model, run_cfg, *, impl="kernel"):
         losses_h = []
         for h in range(H):
             batch = {k: v[h] for k, v in client_batches.items()}
-            par = _leaves_requiring_grad(par)
-            loss = local_loss(par[0], par[1], batch)
-            grads = _grads(loss, par)
-            with torch.no_grad():
-                par = tree_map(
-                    lambda q, g: (q.float() - lr * g.float()).to(q.dtype),
-                    par, grads)
-            losses_h.append(loss.detach())
+            loss, grads = value_and_grad(
+                lambda par, batch: local_loss(*par, batch), par, batch)
+            par = sgd(par, grads, lr)
+            losses_h.append(loss)
         return par[0], par[1], torch.stack(losses_h).mean()
 
     return client_round

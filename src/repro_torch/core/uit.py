@@ -25,9 +25,12 @@ server epoch's analytic compute time.  History records and totals match
 the JAX trainer's.  With ``run.split.quantize_activations`` the store
 keeps int8 payloads, the upload moves those bytes, and the server pool
 stays int8 on the device (its step dequantizes each batch).  A pool above
-``run.device_pool_budget_mb`` raises (the reference's host-streaming
-fallbacks are not ported).  Transport, observability, streaming, fleet
-and heterogeneous cuts are later slices (ROADMAP.md).
+``run.device_pool_budget_mb`` stays on the host, as in the reference: the
+device phase then uploads each round's ``round_batches``, and the server
+phase streams the store's ``batches`` through a
+:class:`~repro_torch.data.pipeline.DevicePrefetcher`; both draw what the
+resident path draws, so the history is the same.  Transport, observability, streaming, fleet and
+heterogeneous cuts are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ import torch
 from repro_torch.core import (aggregation, auxiliary, comm_model, evaluate,
                               splitting, steps)
 from repro_torch.data.activation_store import ActivationStore
-from repro_torch.data.pipeline import ClientData, client_pool
+from repro_torch.data.pipeline import (ClientData, DevicePrefetcher,
+                                       client_pool, generators_state,
+                                       load_generators_state, round_batches)
 from repro_torch.device import resolve_device
 from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.interop import tree_map
@@ -52,7 +57,8 @@ from repro_torch.optim import make_schedule
 class AmpereTrainer:
     def __init__(self, model, run_cfg, clients: List[ClientData], eval_data,
                  workdir: Optional[str] = None, patience: int = 15,
-                 log_echo: bool = False, *, device=None):
+                 log_echo: bool = False, *,
+                 device=None):
         self.model = model
         self.run = run_cfg
         self.clients = clients
@@ -73,6 +79,7 @@ class AmpereTrainer:
         self.journal = self.runner.journal
         self.history = self.runner.history
         self._device_round = steps.make_device_round_step(model, run_cfg)
+        self._server_step = steps.make_server_train_step(model, run_cfg)
         self._server_epoch = steps.make_server_epoch_fn(model, run_cfg)
         self._sched = make_schedule(run_cfg.optim)
 
@@ -97,21 +104,13 @@ class AmpereTrainer:
         """The host-side generators a resumed run must continue from: the
         cohort sampler, each client's batch stream and, in the server
         phase, the store's epoch permutation."""
-        out = {"rng": self.rng.bit_generator.state,
-               "clients": [{"rng": c.rng.bit_generator.state,
-                            "order": c._order.tolist(),
-                            "cursor": int(c._cursor)}
-                           for c in self.clients]}
+        out = generators_state(self.rng, self.clients)
         if self._store is not None:
             out["store"] = self._store.rng.bit_generator.state
         return out
 
     def _load_host_state(self, state: dict):
-        self.rng.bit_generator.state = state["rng"]
-        for c, s in zip(self.clients, state["clients"]):
-            c.rng.bit_generator.state = s["rng"]
-            c._order = np.asarray(s["order"], dtype=c._order.dtype)
-            c._cursor = s["cursor"]
+        load_generators_state(self.rng, self.clients, state)
         if self._store is not None and "store" in state:
             self._store.rng.bit_generator.state = state["store"]
 
@@ -119,14 +118,9 @@ class AmpereTrainer:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in arrays.items()}
 
-    def _check_budget(self, what: str, nbytes: int):
-        budget = self.run.device_pool_budget_mb * 2 ** 20
-        if nbytes > budget:
-            raise ValueError(
-                f"{what}: {nbytes} B exceed run.device_pool_budget_mb="
-                f"{self.run.device_pool_budget_mb}; the host-streaming "
-                "fallback is not ported (ROADMAP.md queue A1 leftovers): "
-                "raise the budget if the card holds the pool")
+    def _fits(self, nbytes: int) -> bool:
+        """Whether a pool of ``nbytes`` may live on the device."""
+        return nbytes <= self.run.device_pool_budget_mb * 2 ** 20
 
     def _init_states(self, gen: torch.Generator):
         """Random init from ``gen`` on the generator's own device, moved to
@@ -147,25 +141,33 @@ class AmpereTrainer:
         fed = self.run.fed
         K = fed.clients_per_round
         dev_state, start_round = self.runner.restore("device", dev_state)
-        # every client's samples live on the device; each round gathers its
-        # (K, H, b) batches from an index matrix (the JAX pool-fed round)
-        self._check_budget("device-phase sample pool",
-                           sum(a.nbytes for c in self.clients
-                               for a in c.dataset.arrays.values()))
-        pool_np, offsets = client_pool(self.clients)
-        pool = self._tensors(pool_np)
-        del pool_np
+        # every client's samples live on the device when they fit the
+        # budget, and each round gathers its (K, H, b) batches from an
+        # index matrix (the JAX pool-fed round); otherwise each round
+        # uploads its stacked host batches (the same draws)
+        resident = self._fits(sum(a.nbytes for c in self.clients
+                                  for a in c.dataset.arrays.values()))
+        if resident:
+            pool_np, offsets = client_pool(self.clients)
+            pool = self._tensors(pool_np)
+            del pool_np
 
         def body(state, rnd, _plan):
             cohort = aggregation.sample_cohort(self.rng, fed, rnd)
             ids, w = aggregation.pad_cohort(cohort["clients"],
                                             cohort["weights"], K)
-            idx = np.stack([
-                offsets[int(c)] + self.clients[int(c)].batch_indices(
-                    fed.device_batch_size, fed.local_steps)
-                for c in ids])
-            idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-            batches = {k: v[idx] for k, v in pool.items()}
+            if resident:
+                idx = np.stack([
+                    offsets[int(c)] + self.clients[int(c)].batch_indices(
+                        fed.device_batch_size, fed.local_steps)
+                    for c in ids])
+                idx = torch.as_tensor(idx, dtype=torch.long,
+                                      device=self.device)
+                batches = {k: v[idx] for k, v in pool.items()}
+            else:
+                batches = self._tensors(round_batches(
+                    self.clients, ids, fed.local_steps,
+                    fed.device_batch_size))
             state, metrics = self._device_round(state, batches, w,
                                                 self._sched(rnd))
             return StepOutcome(
@@ -244,22 +246,34 @@ class AmpereTrainer:
         merged_model = build_model(splitting.merged_config(self.model))
         epochs = max_epochs if max_epochs is not None else run.fed.server_epochs
         bs = run.fed.server_batch_size
-        # an int8 pool is admitted, uploaded and kept as int8
-        self._check_budget("server-phase activation pool", store.pool_nbytes())
-        pool = self._tensors(store.pool())
+        # an int8 pool is admitted, uploaded and kept as int8; a pool too
+        # small for one batch or over the budget streams from the host
+        resident = store.num_samples() >= bs and self._fits(
+            store.pool_nbytes())
+        pool = self._tensors(store.pool()) if resident else None
         epoch_sim_time = comm_model.ampere_server_epoch_time(
             self.model, run.split, comm_model.TimeModel(),
             n_samples=store.num_samples(), seq_len=self._seq_len(),
             sizes=self.sizes)
 
         def body(srv_state, epoch, _plan):
-            idx = torch.as_tensor(store.epoch_indices(bs), dtype=torch.long,
-                                  device=self.device)
             # rebinding drops the only reference to the old state (the
             # Runner keeps none), so its optimizer buffers are freed before
             # the merged evaluation, as the reference's donated epoch frees
             # them
-            srv_state, losses = self._server_epoch(srv_state, pool, idx)
+            if resident:
+                idx = torch.as_tensor(store.epoch_indices(bs),
+                                      dtype=torch.long, device=self.device)
+                srv_state, losses = self._server_epoch(srv_state, pool, idx)
+            else:
+                out = []
+                for batch in DevicePrefetcher(
+                        store.batches(bs, epochs=1),
+                        self.device):
+                    srv_state, m = self._server_step(srv_state, batch)
+                    out.append(m["loss"])
+                losses = (torch.stack(out) if out
+                          else torch.zeros((0,), device=self.device))
             ls = losses.double().cpu().numpy()   # one host sync per epoch
             val = evaluate.evaluate(merged_model,
                                     self.merged_params(dev_state,

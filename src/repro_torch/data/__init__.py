@@ -2,6 +2,7 @@ from repro_torch.data.activation_store import ActivationStore
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.pipeline import (
     ClientData,
+    DevicePrefetcher,
     client_pool,
     federate,
     round_batches,
@@ -13,7 +14,8 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = [
-    "ActivationStore", "ClientData", "client_pool", "federate",
+    "ActivationStore", "ClientData", "DevicePrefetcher", "client_pool",
+    "federate",
     "round_batches", "Dataset", "make_dataset_for_model", "make_lm_dataset",
     "dirichlet_partition",
 ]

@@ -18,8 +18,11 @@ persisted as disk shards.
 ``add`` stores synchronously, in call order (the order the reference's
 writer thread keeps).  ``pool`` keeps an int8 payload quantized, with its
 ``acts_scale``, for the device-resident server phase, whose step
-dequantizes each batch (``runtime.compression.dequantize_int8``).  The
-writer thread, cut tags and the streaming ring are later slices.
+dequantizes each batch (``runtime.compression.dequantize_int8``).
+``batches`` streams shuffled host batches of the whole pool from the
+same permutation :meth:`ActivationStore.epoch_indices` draws, for the
+server phase's over-budget fallback; an int8 payload stays quantized
+there too.  The writer thread, cut tags and the streaming ring are later slices.
 """
 
 from __future__ import annotations
@@ -133,6 +136,19 @@ class ActivationStore:
         order = self.rng.permutation(n)
         nb = n // batch_size
         return order[:nb * batch_size].reshape(nb, batch_size).astype(np.int32)
+
+    def batches(self, batch_size: int, epochs: int = 1):
+        """Shuffled batches of the whole pool for ``epochs`` passes: one
+        ``rng.permutation`` an epoch, trailing remainder dropped, the draw
+        :meth:`epoch_indices` makes."""
+        pool = self.pool()
+        if not pool:
+            return
+        n = len(pool["acts"])
+        for _ in range(epochs):
+            order = self.rng.permutation(n)
+            for s in range(0, n - batch_size + 1, batch_size):
+                yield {k: v[order[s:s + batch_size]] for k, v in pool.items()}
 
 
 def load_store(directory: str, seed: int = 0) -> ActivationStore:

@@ -8,6 +8,10 @@ at the step boundary).
 * :func:`client_pool` — flatten all clients into one (N_total, ...) pool
   + per-client offsets; uploaded once, each round gathers its cohort's
   batches on the device from a (K, H, b) index matrix.
+* :class:`DevicePrefetcher` — double-buffered host -> device upload of a
+  batch stream (the server phase's over-budget fallback).
+* :func:`generators_state` / :func:`load_generators_state` — the cohort
+  sampler's and every client's batch stream's state, for a checkpoint.
 
 Every function consumes numpy RNG exactly as ``repro.data.pipeline`` does,
 so cohorts and batches match the JAX package draw for draw.
@@ -15,9 +19,12 @@ so cohorts and batches match the JAX package draw for draw.
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import List
 
 import numpy as np
+import torch
 
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import Dataset
@@ -93,3 +100,80 @@ def round_batches(clients: List[ClientData], cohort_ids, local_steps: int,
                   for c in cohort_ids]
     return {k: np.stack([pc[k] for pc in per_client])
             for k in per_client[0]}
+
+
+def generators_state(rng: np.random.Generator,
+                     clients: List[ClientData]) -> dict:
+    """JSON-able state of the cohort sampler ``rng`` and of each client's
+    batch stream, which a resumed run must continue from."""
+    return {"rng": rng.bit_generator.state,
+            "clients": [{"rng": c.rng.bit_generator.state,
+                         "order": c._order.tolist(),
+                         "cursor": int(c._cursor)} for c in clients]}
+
+
+def load_generators_state(rng: np.random.Generator,
+                          clients: List[ClientData], state: dict):
+    """Put back what :func:`generators_state` saved."""
+    rng.bit_generator.state = state["rng"]
+    for c, s in zip(clients, state["clients"]):
+        c.rng.bit_generator.state = s["rng"]
+        c._order = np.asarray(s["order"], dtype=c._order.dtype)
+        c._cursor = s["cursor"]
+
+
+class DevicePrefetcher:
+    """Double-buffered host -> device prefetch, as
+    ``repro.data.pipeline.DevicePrefetcher``: a background thread moves
+    each batch (a dict of numpy arrays) to ``device`` up to two batches
+    ahead of the consumer, so the upload of batch k + 1 overlaps
+    the step on batch k.  On the card the copy leaves pinned memory,
+    non-blocking, on a stream of its own, and the consumer's stream waits
+    for it.  Yields the device batches in producer order; an error of the
+    producer is raised to the consumer."""
+
+    _DONE = object()
+
+    def __init__(self, batches, device):
+        self.device = torch.device(device)
+        self.q: queue.Queue = queue.Queue(maxsize=2)
+        self.error = None
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def put(batch):
+            if stream is None:
+                return {k: torch.as_tensor(v) for k, v in batch.items()}, None
+            with torch.cuda.stream(stream):
+                out = {k: torch.from_numpy(np.ascontiguousarray(v))
+                       .pin_memory().to(self.device, non_blocking=True)
+                       for k, v in batch.items()}
+                done = torch.cuda.Event()
+                done.record(stream)
+            return out, done
+
+        def run():
+            try:
+                for batch in batches:
+                    self.q.put(put(batch))
+            except BaseException as e:   # raised to the consumer
+                self.error = e
+            finally:
+                self.q.put(self._DONE)
+
+        threading.Thread(target=run, daemon=True).start()
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is self._DONE:
+                if self.error is not None:
+                    raise self.error
+                return
+            batch, done = item
+            if done is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(done)
+                for t in batch.values():    # freed only after the step
+                    t.record_stream(consumer)
+            yield batch

@@ -11,7 +11,8 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None``/``"cuda"`` -> the current CUDA device (raises without one),
-    with fp32 pinned (:func:`pin_fp32`); ``"cpu"`` -> the CPU."""
+    with fp32 and cuDNN's deterministic algorithms pinned (:func:`pin_fp32`,
+    :func:`pin_deterministic`); ``"cpu"`` -> the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -21,6 +22,7 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
         pin_fp32()
+        pin_deterministic()
     return dev
 
 
@@ -32,3 +34,14 @@ def pin_fp32() -> None:
     backward ops autograd runs later read them too."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def pin_deterministic() -> None:
+    """Let cuDNN pick only deterministic algorithms, so that a run repeats
+    bit for bit on the card as the reference's does: PyTorch's default
+    lets cuDNN's convolution backward sum in a varying order (the vision
+    classifiers).  The hand-written kernels and the rest of the LM paths
+    repeat without it; ``torch.use_deterministic_algorithms`` is not set,
+    which costs the LM server step time and changes nothing there
+    (PERF.md, Findings)."""
+    torch.backends.cudnn.deterministic = True

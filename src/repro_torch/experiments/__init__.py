@@ -2,7 +2,8 @@
 
 ``spec``    — frozen, JSON-serializable :class:`ExperimentSpec`.
 ``systems`` — :class:`System` protocol + ``@register_system`` registry
-              (``ampere``; the baselines are ROADMAP.md queue A4).
+              (``ampere`` and the synchronous baselines; the buffered
+              ones are ROADMAP.md queue A5).
 ``runner``  — shared federated-loop machinery (checkpoint/resume,
               journal, early stop, metrics, comm/sim-time accounting).
 ``api``     — :func:`run_experiment`, the one entry point.

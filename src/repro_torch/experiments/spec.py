@@ -11,8 +11,9 @@ committed file drives either package.
 The optional sections — transport, fault injection, streaming,
 observability, the fleet and the adaptive cut — are kept here as data
 (the reference's fields, defaults and checks).  The port cannot run them
-yet: :meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of
-each one a spec sets, and :func:`repro_torch.experiments.run_experiment`
+yet, nor the buffered systems ``fedbuff`` and ``splitfed_pa``:
+:meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of each
+one a spec asks for, and :func:`repro_torch.experiments.run_experiment`
 refuses such a spec.
 """
 
@@ -31,10 +32,9 @@ from repro_torch.configs.base import RunConfig
 #: staleness) rather than replaying synchronous cohort rounds
 ASYNC_SYSTEMS = frozenset({"fedbuff", "splitfed_pa"})
 
-#: the reference's systems that wait for the baselines (queue A4)
-PENDING_SYSTEMS = frozenset({"fedavg", "fedbuff", "pipar", "scaffold",
-                             "splitfed", "splitfed_mb", "splitfed_pa",
-                             "splitfedv2", "splitgp"})
+#: the reference's systems that wait for the fleet scheduler's async mode
+#: (queue A5)
+PENDING_SYSTEMS = frozenset({"fedbuff", "splitfed_pa"})
 
 #: device classes of the fleet profiles (``repro.fleet.profiles``)
 DEVICE_CLASSES = ("jetson-fast", "jetson-mid", "jetson-slow", "phone-5g",
@@ -366,8 +366,9 @@ class ExperimentSpec:
         for s in self.systems:
             if s in PENDING_SYSTEMS:
                 problems.append(
-                    f"system {s!r} is not ported yet (ROADMAP.md queue A4, "
-                    f"the baselines); ported: {sorted(known)}")
+                    f"system {s!r} is not ported yet (ROADMAP.md queue A5, "
+                    "the buffered baselines on the fleet scheduler's async "
+                    f"mode); ported: {sorted(known)}")
             elif s not in known:
                 problems.append(
                     f"unknown system {s!r}; registered: {sorted(known)}")

@@ -9,9 +9,14 @@ composes them into the full pipeline for one :class:`SystemContext`.
 ``@register_system("name")`` makes a system addressable from an
 :class:`~repro_torch.experiments.spec.ExperimentSpec`.
 
-The port registers ``"ampere"`` with the static cut and i.i.d. cohorts.
-The buffered and SFL/FedAvg systems are ROADMAP.md queue A4; fleet-trace
-replay is A5.
+The port registers ``"ampere"`` (static cut, i.i.d. cohorts) and the
+synchronous baselines: the SFL family (``splitfed``, ``splitfed_mb``,
+``splitfedv2``, ``splitgp``, ``scaffold``, ``pipar``) and ``fedavg``.
+Without a fleet trace the reference's ``replay_plan`` is ``None``, so
+each baseline runs its i.i.d. cohorts here too.  The buffered systems
+(``fedbuff``, ``splitfed_pa``) take their schedule from the fleet
+scheduler's async mode, and fleet-trace replay is the fleet slice: both
+are ROADMAP.md queue A5.
 """
 
 from __future__ import annotations
@@ -102,6 +107,13 @@ def list_systems() -> list:
     return sorted(_REGISTRY)
 
 
+def _seeded(tr, ctx: SystemContext) -> torch.Generator:
+    """``ctx.gen``, or a CPU generator seeded from ``run.seed``."""
+    if ctx.gen is not None:
+        return ctx.gen
+    return torch.Generator().manual_seed(tr.run.seed)
+
+
 @register_system("ampere")
 class AmpereSystem(System):
     """The paper's system: federated device phase, one-shot activation
@@ -116,15 +128,10 @@ class AmpereSystem(System):
                 log_echo=ctx.log_echo, device=ctx.device)
         return ctx.trainer
 
-    def _gen(self, tr, ctx: SystemContext) -> torch.Generator:
-        if ctx.gen is not None:
-            return ctx.gen
-        return torch.Generator().manual_seed(tr.run.seed)
-
     def init_state(self, ctx: SystemContext, gen=None):
         tr = self._trainer(ctx)
         dev, srv, aux = tr._init_states(gen if gen is not None
-                                        else self._gen(tr, ctx))
+                                        else _seeded(tr, ctx))
         return {"device": dev, "aux": aux}, srv
 
     def _make_store(self, tr, ctx: SystemContext):
@@ -138,7 +145,7 @@ class AmpereSystem(System):
 
     def run(self, ctx: SystemContext) -> dict:
         tr = self._trainer(ctx)
-        dev, srv, aux = tr._init_states(self._gen(tr, ctx))
+        dev, srv, aux = tr._init_states(_seeded(tr, ctx))
         dev_state = tr.run_device_phase({"device": dev, "aux": aux},
                                         ctx.max_rounds)
         store = self._make_store(tr, ctx)
@@ -149,3 +156,87 @@ class AmpereSystem(System):
         return {"device_state": dev_state, "server_state": srv_state,
                 "merged_params": merged, "store": store,
                 "history": tr.history}
+
+
+class SFLSystem(System):
+    """SFL-family baselines: per-iteration activation/gradient exchange,
+    one shared round loop (the ``make_sfl_round_step`` variants)."""
+
+    variant = "splitfed"
+
+    def _trainer(self, ctx: SystemContext):
+        from repro_torch.core.baselines import SFLTrainer
+        if ctx.trainer is None:
+            ctx.trainer = SFLTrainer(
+                ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
+                variant=self.variant, workdir=ctx.workdir,
+                patience=ctx.patience, log_echo=ctx.log_echo,
+                device=ctx.device)
+        return ctx.trainer
+
+    def init_state(self, ctx: SystemContext, gen=None):
+        tr = self._trainer(ctx)
+        return tr._init_state(gen if gen is not None else _seeded(tr, ctx))
+
+    def run(self, ctx: SystemContext) -> dict:
+        tr = self._trainer(ctx)
+        rounds = ctx.max_rounds if ctx.max_rounds is not None \
+            else tr.run.fed.device_epochs
+        return tr.run_rounds(rounds, gen=_seeded(tr, ctx))
+
+
+@register_system("splitfed")
+class SplitFedSystem(SFLSystem):
+    variant = "splitfed"
+
+
+@register_system("splitfed_mb")
+class SplitFedMBSystem(SFLSystem):
+    """Minibatch-SGD SplitFed: the cohort's joint gradients are
+    weight-averaged before every SGD step; SplitFed's exchange volume."""
+
+    variant = "splitfed_mb"
+
+
+@register_system("splitfedv2")
+class SplitFedV2System(SFLSystem):
+    variant = "splitfedv2"
+
+
+@register_system("splitgp")
+class SplitGPSystem(SFLSystem):
+    variant = "splitgp"
+
+
+@register_system("scaffold")
+class ScaffoldSystem(SFLSystem):
+    variant = "scaffold"
+
+
+@register_system("pipar")
+class PiParSystem(SFLSystem):
+    variant = "pipar"
+
+
+@register_system("fedavg")
+class FedAvgSystem(System):
+    """Classic FL: the whole model trains on-device, FedAvg'd per round."""
+
+    def _trainer(self, ctx: SystemContext):
+        from repro_torch.core.baselines import FedAvgTrainer
+        if ctx.trainer is None:
+            ctx.trainer = FedAvgTrainer(
+                ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
+                workdir=ctx.workdir, patience=ctx.patience,
+                log_echo=ctx.log_echo, device=ctx.device)
+        return ctx.trainer
+
+    def init_state(self, ctx: SystemContext, gen=None):
+        tr = self._trainer(ctx)
+        return tr._init_params(gen if gen is not None else _seeded(tr, ctx))
+
+    def run(self, ctx: SystemContext) -> dict:
+        tr = self._trainer(ctx)
+        rounds = ctx.max_rounds if ctx.max_rounds is not None \
+            else tr.run.fed.device_epochs
+        return tr.run_rounds(rounds, gen=_seeded(tr, ctx))

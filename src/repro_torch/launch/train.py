@@ -1,20 +1,27 @@
-"""Training launcher: Ampere static-cut training on synthetic non-IID data.
+"""Training launcher: Ampere or a synchronous baseline on synthetic
+non-IID data, as ``repro.launch.train``'s ``--mode sim``.
 
-Runs the phases in the order ``AmpereSystem.run`` drives them (device
-phase, one-shot activation generation, server phase, merge) and prints the
-final JSON summary of ``repro.launch.train``: the last server record,
-``comm_bytes`` (device-server bytes, analytic) and ``sim_time_s`` (the
-testbed's simulated wall clock).  ``--workdir`` keeps checkpoints (every
-``--checkpoint-every`` rounds and epochs), the round journal, the metrics
-log and the activation shards there; a rerun with the same workdir
-resumes.  ``--quantize-acts`` stores and uploads int8 activations.
-``--arch`` takes the LM archs and the paper's vision classifiers
-(``mobilenet-l``, ``vgg11``, ``vit-s``, ``swin-t``; ``--seq-len`` is an LM
-option).  Runs on CUDA unless ``--device cpu``.
+``--algo ampere`` (and the ``ampere-noconsolidation`` ablation) runs the
+phases in the order ``AmpereSystem.run`` drives them (device phase,
+one-shot activation generation, server phase, merge); ``fedavg`` and the
+SFL baselines (``splitfed``, ``splitfedv2``, ``splitgp``, ``scaffold``,
+``pipar``) run ``--device-rounds`` rounds of their trainer.  Prints the
+reference's final JSON summary: the last server record (the last round
+for a baseline), ``comm_bytes`` (device-server bytes, analytic) and
+``sim_time_s`` (the testbed's simulated wall clock).  ``--workdir`` keeps
+checkpoints (every ``--checkpoint-every`` rounds and epochs), the round
+journal, the metrics log and Ampere's activation shards there; a rerun
+with the same workdir resumes.  ``--quantize-acts`` stores and uploads
+int8 activations.  ``--arch`` takes the LM archs and the paper's vision
+classifiers (``mobilenet-l``, the default, ``vgg11``, ``vit-s``,
+``swin-t``; ``--seq-len`` is an LM option).  Runs on CUDA unless
+``--device cpu``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --smoke --algo ampere --device-rounds 2 --server-epochs 2 --seq-len 32
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --algo splitfed --device-rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-l \\
       --smoke --device cpu --device-rounds 2 --server-epochs 2 \\
       --quantize-acts
@@ -36,6 +43,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.configs.base import (FedConfig, OptimConfig, RunConfig,
                                       SplitConfig)
+from repro_torch.core.baselines import FedAvgTrainer, SFLTrainer
 from repro_torch.core.uit import AmpereTrainer
 from repro_torch.data import (ActivationStore, federate,
                               make_dataset_for_model)
@@ -119,13 +127,50 @@ def run_training(cfg, run_cfg, train, evald, *, device=None,
             "store": store, "seconds": seconds}
 
 
+def run_baseline(cfg, run_cfg, train, evald, *, device=None, rounds=None,
+                 log_echo: bool = False, workdir=None,
+                 patience: int = 15) -> dict:
+    """``run_cfg.algo``'s baseline (``fedavg`` or an SFL variant) for
+    ``rounds`` rounds (``fed.device_epochs`` by default) from a CPU
+    generator seeded from ``run_cfg.seed``: the trainer's result and the
+    wall seconds of the init and of the rounds (host clock around
+    synchronized work)."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    clients = federate(train, run_cfg.fed.num_clients,
+                       run_cfg.fed.dirichlet_alpha, seed=run_cfg.seed)
+    if run_cfg.algo == "fedavg":
+        trainer = FedAvgTrainer(model, run_cfg, clients, evald,
+                                workdir=workdir, patience=patience,
+                                log_echo=log_echo, device=dev)
+    else:
+        trainer = SFLTrainer(model, run_cfg, clients, evald,
+                             variant=run_cfg.algo, workdir=workdir,
+                             patience=patience, log_echo=log_echo, device=dev)
+    gen = torch.Generator().manual_seed(run_cfg.seed)
+    t0 = _sync(dev)
+    init = [trainer._init_params(gen) if run_cfg.algo == "fedavg"
+            else trainer._init_state(gen)]
+    t1 = _sync(dev)
+    out = trainer.run_rounds(
+        rounds if rounds is not None else run_cfg.fed.device_epochs,
+        init=init)
+    out["seconds"] = {"init": t1 - t0, "rounds": _sync(dev) - t1}
+    trainer.runner.close()
+    return out
+
+
+ALGOS = ["ampere", "ampere-noconsolidation", "splitfed", "splitfedv2",
+         "splitgp", "scaffold", "pipar", "fedavg"]
+
+
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b",
+    ap.add_argument("--arch", default="mobilenet-l",
                     choices=registry.list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
-    ap.add_argument("--algo", default="ampere", choices=["ampere"])
+    ap.add_argument("--algo", default="ampere", choices=ALGOS)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--split-point", type=int, default=1)
     ap.add_argument("--aux-ratio", type=float, default=0.5)
@@ -164,14 +209,22 @@ def main(argv=None):
                                    seq_len=args.seq_len, seed=args.seed)
     evald = make_dataset_for_model(model, args.eval_samples,
                                    seq_len=args.seq_len, seed=args.seed + 1)
-    out = run_training(cfg, build_run_cfg(args), train, evald,
-                       device=args.device, device_rounds=args.device_rounds,
-                       server_epochs=args.server_epochs,
-                       log_echo=not args.quiet, workdir=args.workdir,
-                       patience=args.patience)
+    kw = dict(device=args.device, log_echo=not args.quiet,
+              workdir=args.workdir, patience=args.patience)
+    if args.algo.startswith("ampere"):
+        # ampere-noconsolidation runs Ampere itself: the reference's flag
+        # picks the same whole pool either way (ROADMAP C4)
+        out = run_training(cfg, build_run_cfg(args), train, evald,
+                           device_rounds=args.device_rounds,
+                           server_epochs=args.server_epochs, **kw)
+        records = out["history"]["server"]
+    else:
+        out = run_baseline(cfg, build_run_cfg(args), train, evald,
+                           rounds=args.device_rounds, **kw)
+        records = out["history"]["rounds"]
     hist = out["history"]
     summary = {"arch": args.arch, "algo": args.algo,
-               "final": hist["server"][-1] if hist["server"] else {},
+               "final": records[-1] if records else {},
                "comm_bytes": hist.get("comm_bytes", 0),
                "sim_time_s": hist.get("sim_time", 0.0)}
     print(json.dumps(summary, default=float))

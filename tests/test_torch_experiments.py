@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_experiment_parity as P
 from repro.configs.base import FedConfig as JFed
 from repro.configs.base import OptimConfig as JOptim
 from repro.configs.base import RunConfig as JRun
@@ -73,6 +74,12 @@ def _j_spec(results_dir):
     return JSpec(name="t", arch=ARCH, run=run, data=JData(**DATA),
                  max_rounds=ROUNDS, max_server_epochs=EPOCHS, patience=50,
                  results_dir=str(results_dir))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    with P.one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -290,11 +297,16 @@ def test_store_persists_shards_and_reloads(tmp_path):
 
 
 def test_pool_over_budget_raises(tmp_path):
+    """A pool over ``device_pool_budget_mb`` no longer raises: both phases
+    stream from the host, as the reference's fallbacks do, and the run
+    equals the resident one exactly."""
     spec = _t_spec(tmp_path)
-    spec = dataclasses.replace(spec, run=dataclasses.replace(
+    over = dataclasses.replace(spec, run=dataclasses.replace(
         spec.run, device_pool_budget_mb=0))
-    with pytest.raises(ValueError, match="device_pool_budget_mb"):
-        run_experiment(spec, write_results=False, device="cpu")
+    resident = run_experiment(spec, write_results=False, device="cpu")
+    streamed = run_experiment(over, write_results=False, device="cpu")
+    assert streamed["results"]["ampere"]["history"] == \
+        resident["results"]["ampere"]["history"]
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +575,8 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
     ("fleet", FleetConfig(n_devices=4), "A5"),
     ("cut", CutPolicy(mode="per_profile"), "A5"),
     ("trace_path", "/nonexistent/trace.jsonl", "A5"),
-    ("systems", ("ampere", "splitfed"), "A4"),
+    ("systems", ("ampere", "splitfed_pa"), "A5"),
+    ("systems", ("fedbuff",), "A5"),
     ("arch", "qwen2-moe-a2.7b", "A7"),
 ])
 def test_spec_refuses_what_the_port_cannot_run(feature, value, item):

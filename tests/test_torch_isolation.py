@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.baselines import FedAvgTrainer, SFLTrainer
 from repro_torch.core.uit import AmpereTrainer
 from repro_torch.data import federate, make_dataset_for_model
 from repro_torch.kernels import build
@@ -26,6 +27,9 @@ PROBE = """
 import sys
 sys.path.insert(0, {root!r})
 import repro_torch
+import repro_torch.core.baselines
+import repro_torch.core.baselines.fedavg
+import repro_torch.core.baselines.sfl_family
 import repro_torch.core.comm_model
 import repro_torch.experiments
 import repro_torch.experiments.api
@@ -64,6 +68,12 @@ def test_entry_points_raise_instead_of_running_on_cpu(monkeypatch):
     data = make_dataset_for_model(model, 16, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         AmpereTrainer(model, RunConfig(), federate(data, 2, 0.5), data)
+    for trainer in (SFLTrainer, FedAvgTrainer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trainer(model, RunConfig(), federate(data, 2, 0.5), data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--algo", "splitfed", "--train-samples", "16",
+                    "--eval-samples", "8", "--quiet"])
     from repro_torch.experiments import ExperimentSpec, run_experiment
     spec = ExperimentSpec(arch="qwen3-1.7b", max_rounds=1,
                           max_server_epochs=1)

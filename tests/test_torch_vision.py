@@ -232,6 +232,21 @@ def test_pin_fp32_turns_tf32_off():
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
+def test_pin_deterministic_pins_only_cudnn():
+    """What ``resolve_device`` also does for a CUDA device: cuDNN picks
+    deterministic algorithms only; PyTorch's global deterministic mode
+    stays as it was (it costs the LM step and changes nothing there)."""
+    from repro_torch.device import pin_deterministic
+    flag = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        pin_deterministic()
+        assert torch.backends.cudnn.deterministic
+        assert not torch.are_deterministic_algorithms_enabled()
+    finally:
+        torch.backends.cudnn.deterministic = flag
+
+
 # ---------------------------------------------------------------------------
 # (c) every layer of the four smoke archs, forward and grads
 # ---------------------------------------------------------------------------
