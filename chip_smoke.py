@@ -135,6 +135,37 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    relative, accuracies within 1e-2, ``comm_bytes`` and ``sim_time``
    equal (SCAFFOLD keeps a control tree per client: run at this size
    only).
+12. Fleet: (a) the port's ``FleetScheduler`` simulates a synchronous
+   trace over ``FLEET`` (4 devices of three classes, one a client,
+   dropout hazard 0.3, straggler deadline, cohort 2), priced with
+   Ampere's per-round latency at full width, and ``AmpereSystem.run``
+   trains full-width, full-depth qwen3-1.7b on it (phase 5's corpus, seq
+   512, lr 0.02, ``FLEET_ROUNDS`` rounds through
+   ``run_fleet_device_phase``, the parallel upload on each profile's
+   link, one server epoch): the bf16 attention and xent kernels launch,
+   every loss is finite, the merged val loss ends below ln V, and
+   ``comm_bytes`` = the plans' 2 x survivors x (s_d + s_aux) +
+   ``bytes_received``, ``sim_time`` = the plans' round times + the
+   slowest (shard bytes / own link) + the server epoch, in the Runner's
+   order.  (b) FedBuff on the same model, corpus and population, its
+   async schedule from ``fedbuff_schedule`` (``FLEET_ASYNC``: buffer 2,
+   3 in flight, staleness at most 2), ``FLEET_ROUNDS`` aggregations: a
+   stale snapshot is trained from, the version ring never holds more
+   than s_max + 1 states, the kernels launch, the accounting holds
+   (the context holds the population's sync trace, as every fleet run's
+   does, so the upload is priced in parallel on each profile's link).  Each logs its rounds' (aggregations') wall seconds,
+   its wall time and peak memory beside the card's name and power
+   limit.  (c) ``examples/specs/compare_smoke.json``'s seven systems from
+   a temporary copy of its trace, at ``COMPARE_ROUNDS`` rounds and
+   ``COMPARE_EPOCHS`` server epoch (the spec's 12 and 4 cut for time), on
+   the card and on the CPU from the same CPU-seeded init: losses within
+   1e-4 relative, accuracies within 1e-2, ``comm_bytes`` and
+   ``sim_time`` equal; then FedBuff on the qwen3-1.7b smoke spec with the
+   phase's fleet, checkpointed after every aggregation: a card run killed
+   after aggregation 1 and rerun from its workdir equals the
+   uninterrupted card run bit for bit (history and merged parameters),
+   and the rerun itself trains only the aggregations after the
+   checkpoint.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -148,7 +179,7 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
-runs too), 9, 10 and 11,
+runs too), 9, 10, 11 and 12,
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -169,6 +200,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,7 +223,13 @@ from repro_torch.data import (ActivationStore, Dataset, federate,  # noqa: E402
                               make_dataset_for_model, make_lm_dataset)
 from repro_torch.experiments import (AmpereSystem, DataSpec,  # noqa: E402
                                      ExperimentSpec, SystemContext,
-                                     resolve_setup, run_experiment)
+                                     resolve_setup, resolve_trace,
+                                     run_experiment)
+from repro_torch.experiments.systems import (FedBuffSystem,  # noqa: E402
+                                             fedbuff_schedule)
+from repro_torch.fleet import (FleetConfig, FleetEngine,  # noqa: E402
+                               FleetScheduler, make_latency_fn,
+                               sample_population)
 from repro_torch.interop import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
@@ -200,6 +238,7 @@ from repro_torch.kernels.ssd_chunk import ref as SR  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.streaming import VersionRing  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -302,6 +341,25 @@ BASELINE_KERNELS = {
 COMPARISON_EPOCHS = 2
 SYNC_SYSTEMS = ("splitfed", "splitfed_mb", "splitfedv2", "splitgp",
                 "scaffold", "pipar", "fedavg")
+# phase 12: the fleet.  Four devices of three classes, one a client,
+# dropping out mid-round (hazard 0.3) and straggling (deadline 2 x the
+# median), cohort 2; the async schedule buffers 2 updates with 3 devices
+# in flight and staleness at most 2.  At full width seed 3 gives drops in
+# rounds 1 and 2 and stale updates in aggregations 1 and 2.
+FLEET_ARCH = "qwen3-1.7b"
+FLEET_KERNELS = ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")
+FLEET_ROUNDS = 3
+FLEET = dict(n_devices=4, seed=3, p_online0=1.0,
+             class_mix=(("jetson-fast", 0.34), ("jetson-slow", 0.33),
+                        ("phone-3g", 0.33)),
+             mean_session_rounds=50.0, mean_off_rounds=1.0,
+             dropout_hazard=0.3, deadline_factor=2.0, min_cohort=1,
+             max_cohort=2, init_cohort=2, heartbeat_loss_prob=0.0)
+FLEET_ASYNC = dict(async_buffer_size=2, max_staleness=2, max_concurrent=3)
+COMPARE_SPEC = ("examples/specs/compare_smoke.json",
+                "examples/specs/fleet_trace_smoke.jsonl")
+COMPARE_ROUNDS, COMPARE_EPOCHS = 2, 1
+ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
 WARMUP = 3               # attention: untimed calls before them
@@ -1382,6 +1440,322 @@ def baselines(dev) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the fleet
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, dev, out: list):
+    """Appends the wall seconds of every call of ``owner.name`` to ``out``
+    (the card synchronized around each call) while the block runs."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        out.append(time.perf_counter() - t)
+        return result
+
+    setattr(owner, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, fn)
+
+
+def fleet_setup():
+    """Phase 5's qwen3-1.7b federation and corpus, its model and the
+    fleet's device population (one device a client)."""
+    arch = FLEET_ARCH
+    seq, lr = MAIN_PATHS[arch]["seq"], MAIN_PATHS[arch]["lr"]
+    cfg = registry.get_config(arch)
+    largs = launch_train.make_parser().parse_args(
+        ["--arch", arch, "--clients", "4", "--cohort", "2", "--local-steps",
+         "2", "--batch-size", "4", "--server-batch", "8", "--seq-len",
+         str(seq), "--lr", str(lr), "--seed", "0"])
+    run_cfg = launch_train.build_run_cfg(largs)
+    model = build_model(cfg)
+    clients = federate(full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0),
+                       run_cfg.fed.num_clients, run_cfg.fed.dirichlet_alpha,
+                       seed=run_cfg.seed)
+    evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    return cfg, run_cfg, model, clients, evald, sample_population(
+        FleetConfig(**FLEET))
+
+
+def fleet_accounting(name, model, run_cfg, seq, hist, store, plans,
+                     clients, bandwidth):
+    """A fleet path's bytes and clock, recomputed (analytic: no device
+    number): ``comm_bytes`` = the sum over the plans of 2 x survivors x
+    (s_d + s_aux) + ``bytes_received``; ``sim_time`` = the plans' round
+    times, then the upload (``bandwidth`` a map: each device's shard over
+    its own link, the slowest; ``None``: all bytes through the testbed
+    link), then the server epochs, summed in the Runner's order."""
+    sizes = comm_model.split_sizes(model, run_cfg.split, seq_len=seq)
+    nbytes = store.bytes_received
+    want_comm = sum(2 * len(p.clients) * (sizes.device + sizes.aux)
+                    for p in plans) + nbytes
+    want_time = 0.0
+    for p in plans:
+        want_time += p.round_time
+    if bandwidth is None:
+        upload_s = nbytes / comm_model.BANDWIDTH_BPS
+    else:
+        per_sample = nbytes / store.num_samples()
+        upload_s = max(len(c.dataset) * per_sample / bandwidth[c.client_id]
+                       for c in clients)
+    want_time += upload_s
+    epoch_s = comm_model.ampere_server_epoch_time(
+        model, run_cfg.split, comm_model.TimeModel(),
+        n_samples=store.num_samples(), seq_len=seq, sizes=sizes)
+    for _ in range(SERVER_EPOCHS):
+        want_time += epoch_s
+    per = seq * model.cfg.d_model * 4 + seq * 4
+    got = (nbytes, hist["comm_bytes"], hist["sim_time"])
+    want = (TRAIN_SAMPLES * per, want_comm, want_time)
+    log("fleet_accounting", path=name, bytes_received=nbytes,
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        rounds_s=sum(p.round_time for p in plans), upload_s=upload_s,
+        server_epoch_s=epoch_s, ok=got == want)
+    if got != want:
+        raise AssertionError(f"fleet {name} accounting: (bytes_received, "
+                             f"comm_bytes, sim_time) {got} != {want}")
+
+
+def _check_fleet_path(name, cfg, hist, launches, rounds):
+    losses = [r[k] for ph in ("device", "server") for r in hist[ph]
+              for k in ("loss", "val_loss")]
+    if len(hist["device"]) != rounds or \
+            len(hist["server"]) != SERVER_EPOCHS or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fleet {name}: history not finite/complete: "
+                             f"{hist}")
+    if not hist["server"][-1]["val_loss"] < math.log(cfg.vocab_size):
+        raise AssertionError(f"fleet {name}: merged model did not train "
+                             f"below ln V: {hist}")
+    for kernel in FLEET_KERNELS:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"fleet {name} never launched {kernel}")
+
+
+def fleet_ampere(dev):
+    """12(a): a sync trace from the port's scheduler drives Ampere at full
+    width through ``AmpereSystem.run``: ``run_fleet_device_phase``, the
+    parallel upload on each profile's link, one server epoch."""
+    cfg, run_cfg, model, clients, evald, pop = fleet_setup()
+    seq = MAIN_PATHS[FLEET_ARCH]["seq"]
+    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq)
+    trace = FleetScheduler(pop, lat, FleetConfig(**FLEET)).simulate(
+        FLEET_ROUNDS)
+    ctx = SystemContext(model=model, run_cfg=run_cfg, clients=clients,
+                        eval_data=evald, trace=trace, population=pop,
+                        max_rounds=FLEET_ROUNDS,
+                        max_server_epochs=SERVER_EPOCHS, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    round_s = []
+    t = time.perf_counter()
+    with timed_calls(FleetEngine, "run_round", dev, round_s):
+        out = AmpereSystem().run(ctx)
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    hist = out["history"]
+    log("fleet_ampere", arch=cfg.name, seq=seq, seconds=seconds,
+        round_s=round_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        profiles=[(p.cls, p.bandwidth_bps) for p in pop],
+        plans=[(p.clients, p.dropped, p.cohort_size, p.round_time)
+               for p in trace.rounds],
+        device=hist["device"], server=hist["server"], launches=launches,
+        card=card_line())
+    fleet_accounting("ampere", model, run_cfg, seq, hist, out["store"],
+                     trace.rounds[:FLEET_ROUNDS], clients,
+                     {p.device_id: p.bandwidth_bps for p in pop})
+    del out
+    _check_fleet_path("ampere", cfg, hist, launches, FLEET_ROUNDS)
+    if not any(p.dropped for p in trace.rounds):
+        raise AssertionError("fleet ampere: the trace dropped no device")
+    return launches
+
+
+def fleet_fedbuff(dev):
+    """12(b): FedBuff at full width on the async schedule derived from the
+    same population: a stale snapshot is trained from, and the version
+    ring never holds more than s_max + 1 states.  The context holds the
+    population's sync trace, as ``resolve_trace`` gives it to every fleet
+    run, so the upload is priced in parallel on each profile's link."""
+    cfg, run_cfg, model, clients, evald, pop = fleet_setup()
+    seq = MAIN_PATHS[FLEET_ARCH]["seq"]
+    fcfg = FleetConfig(**FLEET, **FLEET_ASYNC)
+    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq)
+    sync = FleetScheduler(pop, lat, dataclasses.replace(
+        fcfg, async_buffer_size=0)).simulate(FLEET_ROUNDS)
+    ctx = SystemContext(model=model, run_cfg=run_cfg, clients=clients,
+                        eval_data=evald, trace=sync, population=pop,
+                        fleet_cfg=fcfg, max_rounds=FLEET_ROUNDS,
+                        max_server_epochs=SERVER_EPOCHS, device=dev)
+    schedule = fedbuff_schedule(ctx, FLEET_ROUNDS)
+    s_max = max(max(p.staleness) for p in schedule.rounds)
+    ring_sizes, agg_s = [], []
+    append = VersionRing.append
+
+    def counted_append(ring, version, state):
+        append(ring, version, state)
+        ring_sizes.append(len(ring))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    VersionRing.append = counted_append
+    t = time.perf_counter()
+    try:
+        with timed_calls(FleetEngine, "run_buffered_round", dev, agg_s):
+            out = FedBuffSystem().run(ctx)
+    finally:
+        VersionRing.append = append
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    hist = out["history"]
+    log("fleet_fedbuff", arch=cfg.name, seq=seq, seconds=seconds,
+        aggregation_s=agg_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        s_max=s_max, ring_sizes=ring_sizes,
+        plans=[(p.clients, p.staleness, p.dropped, p.round_time)
+               for p in schedule.rounds],
+        device=hist["device"], server=hist["server"], launches=launches,
+        card=card_line())
+    fleet_accounting("fedbuff", model, run_cfg, seq, hist, out["store"],
+                     schedule.rounds, clients,
+                     {p.device_id: p.bandwidth_bps for p in pop})
+    del out
+    _check_fleet_path("fedbuff", cfg, hist, launches, FLEET_ROUNDS)
+    if not s_max > 0:
+        raise AssertionError(f"fleet fedbuff: no stale update in "
+                             f"{schedule.rounds}")
+    if len(ring_sizes) != FLEET_ROUNDS or max(ring_sizes) > s_max + 1:
+        raise AssertionError(f"fleet fedbuff: ring sizes {ring_sizes}, "
+                             f"s_max {s_max}")
+    return launches
+
+
+def fleet_compare(dev):
+    """12(c): ``examples/specs/compare_smoke.json``'s seven systems from a
+    temporary copy of its trace, ``COMPARE_ROUNDS`` rounds and
+    ``COMPARE_EPOCHS`` server epochs (the spec's 12 and 4 cut for time),
+    on the card and on the CPU from the same CPU-seeded init."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.jsonl")
+        shutil.copy(os.path.join(ROOT, COMPARE_SPEC[1]), trace)
+        spec = dataclasses.replace(
+            ExperimentSpec.load(os.path.join(ROOT, COMPARE_SPEC[0])),
+            trace_path=trace, max_rounds=COMPARE_ROUNDS,
+            max_server_epochs=COMPARE_EPOCHS,
+            results_dir=os.path.join(tmp, "results"))
+        reset_launches()
+        t = time.perf_counter()
+        card = run_experiment(spec, device=dev, write_results=False)
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+        cpu = run_experiment(spec, device="cpu", write_results=False)
+    for name in spec.systems:
+        h_card, h_cpu = (o["results"][name]["history"] for o in (card, cpu))
+        log("fleet_compare", system=name, card=card["summary"][name],
+            cpu=cpu["summary"][name], rel_tol=1e-4)
+        for phase in ("device", "server", "rounds"):
+            a, b = h_card.get(phase, []), h_cpu.get(phase, [])
+            if len(a) != len(b):
+                raise AssertionError(f"{name} {phase}: {a} vs {b}")
+            for x, y in zip(a, b):
+                for key in ("loss", "val_loss"):
+                    if not abs(x[key] - y[key]) <= 1e-4 * abs(y[key]):
+                        raise AssertionError(f"{name} {phase} {key}: {x} "
+                                             f"vs {y}")
+                if not abs(x["val_acc"] - y["val_acc"]) <= 1e-2:
+                    raise AssertionError(f"{name} {phase} val_acc: {x} vs "
+                                         f"{y}")
+        for key in ("comm_bytes", "sim_time"):
+            if h_card[key] != h_cpu[key]:
+                raise AssertionError(f"{name} {key}: {h_card[key]} vs "
+                                     f"{h_cpu[key]}")
+    log("fleet_compare", seconds_card=seconds, launches=launches,
+        card=card_line())
+    return launches
+
+
+def fleet_resume(dev):
+    """12(c): FedBuff on the qwen3-1.7b smoke spec with the phase's fleet,
+    checkpointed after every aggregation: a card run killed after
+    aggregation 1 and rerun from its workdir equals the uninterrupted card
+    run bit for bit, and the rerun trains only the aggregations after the
+    checkpoint (a rerun from scratch would give the same history)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        def spec(name):
+            base = experiment_spec(os.path.join(tmp, name))
+            return dataclasses.replace(
+                base, systems=("fedbuff",), max_rounds=FLEET_ROUNDS,
+                fleet=FleetConfig(**FLEET, **FLEET_ASYNC))
+
+        reset_launches()
+        full = run_experiment(spec("full"), device=dev)
+        s, model, clients, evald = resolve_setup(spec("resumed"))
+        trace, pop = resolve_trace(s, model, s.run, seq_len=s.data.seq_len)
+        ctx = SystemContext(model=model, run_cfg=s.run, clients=clients,
+                            eval_data=evald, trace=trace, population=pop,
+                            fleet_cfg=s.fleet, patience=s.patience,
+                            workdir=os.path.join(s.results_dir, "fedbuff"),
+                            device=dev)
+        dev_state, _ = FedBuffSystem().init_state(ctx)
+        ctx.trainer.run_buffered_device_phase(
+            dev_state, fedbuff_schedule(ctx, FLEET_ROUNDS), 2)  # killed
+        ctx.trainer.runner.close()
+        resumed_s = []
+        with timed_calls(FleetEngine, "run_buffered_round", dev, resumed_s):
+            resumed = run_experiment(s, device=dev)
+        launches = read_launches()
+    h_full, h_res = (o["results"]["fedbuff"]["history"]
+                     for o in (full, resumed))
+    # by path: a tree restored from a checkpoint comes back in sorted key
+    # order
+    p_full, p_res = (dict(_flat(o["results"]["fedbuff"]["merged_params"]))
+                     for o in (full, resumed))
+    differ = sorted(k for k in p_full.keys() | p_res.keys()
+                    if k not in p_full or k not in p_res
+                    or not torch.equal(p_full[k], p_res[k]))
+    same_params = not differ
+    log("fleet_resume", arch="qwen3-1.7b", full=h_full, resumed=h_res,
+        resumed_aggregations=len(resumed_s), same_params=same_params,
+        params=len(p_full), differ=differ[:8], launches=launches)
+    if h_res != h_full or not same_params:
+        raise AssertionError(f"fedbuff resumed vs uninterrupted: {h_res} vs "
+                             f"{h_full}, same merged params {same_params}")
+    if len(resumed_s) != len(h_full["device"]) - 2 or len(resumed_s) < 1:
+        raise AssertionError(
+            f"fedbuff resumed run trained {len(resumed_s)} aggregations, "
+            f"not the {len(h_full['device']) - 2} after its checkpoint")
+    if not any(r["staleness_max"] > 0 for r in h_full["device"]):
+        raise AssertionError(f"fedbuff smoke: no stale update: {h_full}")
+    for name in FLEET_KERNELS:
+        if launches[f"{name}_fp32"] <= 0:
+            raise AssertionError(f"fedbuff smoke never launched {name}")
+    return launches
+
+
+def fleet(dev) -> dict:
+    """Phase 12: launches by path of (a), (b) and (c)."""
+    by_path = {}
+    for name, fn in (("fleet:ampere", fleet_ampere),
+                     ("fleet:fedbuff", fleet_fedbuff),
+                     ("fleet_compare", fleet_compare),
+                     ("fleet_resume", fleet_resume)):
+        by_path[name] = fn(dev)
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def tf32_flags() -> dict:
     return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "cublas_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
@@ -1676,6 +2050,7 @@ def main() -> int:
     by_path["vision_experiment"] = vision_experiment(dev)
     torch.cuda.empty_cache()
     by_path.update(baselines(dev))
+    by_path.update(fleet(dev))
     for arch in MAIN_PATHS:
         profile_step(dev, arch)
         torch.cuda.empty_cache()

@@ -1,7 +1,12 @@
-"""Model aggregation: weighted FedAvg (Eq. 4/10) and cohort sampling with
-the fault-tolerance policy (client dropout, straggler deadlines), as
+"""Model aggregation: weighted FedAvg (Eq. 4/10), FedBuff's buffered
+staleness-weighted delta fold, and cohort sampling with the
+fault-tolerance policy (client dropout, straggler deadlines), as
 ``repro.core.aggregation``; ``sample_cohort`` consumes numpy RNG exactly
 as the JAX package does.
+
+The JAX package's "stacked" forms take leaves with a leading client
+axis; here that axis is a Python list of per-client trees (the device
+round is a loop over the clients), so no K-fold copy of a model is made.
 """
 
 from __future__ import annotations
@@ -26,6 +31,49 @@ def fedavg_stacked(trees, weights):
         wf = w.reshape((-1,) + (1,) * (stacked.dim() - 1))
         return torch.sum(stacked * wf, dim=0).to(leaves[0].dtype)
     return tree_map(agg, *trees)
+
+
+def fedavg(trees, weights):
+    """Host-level weighted average of a list of parameter trees (fp64
+    weights, each product and the sum in fp32)."""
+    w = np.asarray(weights, np.float64)
+    w = w / max(w.sum(), 1e-12)
+
+    def agg(*leaves):
+        acc = sum(float(wi) * l.float() for wi, l in zip(w, leaves))
+        return acc.to(leaves[0].dtype)
+    return tree_map(agg, *trees)
+
+
+def staleness_weights(staleness):
+    """Normalized polynomial staleness scaling ``1/sqrt(1+s)`` (FedBuff):
+    fresher updates weigh more; all-zero staleness is uniform FedAvg."""
+    s = np.asarray(staleness, np.float64)
+    w = 1.0 / np.sqrt(1.0 + s)
+    return w / max(w.sum(), 1e-12)
+
+
+def fedbuff_stacked(global_tree, trained_k, snapshot_k, weights,
+                    server_lr: float = 1.0):
+    """Buffered staleness-weighted delta aggregation (FedBuff)::
+
+        new = global + server_lr * sum_i w_i * (trained_i - snapshot_i)
+
+    ``trained_k`` / ``snapshot_k`` are lists of per-client trees (each
+    client trained from its own, possibly stale, snapshot); ``weights``
+    are the staleness-scaled aggregation weights, normalized here, so a
+    zero-weight slot contributes nothing.  With every snapshot equal to
+    the current global state this is weighted FedAvg."""
+    k = len(trained_k)
+
+    def agg(g, *ts):
+        w = normalize_weights(weights, g.device)
+        delta = torch.stack([t.float() - s.float()
+                             for t, s in zip(ts[:k], ts[k:])])
+        wf = w.reshape((-1,) + (1,) * (delta.dim() - 1))
+        return (g.float() + server_lr * torch.sum(delta * wf, dim=0)).to(
+            g.dtype)
+    return tree_map(agg, global_tree, *trained_k, *snapshot_k)
 
 
 def pad_cohort(client_ids, weights, pad_to: int):

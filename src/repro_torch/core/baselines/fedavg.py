@@ -108,11 +108,10 @@ class FedAvgTrainer:
         """``max_rounds`` rounds from ``gen``'s init (``None``: a CPU
         generator seeded from ``run.seed``), or from ``init``, an
         ``_init_params`` result handed over in a one-element list (emptied
-        here), or from the newest checkpoint.  A ``cohort_plan``
-        (fleet-trace replay) is ROADMAP.md queue A5."""
-        if cohort_plan is not None:
-            raise ValueError("cohort_plan (fleet-trace replay) is not "
-                             "ported yet (ROADMAP.md queue A5)")
+        here), or from the newest checkpoint.  ``cohort_plan`` replays a
+        fleet trace's cohorts as in :meth:`SFLTrainer.run_rounds`: an
+        entry's ``round_time`` prices its round's clock, otherwise the
+        analytic full-model FedAvg cost does."""
         fed = self.run.fed
         gen = gen if gen is not None else \
             torch.Generator().manual_seed(self.run.seed)
@@ -126,11 +125,19 @@ class FedAvgTrainer:
             n_samples=fed.local_steps * fed.device_batch_size,
             batch_size=fed.device_batch_size, seq_len=self.seq_len,
             sizes=self.sizes)
+        if cohort_plan is not None:
+            max_rounds = min(max_rounds, len(cohort_plan))
 
         def body(params, rnd, _plan):
-            cohort = aggregation.sample_cohort(self.rng, fed, rnd)
+            if cohort_plan is not None:
+                cohort = cohort_plan[rnd]
+                pad_k = int(cohort.get("cohort_size",
+                                       len(cohort["clients"])))
+            else:
+                cohort = aggregation.sample_cohort(self.rng, fed, rnd)
+                pad_k = K
             ids, w = aggregation.pad_cohort(cohort["clients"],
-                                            cohort["weights"], K)
+                                            cohort["weights"], pad_k)
             batches = {k: torch.as_tensor(v, device=self.device)
                        for k, v in round_batches(
                            self.clients, ids, fed.local_steps,
@@ -145,7 +152,10 @@ class FedAvgTrainer:
                 record={"round": rnd, "loss": float(metrics["loss"]),
                         "val_loss": val["loss"], "val_acc": val["acc"]},
                 comm_bytes=2 * len(cohort["clients"]) * full_bytes,
-                sim_time=round_time,
+                sim_time=(float(cohort["round_time"])
+                          if cohort_plan is not None
+                          and cohort.get("round_time") is not None
+                          else round_time),
                 log={"variant": "fedavg"})
 
         held = [params]   # handed over: the Runner empties it

@@ -16,10 +16,13 @@
 * ``splitfed_mb`` — minibatch-SGD SplitFed [Oh et al., arXiv:2308.11953]:
   the cohort's gradients are weight-averaged every iteration and one
   global SGD step is taken.
-
-``splitfed_pa`` (parallel aggregation) trains on the fleet scheduler's
-buffered asynchronous schedule, which is ROADMAP.md queue A5:
-:func:`make_sfl_round_step` raises for it.
+* ``splitfed_pa`` — collaborative / parallel-aggregation SplitFed
+  [arXiv:2504.15724]: SplitFed's per-iteration split training, the
+  server folding client *deltas* into the global model on a buffered
+  asynchronous schedule (:func:`repro_torch.core.aggregation
+  .fedbuff_stacked` with the schedule's staleness weights; the schedule
+  comes from the fleet scheduler priced with SplitFed's exchange, see
+  ``SplitFedPASystem``).
 
 The K cohort clients train one after another (a Python loop where the JAX
 package vmaps), each update done in fp32 and cast back.  Every iteration
@@ -206,10 +209,25 @@ def make_sfl_round_step(model, run_cfg, variant: str = "splitfed"):
         return round_step
 
     if variant == "splitfed_pa":
-        raise ValueError(
-            "splitfed_pa trains on the fleet scheduler's buffered "
-            "asynchronous schedule, which the port does not have yet "
-            "(ROADMAP.md queue A5)")
+        def round_step(state, batches, weights, lr):
+            par = (state["device"], state["server"])
+            par_k, loss_k = [], []
+            for c in range(len(weights)):
+                pk, lk = local_steps(par, _client(batches, c), lr)
+                par_k.append(pk)
+                loss_k.append(lk)
+            # the buffered delta fold: replayed in process, every buffered
+            # client trains from the current global, so with its snapshots
+            # all the global this is staleness-weighted FedAvg; parameter
+            # lag enters through the plan's 1/sqrt(1+s) weights
+            with torch.no_grad():
+                new = aggregation.fedbuff_stacked(par, par_k,
+                                                  [par] * len(par_k),
+                                                  weights)
+            return ({"device": new[0], "server": new[1]},
+                    {"loss": weighted_loss(loss_k, weights)})
+        return round_step
+
     raise ValueError(f"unknown SFL variant {variant!r}")
 
 
@@ -281,11 +299,16 @@ class SFLTrainer:
         """``max_rounds`` rounds from ``gen``'s init (``None``: a CPU
         generator seeded from ``run.seed``), or from ``init``, an
         ``_init_state`` result handed over in a one-element list (emptied
-        here), or from the newest checkpoint.  A ``cohort_plan``
-        (fleet-trace replay) is ROADMAP.md queue A5."""
-        if cohort_plan is not None:
-            raise ValueError("cohort_plan (fleet-trace replay) is not "
-                             "ported yet (ROADMAP.md queue A5)")
+        here), or from the newest checkpoint.
+
+        ``cohort_plan``: an optional list of ``sample_cohort``-shaped
+        dicts, one a round, replacing the i.i.d. cohort sampling, so a
+        baseline replays the churn and dropout schedule a fleet trace
+        recorded (at most ``len(cohort_plan)`` rounds; each round padded
+        to the entry's ``cohort_size``).  An entry's ``round_time``, when
+        it carries one, prices the round's clock; otherwise (and always
+        for the bytes) this trainer's analytic model does.
+        :func:`repro_torch.experiments.systems.replay_plan` builds one."""
         fed = self.run.fed
         p = self.run.split.split_point
         gen = gen if gen is not None else \
@@ -296,6 +319,8 @@ class SFLTrainer:
         merged_model = build_model(splitting.merged_config(self.model))
         K = fed.clients_per_round
         tm = comm_model.TimeModel()
+        if cohort_plan is not None:
+            max_rounds = min(max_rounds, len(cohort_plan))
         iters, b = fed.local_steps, fed.device_batch_size
         # per round and client: H iterations of activations down and their
         # gradients up, and the model exchange (SplitGP's head too;
@@ -317,9 +342,15 @@ class SFLTrainer:
         def body(pack, rnd, _plan):
             state, controls = pack
             del pack
-            cohort = aggregation.sample_cohort(self.rng, fed, rnd)
+            if cohort_plan is not None:
+                cohort = cohort_plan[rnd]
+                pad_k = int(cohort.get("cohort_size",
+                                       len(cohort["clients"])))
+            else:
+                cohort = aggregation.sample_cohort(self.rng, fed, rnd)
+                pad_k = K
             ids, w = aggregation.pad_cohort(cohort["clients"],
-                                            cohort["weights"], K)
+                                            cohort["weights"], pad_k)
             batches = {k: torch.as_tensor(v, device=self.device)
                        for k, v in round_batches(self.clients, ids, iters,
                                                  b).items()}
@@ -349,7 +380,10 @@ class SFLTrainer:
                 record={"round": rnd, "loss": float(metrics["loss"]),
                         "val_loss": val["loss"], "val_acc": val["acc"]},
                 comm_bytes=2 * len(cohort["clients"]) * one_way,
-                sim_time=round_time,
+                sim_time=(float(cohort["round_time"])
+                          if cohort_plan is not None
+                          and cohort.get("round_time") is not None
+                          else round_time),
                 log={"variant": self.variant})
 
         held = [pack]   # handed over: the Runner empties it

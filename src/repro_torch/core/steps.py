@@ -6,6 +6,9 @@
 * :func:`make_device_round_step` — one federated round: every cohort
   client runs its round from the same global state (a loop over the K
   clients where the JAX package vmaps), then weighted FedAvg (Eq. 10).
+* :func:`make_buffered_round_step` — one buffered (FedBuff) aggregation:
+  each client trains from its own, possibly stale, snapshot, and the
+  staleness-weighted deltas fold into the current global state.
 * :func:`make_server_train_step` / :func:`make_server_epoch_fn` — the
   centralized server phase over consolidated activations (Eq. 11+12).
 
@@ -109,6 +112,39 @@ def make_device_round_step(model, run_cfg, *, impl="kernel"):
         return new_state, {"loss": loss}
 
     return device_round_step
+
+
+def make_buffered_round_step(model, run_cfg, *, impl="kernel"):
+    """``buffered_round_step(state, snapshots, batches, weights, lr)``:
+    ``state`` the current global {"device", "aux"} (left intact: past
+    versions stay live for still-in-flight clients), ``snapshots`` each
+    buffered client's init state (a list of {"device", "aux"} trees, the
+    JAX package's leading client axis), batch leaves (K, H, b, ...).  Each
+    client's round runs from its own snapshot, then the FedBuff delta fold
+    into ``state``."""
+    client_round = make_client_round_fn(model, run_cfg, impl=impl)
+
+    def buffered_round_step(state, snapshots, batches, weights, lr):
+        dev_k, aux_k, loss_k = [], [], []
+        for c, snap in enumerate(snapshots):
+            d, a, l = client_round(snap["device"], snap["aux"],
+                                   {k: v[c] for k, v in batches.items()}, lr)
+            dev_k.append(d)
+            aux_k.append(a)
+            loss_k.append(l)
+        with torch.no_grad():
+            new_state = {
+                "device": aggregation.fedbuff_stacked(
+                    state["device"], dev_k, [s["device"] for s in snapshots],
+                    weights),
+                "aux": aggregation.fedbuff_stacked(
+                    state["aux"], aux_k, [s["aux"] for s in snapshots],
+                    weights)}
+            w = aggregation.normalize_weights(weights, loss_k[0].device)
+            loss = torch.sum(torch.stack(loss_k) * w)
+        return new_state, {"loss": loss}
+
+    return buffered_round_step
 
 
 # ---------------------------------------------------------------------------

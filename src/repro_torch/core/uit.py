@@ -6,9 +6,13 @@ The phases run in the order ``AmpereSystem.run`` drives them:
 1. :meth:`AmpereTrainer._init_states` — init, split, auxiliary network;
 2. :meth:`run_device_phase` — federated rounds: cohort sampling, H
    local-SGD steps per client on the auxiliary local loss, weighted
-   FedAvg, auxiliary validation, early stop on its loss;
+   FedAvg, auxiliary validation, early stop on its loss; or
+   :meth:`run_fleet_device_phase`, the same rounds on the cohorts,
+   dropouts and clock of a :class:`~repro_torch.fleet.FleetTrace`;
 3. :meth:`generate_activations` — one-shot activations of the converged
-   device block into the consolidated :class:`ActivationStore`;
+   device block into the consolidated :class:`ActivationStore`, the
+   upload priced through one shared link or, for a fleet, each device on
+   its own link in parallel;
 4. :meth:`run_server_phase` — server epochs over the device-resident pool,
    merged-model validation after each, early stop on its loss;
 5. :meth:`merged_params`.
@@ -29,8 +33,9 @@ stays int8 on the device (its step dequantizes each batch).  A pool above
 device phase then uploads each round's ``round_batches``, and the server
 phase streams the store's ``batches`` through a
 :class:`~repro_torch.data.pipeline.DevicePrefetcher`; both draw what the
-resident path draws, so the history is the same.  Transport, observability, streaming, fleet and
-heterogeneous cuts are later slices (ROADMAP.md).
+resident path draws, so the history is the same.  Transport,
+observability, streaming and heterogeneous cuts are later slices
+(ROADMAP.md queues A5b and A6).
 """
 
 from __future__ import annotations
@@ -185,6 +190,65 @@ class AmpereTrainer:
             body, history_key="device", monitor="val_loss",
             checkpoint_every=self.run.checkpoint_every)
 
+    # ------------------------------------------------------------------
+    # Phase 3 (fleet mode): trace-driven federated device training
+    # ------------------------------------------------------------------
+    def run_fleet_device_phase(self, dev_state, trace,
+                               max_rounds: Optional[int] = None):
+        """Device phase driven by a :class:`repro_torch.fleet.FleetTrace`:
+        cohorts, dropouts and the clock come from the event-driven
+        scheduler instead of ``sample_cohort``, and each round runs through
+        :class:`repro_torch.fleet.FleetEngine` (stateless per-round batch
+        indices, so a run killed mid-phase resumes onto the same batches).
+        Device ids in the trace index ``self.clients``.  Per-profile cuts
+        are ROADMAP.md queue A5b: this is the uniform-cut phase."""
+        from repro_torch.fleet.engine import FleetEngine
+
+        engine = FleetEngine(self.model, self.run, self.clients,
+                             device=self.device)
+        dev_state, start_round = self.runner.restore("fleet", dev_state)
+
+        def body(state, rnd, plan):
+            state, metrics = engine.run_round(
+                state, rnd, plan.clients, plan.weights, self._sched(rnd),
+                pad_to=plan.cohort_size)
+            return StepOutcome(
+                state=state,
+                record={"round": rnd, "loss": float(metrics["loss"]),
+                        "t_end": plan.t_end, "cohort": plan.cohort_size,
+                        "survivors": len(plan.clients),
+                        **self._aux_eval(state)},
+                comm_bytes=2 * len(plan.clients) * self._one_way_bytes(),
+                sim_time=plan.round_time,
+                log={"dropped": len(plan.dropped),
+                     "sim_t": round(plan.t_end, 6)})
+
+        plans = trace.rounds if max_rounds is None else \
+            trace.rounds[:max_rounds]
+        return self.runner.run_phase(
+            "fleet", dev_state,
+            ((p.round_idx, p) for p in plans if p.round_idx >= start_round),
+            body, history_key="device", monitor="val_loss",
+            checkpoint_every=self.run.checkpoint_every)
+
+    def run_fleet(self, trace, gen=None, max_rounds=None,
+                  max_server_epochs=None, population=None):
+        """The full trace-driven Ampere pipeline through
+        :class:`repro_torch.experiments.systems.AmpereSystem` (prefer
+        :func:`repro_torch.experiments.run_experiment` with a spec that
+        sets ``trace_path`` / ``fleet``); ``population`` (the trace's
+        :class:`~repro_torch.fleet.DeviceProfile` list) prices the
+        one-shot upload on each participant's own link."""
+        from repro_torch.experiments.systems import SystemContext, get_system
+
+        ctx = SystemContext(
+            model=self.model, run_cfg=self.run, clients=self.clients,
+            eval_data=self.eval_data, trainer=self, trace=trace,
+            population=population, max_rounds=max_rounds,
+            max_server_epochs=max_server_epochs, gen=gen,
+            device=self.device)
+        return get_system("ampere")().run(ctx)
+
     @torch.no_grad()
     def _aux_eval(self, dev_state, max_batches: int = 8,
                   batch_size: int = 64):
@@ -209,11 +273,21 @@ class AmpereTrainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def generate_activations(self, dev_state, store: ActivationStore,
-                             batch_size: int = 64):
+                             batch_size: int = 64, upload: str = "serial",
+                             client_bandwidth_bps=None):
         """Every client's activations into ``store``, with their labels
-        (the tokens, or the classes); the one-shot upload is priced as the
-        reference's ``upload="serial"``: all stored bytes (int8 ones when
-        the store quantizes) through one shared server link."""
+        (the tokens, or the classes).  ``upload`` prices the one-shot
+        transfer's simulated clock over the stored bytes (int8 ones when
+        the store quantizes): ``"serial"`` — all of them through one
+        shared server link; ``"parallel"`` — each device pushes its own
+        shard on its own link at once (fleet semantics), so the transfer
+        takes as long as the slowest (shard bytes / link) pair.
+        ``client_bandwidth_bps`` maps client id -> link bytes/s (a
+        :class:`~repro_torch.fleet.DeviceProfile`'s ``bandwidth_bps``);
+        without it every device has the testbed link (``BANDWIDTH_BPS``)
+        and the largest shard is the slowest."""
+        if upload not in ("serial", "parallel"):
+            raise ValueError(f"upload={upload!r} not in serial|parallel")
         p = self.run.split.split_point
         for client in self.clients:
             arrays = client.dataset.arrays
@@ -226,11 +300,18 @@ class AmpereTrainer:
                           {"acts": acts.float().cpu().numpy(),
                            self.model.label_key: arrays[self.model.label_key][
                                s:s + batch_size]})
-        self.runner.account(
-            comm_bytes=store.bytes_received,
-            sim_time=store.bytes_received / comm_model.BANDWIDTH_BPS)
+        if upload == "parallel":
+            # the bytes a sample ships, int8 payloads included
+            per_sample = store.bytes_received / max(store.num_samples(), 1)
+            bw = client_bandwidth_bps or {}
+            t_up = max(len(c.dataset) * per_sample
+                       / bw.get(c.client_id, comm_model.BANDWIDTH_BPS)
+                       for c in self.clients)
+        else:
+            t_up = store.bytes_received / comm_model.BANDWIDTH_BPS
+        self.runner.account(comm_bytes=store.bytes_received, sim_time=t_up)
         self.log.log(phase="transfer", bytes=store.bytes_received,
-                     upload="serial")
+                     upload=upload)
         return store
 
     # ------------------------------------------------------------------

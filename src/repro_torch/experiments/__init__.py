@@ -2,14 +2,15 @@
 
 ``spec``    — frozen, JSON-serializable :class:`ExperimentSpec`.
 ``systems`` — :class:`System` protocol + ``@register_system`` registry
-              (``ampere`` and the synchronous baselines; the buffered
-              ones are ROADMAP.md queue A5).
+              (``ampere``, the synchronous baselines and the buffered
+              ones, ``fedbuff`` and ``splitfed_pa``).
 ``runner``  — shared federated-loop machinery (checkpoint/resume,
               journal, early stop, metrics, comm/sim-time accounting).
 ``api``     — :func:`run_experiment`, the one entry point.
 """
 
-from repro_torch.experiments.api import resolve_setup, run_experiment
+from repro_torch.experiments.api import (resolve_setup, resolve_trace,
+                                         run_experiment)
 from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.experiments.spec import (CutPolicy, DataSpec,
                                           ExperimentSpec, FaultSpec,
@@ -26,5 +27,6 @@ __all__ = [
     "FleetConfig", "ObservabilitySpec", "Runner", "StepOutcome",
     "StreamingSpec", "System", "SystemContext", "TransportSpec",
     "dataclass_from_dict", "dataclass_to_dict", "get_system",
-    "list_systems", "register_system", "resolve_setup", "run_experiment",
+    "list_systems", "register_system", "resolve_setup", "resolve_trace",
+    "run_experiment",
 ]

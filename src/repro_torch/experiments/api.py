@@ -2,12 +2,13 @@
 system, as ``repro.experiments.api``.
 
 Resolves an :class:`~repro_torch.experiments.spec.ExperimentSpec` into
-live objects (model from the arch registry, synthetic non-IID data) and
-runs every listed system on them in turn, writing one results directory
-with a ``summary.json`` plus ``<system>_history.json`` files.  Runs on
-CUDA unless ``device="cpu"``.  Transport, observability, fleet traces and
-adaptive cuts are later slices; :meth:`ExperimentSpec.validate` refuses
-a spec that sets them.
+live objects (model from the arch registry, synthetic non-IID data, an
+optional JSONL-loaded or simulated fleet trace and its device population)
+and runs every listed system on them in turn, writing one results
+directory with a ``summary.json`` plus ``<system>_history.json`` files.
+Runs on CUDA unless ``device="cpu"``.  Transport, observability,
+streaming and per-profile cuts are later slices;
+:meth:`ExperimentSpec.validate` refuses a spec that sets them.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import Optional, Tuple
 
 from repro_torch.experiments.spec import ExperimentSpec
 from repro_torch.experiments.systems import SystemContext, get_system
@@ -62,6 +64,49 @@ def resolve_setup(spec: ExperimentSpec):
     return spec, model, clients, eval_data
 
 
+def resolve_trace(spec: ExperimentSpec, model, run_cfg, *,
+                  seq_len: int = 0) -> Tuple[Optional[object],
+                                             Optional[list]]:
+    """(trace, population) for a spec, or (None, None) without a fleet.
+
+    Loads the JSONL at ``spec.trace_path`` when it exists; otherwise
+    simulates a trace from ``spec.fleet`` (priced with Ampere's per-round
+    latency, the schedule donor) and saves it to ``trace_path`` when one
+    is given — generate once, replay everywhere.  The shared donor is
+    always the *synchronous* schedule (the async knobs are zeroed before
+    simulating): the buffered systems derive theirs from the same
+    population (:func:`repro_torch.experiments.systems.fedbuff_schedule`),
+    so one spec compares both disciplines over one churn realization."""
+    from repro_torch.fleet import (FleetScheduler, FleetTrace,
+                                   make_latency_fn, sample_population)
+
+    if spec.trace_path is None and spec.fleet is None:
+        return None, None
+    population = sample_population(spec.fleet) if spec.fleet is not None \
+        else None
+    rounds = spec.max_rounds if spec.max_rounds is not None \
+        else run_cfg.fed.device_epochs
+    if spec.trace_path is not None and os.path.exists(spec.trace_path):
+        trace = FleetTrace.load(spec.trace_path)
+        if len(trace.rounds) < rounds:
+            raise ValueError(
+                f"trace {spec.trace_path!r} has {len(trace.rounds)} rounds "
+                f"but the spec asks for {rounds}; regenerate it (delete the "
+                "file) or lower max_rounds — silently capping every system "
+                "at the shorter trace would skew the comparison")
+        return trace, population
+    if spec.fleet is None:
+        raise FileNotFoundError(
+            f"trace_path {spec.trace_path!r} missing and spec.fleet is null")
+    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq_len)
+    sim_cfg = spec.fleet if spec.fleet.async_buffer_size == 0 else \
+        dataclasses.replace(spec.fleet, async_buffer_size=0)
+    trace = FleetScheduler(population, lat, sim_cfg).simulate(rounds)
+    if spec.trace_path is not None:
+        trace.save(spec.trace_path)
+    return trace, population
+
+
 def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
                    dry_run: bool = False, write_results: bool = True,
                    device=None) -> dict:
@@ -83,6 +128,9 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
         return {"spec": spec, "systems": list(systems), "valid": True}
 
     spec, model, clients, eval_data = resolve_setup(spec)
+    seq = int(eval_data.arrays["tokens"].shape[1]) if model.kind == "lm" \
+        else 0
+    trace, population = resolve_trace(spec, model, spec.run, seq_len=seq)
     results_dir = spec.results_dir or os.path.join("results", spec.name)
     results, summary = {}, {}
     for name, sys_cls in systems.items():
@@ -90,7 +138,8 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
             model=model, run_cfg=spec.run, clients=clients,
             eval_data=eval_data,
             workdir=os.path.join(results_dir, name) if spec.persist
-            else None,
+            else None, trace=trace, population=population,
+            fleet_cfg=spec.fleet,
             max_rounds=spec.max_rounds,
             max_server_epochs=spec.max_server_epochs,
             patience=spec.patience, log_echo=log_echo, device=device)

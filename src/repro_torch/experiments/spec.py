@@ -8,13 +8,15 @@ budgets.  It serializes losslessly to JSON (``to_json`` / ``from_json``),
 and ``to_dict`` gives the reference's dict for the same spec, so one
 committed file drives either package.
 
-The optional sections — transport, fault injection, streaming,
-observability, the fleet and the adaptive cut — are kept here as data
-(the reference's fields, defaults and checks).  The port cannot run them
-yet, nor the buffered systems ``fedbuff`` and ``splitfed_pa``:
-:meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of each
-one a spec asks for, and :func:`repro_torch.experiments.run_experiment`
-refuses such a spec.
+A spec may name a fleet (``fleet``, a
+:class:`~repro_torch.fleet.FleetConfig`, and/or ``trace_path``, a JSONL
+trace): every system then replays one shared churn trace, as in the
+reference.  The other optional sections — transport, fault injection,
+streaming, observability and the per-profile cut — are kept here as data
+(the reference's fields, defaults and checks); the port cannot run them
+yet, so :meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of
+each one a spec asks for, and
+:func:`repro_torch.experiments.run_experiment` refuses such a spec.
 """
 
 from __future__ import annotations
@@ -27,18 +29,11 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.fleet.profiles import DEVICE_CLASSES, FleetConfig
 
 #: systems that train on a buffered-asynchronous schedule (plans carry
 #: staleness) rather than replaying synchronous cohort rounds
 ASYNC_SYSTEMS = frozenset({"fedbuff", "splitfed_pa"})
-
-#: the reference's systems that wait for the fleet scheduler's async mode
-#: (queue A5)
-PENDING_SYSTEMS = frozenset({"fedbuff", "splitfed_pa"})
-
-#: device classes of the fleet profiles (``repro.fleet.profiles``)
-DEVICE_CLASSES = ("jetson-fast", "jetson-mid", "jetson-slow", "phone-5g",
-                  "phone-3g")
 
 
 # ---------------------------------------------------------------------------
@@ -223,39 +218,10 @@ class ObservabilitySpec:
 
 
 @dataclass(frozen=True)
-class FleetConfig:
-    """Population, churn and cohort policy of one fleet simulation
-    (``repro.fleet.profiles.FleetConfig``; queue A5)."""
-
-    n_devices: int = 200
-    class_mix: Tuple[Tuple[str, float], ...] = (
-        ("jetson-fast", 0.35), ("jetson-mid", 0.25), ("jetson-slow", 0.15),
-        ("phone-5g", 0.15), ("phone-3g", 0.10))
-    seed: int = 0
-    mean_session_rounds: float = 20.0
-    mean_off_rounds: float = 6.0
-    p_online0: float = 0.75
-    dropout_hazard: float = 0.02
-    latency_jitter: float = 0.05
-    heartbeat_interval_rounds: float = 0.5
-    heartbeat_timeout_rounds: float = 1.5
-    heartbeat_loss_prob: float = 0.1
-    deadline_factor: float = 0.0
-    min_cohort: int = 4
-    max_cohort: int = 32
-    init_cohort: int = 16
-    target_round_time_factor: float = 0.0
-    async_buffer_size: int = 0
-    max_staleness: int = 0
-    max_concurrent: int = 0
-    quorum_frac: float = 1.0
-    shared_uplink: bool = False
-
-
-@dataclass(frozen=True)
 class CutPolicy:
-    """How the cut layer is chosen (``repro.fleet.cuts.CutPolicy``;
-    queue A5).  ``max_cut = 0`` means the deepest legal cut."""
+    """How the cut layer is chosen (``repro.fleet.cuts.CutPolicy``; a
+    per-profile cut is queue A5b).  ``max_cut = 0`` means the deepest
+    legal cut."""
 
     mode: str = "static"              # static | per_profile
     objective: str = "epoch_time"     # reserved for future objectives
@@ -364,12 +330,7 @@ class ExperimentSpec:
             problems.append("spec.systems must name at least one system")
         known = set(list_systems())
         for s in self.systems:
-            if s in PENDING_SYSTEMS:
-                problems.append(
-                    f"system {s!r} is not ported yet (ROADMAP.md queue A5, "
-                    "the buffered baselines on the fleet scheduler's async "
-                    f"mode); ported: {sorted(known)}")
-            elif s not in known:
+            if s not in known:
                 problems.append(
                     f"unknown system {s!r}; registered: {sorted(known)}")
         num_layers = None
@@ -438,13 +399,31 @@ class ExperimentSpec:
             problems.append(
                 f"trace_path {self.trace_path!r} does not exist and no "
                 "fleet config was given to regenerate it")
+        if self.trace_path is not None and os.path.exists(self.trace_path):
+            from repro_torch.fleet.scheduler import FleetTrace
+            try:
+                trace_async = FleetTrace.peek_is_async(self.trace_path)
+            except Exception:
+                trace_async = None   # unreadable; load() will raise loudly
+            sync_systems = [s for s in self.systems
+                            if s not in ASYNC_SYSTEMS]
+            if trace_async and sync_systems:
+                problems.append(
+                    f"trace_path {self.trace_path!r} is a buffered-async "
+                    f"trace but {sync_systems} replay rounds "
+                    "synchronously — staleness-weighted buffer groups are "
+                    "not synchronous cohorts; give the sync systems a sync "
+                    "trace (or a fleet section to regenerate one)")
+            if trace_async is False and async_systems and \
+                    self.fleet is None:
+                problems.append(
+                    f"system(s) {async_systems} with a synchronous "
+                    "trace_path need a fleet section too — their buffered "
+                    "schedule is derived from the device population")
         # features the port cannot run yet, one problem each
         pending = (
-            ("fleet", self.fleet, "A5 (fleet and heterogeneous cuts)"),
-            ("trace_path", self.trace_path,
-             "A5 (fleet and heterogeneous cuts)"),
             ("cut", self.cut if self.cut is None or self.cut.mode != "static"
-             else None, "A5 (fleet and heterogeneous cuts)"),
+             else None, "A5b (heterogeneous cuts)"),
             ("transport", self.transport,
              "A6 (transport, streaming, observability)"),
             ("faults", self.faults,

@@ -9,14 +9,13 @@ composes them into the full pipeline for one :class:`SystemContext`.
 ``@register_system("name")`` makes a system addressable from an
 :class:`~repro_torch.experiments.spec.ExperimentSpec`.
 
-The port registers ``"ampere"`` (static cut, i.i.d. cohorts) and the
-synchronous baselines: the SFL family (``splitfed``, ``splitfed_mb``,
-``splitfedv2``, ``splitgp``, ``scaffold``, ``pipar``) and ``fedavg``.
-Without a fleet trace the reference's ``replay_plan`` is ``None``, so
-each baseline runs its i.i.d. cohorts here too.  The buffered systems
-(``fedbuff``, ``splitfed_pa``) take their schedule from the fleet
-scheduler's async mode, and fleet-trace replay is the fleet slice: both
-are ROADMAP.md queue A5.
+The port registers every system of the reference: ``"ampere"``
+(i.i.d. cohorts, or a fleet trace's, at a static cut), the synchronous
+baselines — the SFL family (``splitfed``, ``splitfed_mb``,
+``splitfedv2``, ``splitgp``, ``scaffold``, ``pipar``) and ``fedavg`` —
+which replay a shared fleet trace through :func:`replay_plan`, and the
+buffered ones (``fedbuff``, ``splitfed_pa``), whose asynchronous schedule
+:func:`fedbuff_schedule` derives from the same device population.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from typing import Any, Dict, List, Optional, Type
 import torch
 
 from repro_torch.data.activation_store import ActivationStore
+from repro_torch.fleet.profiles import make_latency_fn, trace_round_times
 
 
 @dataclasses.dataclass
@@ -44,6 +44,9 @@ class SystemContext:
     clients: List[Any]
     eval_data: Any
     workdir: Optional[str] = None
+    trace: Any = None              # FleetTrace: shared-schedule replay
+    population: Any = None         # Sequence[DeviceProfile]: trace pricing
+    fleet_cfg: Any = None          # FleetConfig: async knobs for fedbuff
     max_rounds: Optional[int] = None
     max_server_epochs: Optional[int] = None
     patience: int = 15
@@ -114,10 +117,66 @@ def _seeded(tr, ctx: SystemContext) -> torch.Generator:
     return torch.Generator().manual_seed(tr.run.seed)
 
 
+def _rounds(tr, ctx: SystemContext) -> int:
+    return ctx.max_rounds if ctx.max_rounds is not None \
+        else tr.run.fed.device_epochs
+
+
+def replay_plan(ctx: SystemContext, *, algo: str) -> Optional[list]:
+    """Cohort plan replaying ``ctx.trace`` under ``algo``'s cost model:
+    the trace decided once who is online, picked and dropped; each
+    baseline re-prices every round's clock for its own exchange on the
+    same device profiles (a synchronous round = its slowest surviving
+    participant).  Without a population the plan falls back to the
+    replaying trainer's analytic pricing (``as_cohort`` drops the trace's
+    Ampere-priced ``round_time`` on purpose)."""
+    if ctx.trace is None:
+        return None
+    if ctx.population is None:
+        return [p.as_cohort() for p in ctx.trace.rounds]
+    lat = make_latency_fn(ctx.model, ctx.run_cfg, algo=algo,
+                          seq_len=ctx.seq_len)
+    times = trace_round_times(ctx.trace, ctx.population, lat)
+    return [dict(p.as_cohort(), round_time=t)
+            for p, t in zip(ctx.trace.rounds, times)]
+
+
+def fedbuff_schedule(ctx: SystemContext, rounds: int, *,
+                     algo: str = "ampere"):
+    """The buffered-async schedule a buffered system trains on.
+
+    A trace that is already async (plans carry staleness) is replayed as
+    it is.  Otherwise the schedule is derived from the device population
+    the synchronous systems share: the spec's fleet config (its async
+    knobs defaulted when unset) drives the scheduler's async mode with
+    ``algo``'s per-round pricing (Ampere for fedbuff, SplitFed for
+    splitfed_pa), so a comparison holds all but the aggregation
+    discipline fixed.  Deterministic in the spec, so a resumed run
+    derives the same schedule."""
+    from repro_torch.fleet import FleetConfig, FleetScheduler
+
+    if ctx.trace is not None and ctx.trace.is_async:
+        return ctx.trace
+    if ctx.population is None:
+        raise ValueError(
+            "fedbuff needs an async trace or a device population to "
+            "derive one from — set spec.fleet (or point trace_path at a "
+            "trace simulated with async_buffer_size > 0)")
+    fcfg = ctx.fleet_cfg if ctx.fleet_cfg is not None else \
+        FleetConfig(n_devices=len(ctx.population))
+    if fcfg.async_buffer_size <= 0:
+        fcfg = dataclasses.replace(
+            fcfg, async_buffer_size=max(2, fcfg.init_cohort // 2))
+    lat = make_latency_fn(ctx.model, ctx.run_cfg, algo=algo,
+                          seq_len=ctx.seq_len)
+    return FleetScheduler(ctx.population, lat, fcfg).simulate(rounds)
+
+
 @register_system("ampere")
 class AmpereSystem(System):
-    """The paper's system: federated device phase, one-shot activation
-    consolidation, centralized server phase."""
+    """The paper's system: federated device phase (i.i.d. or a fleet
+    trace's cohorts), one-shot activation consolidation, centralized
+    server phase."""
 
     def _trainer(self, ctx: SystemContext):
         from repro_torch.core.uit import AmpereTrainer
@@ -134,6 +193,13 @@ class AmpereSystem(System):
                                         else _seeded(tr, ctx))
         return {"device": dev, "aux": aux}, srv
 
+    def _device_phase(self, tr, ctx: SystemContext, dev_state):
+        """Phase 3 (:class:`FedBuffSystem` buffers it)."""
+        if ctx.trace is not None:
+            return tr.run_fleet_device_phase(dev_state, ctx.trace,
+                                             ctx.max_rounds)
+        return tr.run_device_phase(dev_state, ctx.max_rounds)
+
     def _make_store(self, tr, ctx: SystemContext):
         """The consolidation store of the upload and the server phase;
         with a workdir its shards are also persisted under ``acts/``."""
@@ -146,16 +212,44 @@ class AmpereSystem(System):
     def run(self, ctx: SystemContext) -> dict:
         tr = self._trainer(ctx)
         dev, srv, aux = tr._init_states(_seeded(tr, ctx))
-        dev_state = tr.run_device_phase({"device": dev, "aux": aux},
-                                        ctx.max_rounds)
+        dev_state = self._device_phase(tr, ctx, {"device": dev, "aux": aux})
         store = self._make_store(tr, ctx)
-        tr.generate_activations(dev_state, store)
+        bw = None
+        if ctx.population is not None:
+            bw = {p.device_id: p.bandwidth_bps for p in ctx.population}
+        # a fleet's devices each push their shard on their own link
+        tr.generate_activations(
+            dev_state, store,
+            upload="parallel" if ctx.trace is not None else "serial",
+            client_bandwidth_bps=bw)
         srv_state = tr.run_server_phase(dev_state, srv, store,
                                         ctx.max_server_epochs)
         merged = tr.merged_params(dev_state, srv_state["server"])
         return {"device_state": dev_state, "server_state": srv_state,
                 "merged_params": merged, "store": store,
                 "history": tr.history}
+
+
+@register_system("fedbuff")
+class FedBuffSystem(AmpereSystem):
+    """Buffered semi-synchronous aggregation (FedBuff) on the Ampere
+    pipeline: the async device phase (the server folds staleness-weighted
+    deltas every ``async_buffer_size`` completions), then the inherited
+    one-shot upload and server phase."""
+
+    def _trainer(self, ctx: SystemContext):
+        from repro_torch.core.baselines import FedBuffTrainer
+        if ctx.trainer is None:
+            ctx.trainer = FedBuffTrainer(
+                ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
+                workdir=ctx.workdir, patience=ctx.patience,
+                log_echo=ctx.log_echo, device=ctx.device)
+        return ctx.trainer
+
+    def _device_phase(self, tr, ctx: SystemContext, dev_state):
+        trace = fedbuff_schedule(ctx, _rounds(tr, ctx))
+        return tr.run_buffered_device_phase(dev_state, trace,
+                                            ctx.max_rounds)
 
 
 class SFLSystem(System):
@@ -180,9 +274,9 @@ class SFLSystem(System):
 
     def run(self, ctx: SystemContext) -> dict:
         tr = self._trainer(ctx)
-        rounds = ctx.max_rounds if ctx.max_rounds is not None \
-            else tr.run.fed.device_epochs
-        return tr.run_rounds(rounds, gen=_seeded(tr, ctx))
+        return tr.run_rounds(_rounds(tr, ctx), gen=_seeded(tr, ctx),
+                             cohort_plan=replay_plan(ctx,
+                                                     algo=self.variant))
 
 
 @register_system("splitfed")
@@ -196,6 +290,29 @@ class SplitFedMBSystem(SFLSystem):
     weight-averaged before every SGD step; SplitFed's exchange volume."""
 
     variant = "splitfed_mb"
+
+
+@register_system("splitfed_pa")
+class SplitFedPASystem(SFLSystem):
+    """Collaborative / parallel-aggregation SplitFed: SplitFed's
+    per-iteration exchange, the server folding buffered client deltas
+    asynchronously (staleness-weighted) instead of barriering the cohort
+    each round.  Its buffered schedule comes from the fleet scheduler
+    with SplitFed's per-round pricing, so splitfed vs splitfed_pa isolates
+    the aggregation discipline."""
+
+    variant = "splitfed_pa"
+
+    def run(self, ctx: SystemContext) -> dict:
+        tr = self._trainer(ctx)
+        rounds = _rounds(tr, ctx)
+        trace = fedbuff_schedule(ctx, rounds, algo="splitfed")
+        # the plans' weights carry the 1/sqrt(1+s) scaling, and their
+        # round_time is the scheduler's overlapped aggregation interval,
+        # trusted rather than re-priced
+        plan = [dict(p.as_cohort(), round_time=p.round_time)
+                for p in trace.rounds]
+        return tr.run_rounds(rounds, gen=_seeded(tr, ctx), cohort_plan=plan)
 
 
 @register_system("splitfedv2")
@@ -237,6 +354,5 @@ class FedAvgSystem(System):
 
     def run(self, ctx: SystemContext) -> dict:
         tr = self._trainer(ctx)
-        rounds = ctx.max_rounds if ctx.max_rounds is not None \
-            else tr.run.fed.device_epochs
-        return tr.run_rounds(rounds, gen=_seeded(tr, ctx))
+        return tr.run_rounds(_rounds(tr, ctx), gen=_seeded(tr, ctx),
+                             cohort_plan=replay_plan(ctx, algo="fedavg"))

@@ -1,2 +1,3 @@
 """Runtime machinery around the training loops: metrics log, round
-journal, checkpoints (as ``repro.runtime``)."""
+journal, heartbeats, checkpoints and the elastic cohort (as
+``repro.runtime``)."""

@@ -1,11 +1,13 @@
-"""The round journal of the federated loop, as
-``repro.runtime.fault_tolerance.RoundJournal``.
+"""The round journal and the heartbeats of the federated loop, as
+``repro.runtime.fault_tolerance``.
 
 :class:`RoundJournal` is a write-ahead journal of round boundaries so a
 restarted coordinator knows where it stopped (used together with the
 :class:`~repro_torch.runtime.checkpoint.Checkpointer`).  Records carry a
 CRC so a torn or bit-flipped line is rejected, never resumed from.
-Retries and heartbeats come with the transport and fleet slices.
+:class:`Heartbeats` tracks when each simulated device was last seen (the
+fleet scheduler's liveness filter).  Retries come with the transport
+slice.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import json
 import os
 import zlib
 from typing import Optional
+
+import numpy as np
 
 
 def crc32(data: bytes, value: int = 0) -> int:
@@ -85,3 +89,26 @@ class RoundJournal:
                     continue
                 last = rec
         return last
+
+
+class Heartbeats:
+    """Tracks last-seen times per client; ``alive()`` filters a cohort.
+
+    ``now`` is required: every caller runs inside the simulated fleet and
+    passes sim time, so no wall clock can enter a replayed schedule.
+    """
+
+    def __init__(self, timeout: float = 60.0):
+        self.timeout = timeout
+        self.last_seen = {}
+
+    def beat(self, client_id: int, now: float):
+        self.last_seen[int(client_id)] = now
+
+    def alive(self, client_ids, now: float):
+        out = []
+        for c in client_ids:
+            t = self.last_seen.get(int(c))
+            if t is None or now - t <= self.timeout:
+                out.append(c)
+        return np.asarray(out, dtype=np.int64)

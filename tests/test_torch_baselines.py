@@ -12,8 +12,9 @@ the same scale, floored in addition at the trained leaf's scale over
 H lr: ``c_k' = c_k - c + (x - y) / (H lr)`` carries the trained tree's
 error (a last-bit difference of ``y``) amplified by 1 / (H lr).  A
 ``splitfedv2`` round with a padded zero-weight slot shows that slot
-training the shared server in both packages, and ``splitfed_pa`` is
-refused, naming its queue item.
+training the shared server in both packages; ``splitfed_pa`` (the
+buffered delta fold with every snapshot the global) is one of the
+variants.
 """
 
 import functools
@@ -44,7 +45,7 @@ from repro_torch.models import build_model as t_build
 
 ARCHS = ("qwen3-1.7b", "mobilenet-l")
 SFL = ("splitfed", "splitfed_mb", "splitfedv2", "splitgp", "scaffold",
-       "pipar")
+       "pipar", "splitfed_pa")
 K, H, B, SEQ = 2, 2, 4, 16
 FED = dict(num_clients=4, clients_per_round=K, local_steps=H,
            device_batch_size=B, seed=0)
@@ -201,9 +202,11 @@ def test_splitfedv2_padded_slot_trains_the_server(arch):
         assert sum(moved) > len(moved) // 2
 
 
-def test_splitfed_pa_is_refused():
+def test_splitfed_pa_builds_and_unknown_variant_is_refused():
+    """Only an unknown variant is refused now: ``splitfed_pa`` builds (the
+    fleet slice, queue A5), and its round step is held to the reference's
+    in :func:`test_round_step_matches_reference`."""
     _, tm, _, t_run, _, _ = _setup("qwen3-1.7b")
-    with pytest.raises(ValueError, match="queue A5"):
-        TSFL.make_sfl_round_step(tm, t_run, "splitfed_pa")
+    assert callable(TSFL.make_sfl_round_step(tm, t_run, "splitfed_pa"))
     with pytest.raises(ValueError, match="unknown SFL variant"):
         TSFL.make_sfl_round_step(tm, t_run, "nope")

@@ -572,11 +572,7 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
     ("faults", FaultSpec(), "A6"),
     ("streaming", StreamingSpec(), "A6"),
     ("observability", ObservabilitySpec(), "A6"),
-    ("fleet", FleetConfig(n_devices=4), "A5"),
-    ("cut", CutPolicy(mode="per_profile"), "A5"),
-    ("trace_path", "/nonexistent/trace.jsonl", "A5"),
-    ("systems", ("ampere", "splitfed_pa"), "A5"),
-    ("systems", ("fedbuff",), "A5"),
+    ("cut", CutPolicy(mode="per_profile"), "A5b"),
     ("arch", "qwen2-moe-a2.7b", "A7"),
 ])
 def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
@@ -585,6 +581,29 @@ def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
     assert f"queue {item}" in problems, problems
     with pytest.raises(ValueError, match=item):
         run_experiment(spec, dry_run=True)
+
+
+@pytest.mark.parametrize("feature,value", [
+    ("fleet", FleetConfig(n_devices=4)),
+    ("trace_path", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples/specs/fleet_trace_smoke.jsonl")),
+    ("systems", ("ampere", "splitfed_pa")),
+    ("systems", ("fedbuff",)),
+])
+def test_fleet_and_buffered_specs_validate_clean(feature, value):
+    """A fleet, a committed trace and the buffered systems (queue A5) run
+    now; a buffered system takes its schedule from the fleet section."""
+    kw = {feature: value}
+    if feature == "systems":
+        kw["fleet"] = FleetConfig(n_devices=4)
+    spec = dataclasses.replace(_t_spec("results/t"), **kw)
+    assert spec.validate() == []
+    assert run_experiment(spec, dry_run=True)["valid"]
+    # without a population to derive it from, the buffered schedule is
+    # refused as the reference refuses it
+    if feature == "systems":
+        bare = dataclasses.replace(spec, fleet=None)
+        assert any("fleet section" in p for p in bare.validate())
 
 
 @pytest.mark.parametrize("arch", ["mobilenet-l", "vgg11", "vit-s",

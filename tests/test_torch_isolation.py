@@ -11,9 +11,11 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import RunConfig
-from repro_torch.core.baselines import FedAvgTrainer, SFLTrainer
+from repro_torch.core.baselines import (FedAvgTrainer, FedBuffTrainer,
+                                        SFLTrainer)
 from repro_torch.core.uit import AmpereTrainer
 from repro_torch.data import federate, make_dataset_for_model
+from repro_torch.fleet import FleetEngine
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.ssd_chunk import kernel as SK
@@ -29,6 +31,7 @@ sys.path.insert(0, {root!r})
 import repro_torch
 import repro_torch.core.baselines
 import repro_torch.core.baselines.fedavg
+import repro_torch.core.baselines.fedbuff
 import repro_torch.core.baselines.sfl_family
 import repro_torch.core.comm_model
 import repro_torch.experiments
@@ -36,13 +39,20 @@ import repro_torch.experiments.api
 import repro_torch.experiments.runner
 import repro_torch.experiments.spec
 import repro_torch.experiments.systems
+import repro_torch.fleet
+import repro_torch.fleet.engine
+import repro_torch.fleet.profiles
+import repro_torch.fleet.scheduler
 import repro_torch.launch.train
 import repro_torch.models.cnn
 import repro_torch.models.vit
 import repro_torch.runtime.checkpoint
 import repro_torch.runtime.compression
+import repro_torch.runtime.elastic
 import repro_torch.runtime.fault_tolerance
 import repro_torch.runtime.metrics
+import repro_torch.streaming
+import repro_torch.streaming.versions
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
@@ -68,9 +78,11 @@ def test_entry_points_raise_instead_of_running_on_cpu(monkeypatch):
     data = make_dataset_for_model(model, 16, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         AmpereTrainer(model, RunConfig(), federate(data, 2, 0.5), data)
-    for trainer in (SFLTrainer, FedAvgTrainer):
+    for trainer in (SFLTrainer, FedAvgTrainer, FedBuffTrainer):
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer(model, RunConfig(), federate(data, 2, 0.5), data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetEngine(model, RunConfig(), federate(data, 2, 0.5))
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--smoke", "--algo", "splitfed", "--train-samples", "16",
                     "--eval-samples", "8", "--quiet"])
