@@ -166,6 +166,27 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    uninterrupted card run bit for bit (history and merged parameters),
    and the rerun itself trains only the aggregations after the
    checkpoint.
+13. Cuts: (a) ``CUT_POLICY`` (per profile: the cost model's pick, then
+   jetson-slow pinned to cut 2 and phone-3g to 4) over phase 12's
+   population gives depths 1, 2 and 4; the sync trace priced per class at
+   its cut drives ``AmpereTrainer(cuts=...).run_fleet`` on full-width,
+   full-depth qwen3-1.7b (phase 12's corpus and federation,
+   ``FLEET_ROUNDS`` rounds, one server epoch): each round's survivors
+   train in one bucket per depth on their prefix of the device stack,
+   ``prefix_fedavg`` folds them back, the store's shards carry their cut,
+   and the server epoch runs one pass per depth entering the server block
+   there.  At least two depths in the assignment and the store, a round
+   that trains two buckets, the bf16 attention and xent kernels launched,
+   every loss finite, the merged val loss below ln V, and ``comm_bytes``
+   and ``sim_time`` ``==`` the comm model's with each client priced at
+   its own depth (the upload in parallel on each profile's link, the
+   server epoch the sum of each depth's); each bucket's wall seconds,
+   the round times and the peak memory beside the card's name and power
+   limit.  (b) ``examples/specs/cut_smoke.json`` without its
+   observability section (queue A6), at its 2 rounds and 2 server
+   epochs, on the card and on the CPU from the same CPU-seeded init:
+   the same cut summary, losses within 1e-4 relative, accuracies within
+   1e-2, ``comm_bytes`` and ``sim_time`` equal.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -179,7 +200,7 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
-runs too), 9, 10, 11 and 12,
+runs too), 9, 10, 11, 12 and 13,
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -227,9 +248,9 @@ from repro_torch.experiments import (AmpereSystem, DataSpec,  # noqa: E402
                                      run_experiment)
 from repro_torch.experiments.systems import (FedBuffSystem,  # noqa: E402
                                              fedbuff_schedule)
-from repro_torch.fleet import (FleetConfig, FleetEngine,  # noqa: E402
-                               FleetScheduler, make_latency_fn,
-                               sample_population)
+from repro_torch.fleet import (CutPolicy, FleetConfig,  # noqa: E402
+                               FleetEngine, FleetScheduler, make_latency_fn,
+                               resolve_cuts, sample_population)
 from repro_torch.interop import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
@@ -359,6 +380,13 @@ FLEET_ASYNC = dict(async_buffer_size=2, max_staleness=2, max_concurrent=3)
 COMPARE_SPEC = ("examples/specs/compare_smoke.json",
                 "examples/specs/fleet_trace_smoke.jsonl")
 COMPARE_ROUNDS, COMPARE_EPOCHS = 2, 1
+# phase 13: heterogeneous cuts over phase 12's population (jetson-fast x
+# 2, phone-3g, jetson-slow): the cost model picks cut 1 for every class,
+# and the overrides pin jetson-slow to 2 and phone-3g to 4, so the depths
+# are 1, 2 and 4; at full width the trace's round 0 trains depths 1 and 2
+CUT_POLICY = CutPolicy(mode="per_profile",
+                       overrides=(("jetson-slow", 2), ("phone-3g", 4)))
+CUT_SPEC = "examples/specs/cut_smoke.json"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -1661,9 +1689,19 @@ def fleet_compare(dev):
         seconds = time.perf_counter() - t
         launches = read_launches()
         cpu = run_experiment(spec, device="cpu", write_results=False)
-    for name in spec.systems:
+    card_vs_cpu("fleet_compare", spec.systems, card, cpu)
+    log("fleet_compare", seconds_card=seconds, launches=launches,
+        card=card_line())
+    return launches
+
+
+def card_vs_cpu(phase_name, systems, card, cpu):
+    """Two ``run_experiment`` outputs of one spec, card and CPU: each
+    system's losses within 1e-4 relative, accuracies within 1e-2,
+    ``comm_bytes`` and ``sim_time`` equal."""
+    for name in systems:
         h_card, h_cpu = (o["results"][name]["history"] for o in (card, cpu))
-        log("fleet_compare", system=name, card=card["summary"][name],
+        log(phase_name, system=name, card=card["summary"][name],
             cpu=cpu["summary"][name], rel_tol=1e-4)
         for phase in ("device", "server", "rounds"):
             a, b = h_card.get(phase, []), h_cpu.get(phase, [])
@@ -1681,9 +1719,6 @@ def fleet_compare(dev):
             if h_card[key] != h_cpu[key]:
                 raise AssertionError(f"{name} {key}: {h_card[key]} vs "
                                      f"{h_cpu[key]}")
-    log("fleet_compare", seconds_card=seconds, launches=launches,
-        card=card_line())
-    return launches
 
 
 def fleet_resume(dev):
@@ -1751,6 +1786,165 @@ def fleet(dev) -> dict:
                      ("fleet:fedbuff", fleet_fedbuff),
                      ("fleet_compare", fleet_compare),
                      ("fleet_resume", fleet_resume)):
+        by_path[name] = fn(dev)
+        torch.cuda.empty_cache()
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: heterogeneous cuts
+# ---------------------------------------------------------------------------
+
+
+def cuts_accounting(model, run_cfg, seq, hist, store, plans, clients, cuts,
+                    bandwidth):
+    """13(a)'s bytes and clock, recomputed (analytic: no device number),
+    each client priced at its own cut: ``comm_bytes`` = the sum over the
+    plans of 2 x the survivors' (s_d + s_aux) at their depths +
+    ``bytes_received``; ``sim_time`` = the plans' round times, then the
+    upload (each device's shard over its own link, the slowest), then the
+    server epoch, the sum over the store's depths of each bucket's epoch
+    at its depth, summed in the Runner's order."""
+    sizes = {d: comm_model.split_sizes(model, dataclasses.replace(
+                 run_cfg.split, split_point=d), seq_len=seq)
+             for d in cuts.depths}
+
+    def one_way(c):
+        s = sizes[cuts.cut_of(c)]
+        return s.device + s.aux
+
+    nbytes = store.bytes_received
+    want_comm = sum(2 * sum(one_way(c) for c in p.clients)
+                    for p in plans) + nbytes
+    want_time = 0.0
+    for p in plans:
+        want_time += p.round_time
+    per_sample = nbytes / store.num_samples()
+    upload_s = max(len(c.dataset) * per_sample / bandwidth[c.client_id]
+                   for c in clients)
+    want_time += upload_s
+    epoch_s = sum(
+        comm_model.ampere_server_epoch_time(
+            model, dataclasses.replace(run_cfg.split, split_point=d),
+            comm_model.TimeModel(), n_samples=store.num_samples(cut=d),
+            seq_len=seq, sizes=sizes[d])
+        for d in store.cut_depths())
+    for _ in range(SERVER_EPOCHS):
+        want_time += epoch_s
+    per = seq * model.cfg.d_model * 4 + seq * 4
+    got = (nbytes, hist["comm_bytes"], hist["sim_time"])
+    want = (TRAIN_SAMPLES * per, want_comm, want_time)
+    log("cuts_accounting", bytes_received=nbytes,
+        comm_bytes=hist["comm_bytes"], sim_time_s=hist["sim_time"],
+        one_way_bytes={d: s.device + s.aux for d, s in sizes.items()},
+        rounds_s=sum(p.round_time for p in plans), upload_s=upload_s,
+        server_epoch_s=epoch_s, ok=got == want)
+    if got != want:
+        raise AssertionError(f"cuts accounting: (bytes_received, "
+                             f"comm_bytes, sim_time) {got} != {want}")
+
+
+def cuts_fleet(dev):
+    """13(a): ``CUT_POLICY`` over phase 12's population gives each device
+    class its own cut; the sync trace is priced per class at its cut, and
+    ``AmpereTrainer(cuts=...).run_fleet`` trains full-width qwen3-1.7b on
+    it: a round's survivors trained in one bucket per depth, prefix
+    FedAvg, cut-tagged shards, and one server epoch entering the server
+    block at each depth."""
+    cfg, run_cfg, model, clients, evald, pop = fleet_setup()
+    seq = MAIN_PATHS[FLEET_ARCH]["seq"]
+    fcfg = FleetConfig(**FLEET)
+    cuts = resolve_cuts(CUT_POLICY, model, run_cfg, fcfg, seq_len=seq)
+    run_cfg = dataclasses.replace(run_cfg, split=dataclasses.replace(
+        run_cfg.split, split_point=cuts.depths[0]))
+    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq,
+                          cuts=cuts.by_class)
+    trace = FleetScheduler(pop, lat, fcfg).simulate(FLEET_ROUNDS)
+    trainer = AmpereTrainer(model, run_cfg, clients, evald, device=dev,
+                            cuts=cuts)
+    buckets = []         # (round, depth, clients, wall seconds)
+    run_round = FleetEngine.run_round
+
+    def timed_round(engine, state, rnd, client_ids, *args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = run_round(engine, state, rnd, client_ids, *args, **kwargs)
+        torch.cuda.synchronize(dev)
+        buckets.append((rnd, engine.run.split.split_point, list(client_ids),
+                        time.perf_counter() - t))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    FleetEngine.run_round = timed_round
+    t = time.perf_counter()
+    try:
+        out = trainer.run_fleet(trace, max_rounds=FLEET_ROUNDS,
+                                max_server_epochs=SERVER_EPOCHS,
+                                population=pop)
+    finally:
+        FleetEngine.run_round = run_round
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    hist, store = out["history"], out["store"]
+    round_s = [sum(b[3] for b in buckets if b[0] == r)
+               for r in range(FLEET_ROUNDS)]
+    log("cuts_fleet", arch=cfg.name, seq=seq, seconds=seconds,
+        cuts=cuts.summary(), by_client=cuts.by_client, round_s=round_s,
+        buckets=buckets,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        plans=[(p.clients, p.dropped, p.cohort_size, p.round_time)
+               for p in trace.rounds],
+        store_depths={d: store.num_samples(cut=d)
+                      for d in store.cut_depths()},
+        device=hist["device"], server=hist["server"], launches=launches,
+        card=card_line())
+    cuts_accounting(model, run_cfg, seq, hist, store, trace.rounds[
+        :FLEET_ROUNDS], clients, cuts,
+        {p.device_id: p.bandwidth_bps for p in pop})
+    del out
+    _check_fleet_path("cuts", cfg, hist, launches, FLEET_ROUNDS)
+    if len(cuts.depths) < 2 or len(store.cut_depths()) < 2:
+        raise AssertionError(f"cuts: depths {cuts.depths} in the "
+                             f"assignment, {store.cut_depths()} in the store")
+    rounds = [b[0] for b in buckets]
+    if not any(rounds.count(r) >= 2 for r in rounds):
+        raise AssertionError(f"cuts: no round trained two buckets: "
+                             f"{buckets}")
+    return launches
+
+
+def cuts_experiment(dev):
+    """13(b): ``examples/specs/cut_smoke.json`` without its observability
+    section (queue A6), at its 2 rounds and 2 server epochs, on the card
+    and on the CPU from the same CPU-seeded init."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dataclasses.replace(
+            ExperimentSpec.load(os.path.join(ROOT, CUT_SPEC)),
+            observability=None, results_dir=tmp)
+        reset_launches()
+        t = time.perf_counter()
+        card = run_experiment(spec, device=dev, write_results=False)
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+        cpu = run_experiment(spec, device="cpu", write_results=False)
+    cut_summary = card["summary"]["ampere"]["cuts"]
+    if cut_summary != cpu["summary"]["ampere"]["cuts"] or \
+            cut_summary["uniform"]:
+        raise AssertionError(f"cut_smoke cuts: card {cut_summary}, cpu "
+                             f"{cpu['summary']['ampere']['cuts']}")
+    card_vs_cpu("cuts_experiment", spec.systems, card, cpu)
+    log("cuts_experiment", cuts=cut_summary, seconds_card=seconds,
+        launches=launches, card=card_line())
+    return launches
+
+
+def cuts_phase(dev) -> dict:
+    """Phase 13: launches by path of (a) and (b)."""
+    by_path = {}
+    for name, fn in (("cuts:ampere", cuts_fleet),
+                     ("cuts_experiment", cuts_experiment)):
         by_path[name] = fn(dev)
         torch.cuda.empty_cache()
     return by_path
@@ -2051,6 +2245,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(baselines(dev))
     by_path.update(fleet(dev))
+    by_path.update(cuts_phase(dev))
     for arch in MAIN_PATHS:
         profile_step(dev, arch)
         torch.cuda.empty_cache()

@@ -1,8 +1,8 @@
 """Model aggregation: weighted FedAvg (Eq. 4/10), FedBuff's buffered
-staleness-weighted delta fold, and cohort sampling with the
-fault-tolerance policy (client dropout, straggler deadlines), as
-``repro.core.aggregation``; ``sample_cohort`` consumes numpy RNG exactly
-as the JAX package does.
+staleness-weighted delta fold, the prefix FedAvg of heterogeneous-depth
+device blocks, and cohort sampling with the fault-tolerance policy
+(client dropout, straggler deadlines), as ``repro.core.aggregation``;
+``sample_cohort`` consumes numpy RNG exactly as the JAX package does.
 
 The JAX package's "stacked" forms take leaves with a leading client
 axis; here that axis is a Python list of per-client trees (the device
@@ -74,6 +74,35 @@ def fedbuff_stacked(global_tree, trained_k, snapshot_k, weights,
         return (g.float() + server_lr * torch.sum(delta * wf, dim=0)).to(
             g.dtype)
     return tree_map(agg, global_tree, *trained_k, *snapshot_k)
+
+
+def prefix_fedavg(current, by_depth, weights):
+    """Aggregate heterogeneous-depth device blocks over their overlapping
+    layer prefix.
+
+    ``current`` is the global device stack (layers ``[0, p_max)`` and any
+    non-layer keys, the LM embedding); ``by_depth`` maps a cut depth ``d``
+    to a trained device tree whose ``"layers"`` cover ``[0, d)``;
+    ``weights`` maps a depth to its bucket's total client weight.  Layer
+    ``l`` is the :func:`fedavg` of the positive-weight buckets that own it
+    (``d > l``), non-layer keys of every positive-weight bucket; a layer
+    no such bucket covers keeps its ``current`` tensors, so a round where
+    only shallow-cut clients survive leaves the deep tail as it was."""
+    depths = sorted(d for d in by_depth if weights.get(d, 0.0) > 0.0)
+    if not depths:
+        return current
+    layers = []
+    for l, cur in enumerate(current["layers"]):
+        owners = [d for d in depths if d > l]
+        layers.append(fedavg([by_depth[d]["layers"][l] for d in owners],
+                             [weights[d] for d in owners])
+                      if owners else cur)
+    out = {"layers": layers}
+    for key in current:
+        if key != "layers":
+            out[key] = fedavg([by_depth[d][key] for d in depths],
+                              [weights[d] for d in depths])
+    return out
 
 
 def pad_cohort(client_ids, weights, pad_to: int):

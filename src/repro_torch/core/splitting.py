@@ -11,12 +11,22 @@ materialized as an untied (D, V) head at split time.  A vision model's
 halves are ``{"layers": [...]}`` and ``{"layers": [...], "head": ...}``,
 and its server forward returns the logits.
 
-Heterogeneous cuts (``loose_until``, ``entry``) are the fleet slice.
+Heterogeneous cuts: with a per-profile cut policy the fleet holds several
+cut depths at once and one server block serves them all.  The server is
+split at the shallowest cut ``p_min``, ``split_params(...,
+loose_until=p_max)`` extends its loose region so every deeper cut lands
+on a loose layer, never inside the scanned stack, and
+``server_forward(..., entry=p_i)`` skips the layers below ``p_i``, so
+activations cut at ``p_i`` resume where their device block stopped.
+``merge_params`` and ``server_forward`` read the loose / stacked
+boundary from ``len(server["layers_head"])``, so both take a block split
+with any ``loose_until``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -37,7 +47,11 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def split_params(model, params, p: int):
+def split_params(model, params, p: int, *, loose_until: Optional[int] = None):
+    """Split at ``p``.  ``loose_until`` (LM only) extends the server's
+    loose leading region to ``[p, ceil(max(p, loose_until) / P) * P)``, so
+    a heterogeneous-cut fleet's deepest entry point stays outside the
+    scanned stack; ``None`` keeps the minimal loose region."""
     cfg = model.cfg
     if model.kind != "lm":
         return ({"layers": list(params["layers"][:p])},
@@ -45,7 +59,8 @@ def split_params(model, params, p: int):
                  "head": params["head"]})
     P = cfg.pattern_period
     R = cfg.num_layers // P
-    r0 = -(-p // P)  # first complete repetition owned by the server
+    q = max(p, loose_until) if loose_until is not None else p
+    r0 = -(-q // P)  # first complete repetition owned by the server
     device = {"embed": params["embed"],
               "layers": [loose_layer(params["blocks"], i, P) for i in range(p)]}
     server = {
@@ -73,8 +88,10 @@ def merged_config(model):
 
 
 def merge_params(model, device, server, p: int):
-    """Re-assemble a full parameter tree from the two halves (the loose /
-    stacked boundary comes from ``len(server["layers_head"])``)."""
+    """Re-assemble a full parameter tree from the two halves.  The device
+    block may carry more than ``p`` layers (a heterogeneous fleet's stack
+    reaches ``p_max``): only its first ``p`` are read.  The loose /
+    stacked boundary comes from ``len(server["layers_head"])``."""
     cfg = model.cfg
     if model.kind != "lm":
         return {"layers": list(device["layers"][:p]) + list(server["layers"]),
@@ -119,23 +136,37 @@ def device_forward(model, device_params, inputs, p: int, *, positions=None,
 
 
 def server_forward(model, server_params, activations, p: int, *,
-                   positions=None, impl="kernel", remat="block"):
+                   positions=None, impl="kernel", remat="block",
+                   entry: Optional[int] = None):
     """Layers [p, L) + final norm, the head weight exposed separately; a
-    vision model's layers [p, L) and head, with its logits."""
+    vision model's layers [p, L) and head, with its logits.
+
+    ``entry`` enters the stack at a cut deeper than the split: layers
+    with global index below it are skipped (they get no gradient), so
+    activations of a device block cut at ``entry >= p`` resume at their
+    own boundary.  For an LM it must land in the loose region (split the
+    server with ``loose_until >= entry``); ``None`` is ``p``."""
     cfg = model.cfg
+    e = p if entry is None else int(entry)
     x = activations.to(L.dt(cfg.dtype))
     if model.kind != "lm":
         for k, lp in enumerate(server_params["layers"]):
-            x = M.apply_vision_layer(cfg, lp, x, p + k)
+            if p + k >= e:
+                x = M.apply_vision_layer(cfg, lp, x, p + k)
         return {"hidden": x,
                 "logits": apply_head(cfg, server_params["head"], x)}
+    lh_end = p + len(server_params["layers_head"])
+    if e > lh_end:
+        raise ValueError(
+            f"entry {e} is inside the scanned stack (loose region ends at "
+            f"{lh_end}); split the server with loose_until >= {e}")
     B, S = activations.shape[:2]
     if positions is None:
         positions = T.default_positions(cfg, B, S, x.device)
     fn = T.checkpointed_block_apply if remat == "block" else T.block_apply
-    lh_end = p + len(server_params["layers_head"])
     for k, lp in enumerate(server_params["layers_head"]):
-        x = fn(cfg, lp, x, positions, p + k, impl=impl)
+        if p + k >= e:
+            x = fn(cfg, lp, x, positions, p + k, impl=impl)
     if server_params["blocks"] is not None:
         x = T.run_blocks(cfg, server_params["blocks"], x, positions, lo=0,
                          hi=cfg.num_layers - lh_end, impl=impl, remat=remat)

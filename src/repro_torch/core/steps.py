@@ -152,7 +152,12 @@ def make_buffered_round_step(model, run_cfg, *, impl="kernel"):
 # ---------------------------------------------------------------------------
 
 
-def make_server_train_step(model, run_cfg, *, impl="kernel"):
+def make_server_train_step(model, run_cfg, *, impl="kernel", entry=None):
+    """``entry``: the cut depth this step's activations were made at (a
+    heterogeneous-cut server phase trains one server block from several
+    entry points; the layers below ``entry`` get zero gradients, as in
+    JAX, and the optimizer still moves them); ``None`` = the split
+    point."""
     cfg = model.cfg
     p = run_cfg.split.split_point
     opt = make_optimizer(run_cfg.optim)
@@ -164,7 +169,7 @@ def make_server_train_step(model, run_cfg, *, impl="kernel"):
         if "acts_scale" in batch:   # an int8 payload, quantized until here
             acts = compression.dequantize_int8(acts, batch["acts_scale"])
         out = splitting.server_forward(model, server_params, acts, p,
-                                       impl=impl, remat=remat)
+                                       impl=impl, remat=remat, entry=entry)
         if model.kind != "lm":
             return losses.classification_loss(out["logits"], batch["labels"])
         return losses.lm_loss_from_hidden(
@@ -199,12 +204,13 @@ def init_server_state(model, run_cfg, server_params):
             "step": 0}
 
 
-def make_server_epoch_fn(model, run_cfg, *, impl="kernel"):
+def make_server_epoch_fn(model, run_cfg, *, impl="kernel", entry=None):
     """``epoch_fn(state, pool, idx)``: one server epoch over ``idx``, an
     (nb, batch) index matrix into the device-resident consolidated
     ``pool`` (an int8 payload stays quantized there; the step dequantizes
-    each batch); returns the new state and the (nb,) per-batch losses."""
-    step = make_server_train_step(model, run_cfg, impl=impl)
+    each batch); returns the new state and the (nb,) per-batch losses.
+    ``entry`` as :func:`make_server_train_step`'s."""
+    step = make_server_train_step(model, run_cfg, impl=impl, entry=entry)
 
     def epoch_fn(state, pool, idx):
         out = []

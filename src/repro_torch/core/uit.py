@@ -1,5 +1,5 @@
 """Unidirectional Inter-Block Training — the Ampere orchestrator (paper
-§3.3, Algorithm 1), static cut, as ``repro.core.uit.AmpereTrainer``.
+§3.3, Algorithm 1), as ``repro.core.uit.AmpereTrainer``.
 
 The phases run in the order ``AmpereSystem.run`` drives them:
 
@@ -33,13 +33,26 @@ stays int8 on the device (its step dequantizes each batch).  A pool above
 device phase then uploads each round's ``round_batches``, and the server
 phase streams the store's ``batches`` through a
 :class:`~repro_torch.data.pipeline.DevicePrefetcher`; both draw what the
-resident path draws, so the history is the same.  Transport,
-observability, streaming and heterogeneous cuts are later slices
-(ROADMAP.md queues A5b and A6).
+resident path draws, so the history is the same.
+
+Heterogeneous cuts (``cuts=``, a non-uniform
+:class:`~repro_torch.fleet.cuts.CutAssignment`): each client trains and
+uploads at its own cut depth.  The device stack is held at the deepest
+cut ``p_max``, the server block is split at the shallowest ``p_min``
+(``run.split.split_point``) with its loose region reaching ``p_max``,
+and each depth ``d`` has its own auxiliary network (``aux["p{d}"]``).  A
+fleet round buckets its survivors by cut, each bucket trains the
+``[0, d)`` prefix of the stack, and
+:func:`~repro_torch.core.aggregation.prefix_fedavg` folds the buckets
+back over the layers they share; the store tags each shard with its cut,
+and each server epoch runs one pass per depth that enters the server
+block at that depth.  Transport, observability and streaming are later
+slices (ROADMAP.md queue A6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, Optional
 
@@ -63,7 +76,7 @@ class AmpereTrainer:
     def __init__(self, model, run_cfg, clients: List[ClientData], eval_data,
                  workdir: Optional[str] = None, patience: int = 15,
                  log_echo: bool = False, *,
-                 device=None):
+                 device=None, cuts=None):
         self.model = model
         self.run = run_cfg
         self.clients = clients
@@ -71,6 +84,23 @@ class AmpereTrainer:
         self.workdir = workdir
         self.patience = patience
         self.device = resolve_device(device)
+        # a non-uniform cut assignment switches the fleet device phase to
+        # per-depth buckets and the server phase to per-depth entry
+        # points; a uniform one is collapsed onto split_point upstream
+        # (experiments.api does), keeping the single-cut path as it is
+        self.cuts = None
+        self._run_by_depth = {}
+        if cuts is not None and not cuts.uniform:
+            if cuts.depths[0] != run_cfg.split.split_point:
+                raise ValueError(
+                    f"run_cfg.split.split_point={run_cfg.split.split_point} "
+                    f"must equal the shallowest cut {cuts.depths[0]} (the "
+                    "server block is split there)")
+            self.cuts = cuts
+            self._run_by_depth = {
+                d: dataclasses.replace(run_cfg, split=dataclasses.replace(
+                    run_cfg.split, split_point=int(d)))
+                for d in cuts.depths}
         self.rng = np.random.default_rng(run_cfg.fed.seed)
         self._store: Optional[ActivationStore] = None
         self.runner = Runner(workdir, patience=patience, log_echo=log_echo,
@@ -101,9 +131,28 @@ class AmpereTrainer:
             return 0
         return int(self.clients[0].dataset.arrays["tokens"].shape[1])
 
-    def _one_way_bytes(self) -> int:
-        """Device-block + aux bytes one model exchange moves per client."""
-        return self.sizes.device + self.sizes.aux
+    @functools.cached_property
+    def _sizes_by_depth(self) -> dict:
+        """Each cut depth's split sizes under a heterogeneous assignment."""
+        return {d: comm_model.split_sizes(self.model, rc.split,
+                                          seq_len=self._seq_len())
+                for d, rc in self._run_by_depth.items()}
+
+    def _one_way_bytes(self, client_id=None) -> int:
+        """Device-block + aux bytes one model exchange moves for a client
+        (at its own cut depth under a heterogeneous assignment)."""
+        if self.cuts is None:
+            return self.sizes.device + self.sizes.aux
+        s = self._sizes_by_depth[self.cuts.cut_of(client_id)]
+        return s.device + s.aux
+
+    @staticmethod
+    def _device_prefix(device, d: int):
+        """The ``[0, d)`` layer slice of a device tree (non-layer keys, the
+        LM embedding, ride along whole).  It holds the stack's own tensors:
+        every step returns new ones, so one bucket's round never changes
+        what another starts from."""
+        return dict(device, layers=list(device["layers"][:d]))
 
     def _host_state(self) -> dict:
         """The host-side generators a resumed run must continue from: the
@@ -130,19 +179,45 @@ class AmpereTrainer:
     def _init_states(self, gen: torch.Generator):
         """Random init from ``gen`` on the generator's own device, moved to
         the trainer's device (a no-op when they agree), then split.  A CPU
-        generator gives the same init whatever device trains."""
+        generator gives the same init whatever device trains.
+
+        Heterogeneous cuts: the device stack reaches the deepest cut, the
+        server block is split at the shallowest with a loose region
+        through the deepest (every entry point lands on a loose layer),
+        and each depth's auxiliary network (key ``f"p{d}"``) comes from its
+        own generator, seeded from one draw of ``gen``."""
         params = self.model.init(gen, gen.device)
-        aux = auxiliary.init_aux(self.model, gen, self.run.split, gen.device)
+        p = self.run.split.split_point
+        if self.cuts is None:
+            aux = auxiliary.init_aux(self.model, gen, self.run.split,
+                                     gen.device)
+        else:
+            base = int(torch.randint(2 ** 62, (), generator=gen,
+                                     device=gen.device))
+            aux = {f"p{d}": auxiliary.init_aux(
+                       self.model,
+                       torch.Generator(gen.device).manual_seed(base + j),
+                       self._run_by_depth[d].split, gen.device)
+                   for j, d in enumerate(self.cuts.depths)}
         params, aux = (tree_map(lambda t: t.to(self.device), tree)
                        for tree in (params, aux))
-        dev, srv = splitting.split_params(self.model, params,
-                                          self.run.split.split_point)
+        if self.cuts is None:
+            dev, srv = splitting.split_params(self.model, params, p)
+            return dev, srv, aux
+        p_max = self.cuts.depths[-1]
+        dev, _ = splitting.split_params(self.model, params, p_max)
+        _, srv = splitting.split_params(self.model, params, p,
+                                        loose_until=p_max)
         return dev, srv, aux
 
     # ------------------------------------------------------------------
     # Phase 3: federated device training
     # ------------------------------------------------------------------
     def run_device_phase(self, dev_state, max_rounds: Optional[int] = None):
+        if self.cuts is not None:
+            raise ValueError(
+                "heterogeneous cuts run through the fleet device phase "
+                "(a per_profile CutPolicy requires a fleet trace)")
         fed = self.run.fed
         K = fed.clients_per_round
         dev_state, start_round = self.runner.restore("device", dev_state)
@@ -200,10 +275,12 @@ class AmpereTrainer:
         scheduler instead of ``sample_cohort``, and each round runs through
         :class:`repro_torch.fleet.FleetEngine` (stateless per-round batch
         indices, so a run killed mid-phase resumes onto the same batches).
-        Device ids in the trace index ``self.clients``.  Per-profile cuts
-        are ROADMAP.md queue A5b: this is the uniform-cut phase."""
+        Device ids in the trace index ``self.clients``."""
         from repro_torch.fleet.engine import FleetEngine
 
+        if self.cuts is not None:
+            return self._run_fleet_device_phase_hetero(dev_state, trace,
+                                                       max_rounds)
         engine = FleetEngine(self.model, self.run, self.clients,
                              device=self.device)
         dev_state, start_round = self.runner.restore("fleet", dev_state)
@@ -231,6 +308,72 @@ class AmpereTrainer:
             body, history_key="device", monitor="val_loss",
             checkpoint_every=self.run.checkpoint_every)
 
+    def _run_fleet_device_phase_hetero(self, dev_state, trace,
+                                       max_rounds: Optional[int] = None):
+        """The fleet device phase with per-profile cut depths: one
+        :class:`FleetEngine` per depth; each round buckets its survivors
+        by cut, each bucket trains the ``[0, d)`` prefix of the device
+        stack with its own auxiliary network (padded to the plan's cohort
+        size), and :func:`aggregation.prefix_fedavg` folds the trained
+        buckets back over their shared prefix; layers no bucket covers
+        keep their value."""
+        from repro_torch.fleet.engine import FleetEngine
+
+        cuts = self.cuts
+        engines = {d: FleetEngine(self.model, self._run_by_depth[d],
+                                  self.clients, device=self.device)
+                   for d in cuts.depths}
+        dev_state, start_round = self.runner.restore("fleet", dev_state)
+
+        def body(state, rnd, plan):
+            lr = self._sched(rnd)
+            buckets = {d: ([], []) for d in cuts.depths}
+            for c, w in zip(plan.clients, plan.weights):
+                ids, ws = buckets[cuts.cut_of(c)]
+                ids.append(c)
+                ws.append(w)
+            trained, bucket_w = {}, {}
+            loss_num = 0.0
+            for d, (ids, ws) in buckets.items():
+                if not ids:
+                    continue
+                sub = {"device": self._device_prefix(state["device"], d),
+                       "aux": state["aux"][f"p{d}"]}
+                trained[d], metrics = engines[d].run_round(
+                    sub, rnd, ids, ws, lr, pad_to=plan.cohort_size)
+                bucket_w[d] = float(sum(ws))
+                loss_num += bucket_w[d] * float(metrics["loss"])
+            with torch.no_grad():
+                device = aggregation.prefix_fedavg(
+                    state["device"],
+                    {d: t["device"] for d, t in trained.items()}, bucket_w)
+            aux = dict(state["aux"],
+                       **{f"p{d}": t["aux"] for d, t in trained.items()})
+            state = {"device": device, "aux": aux}
+            total_w = sum(bucket_w.values())
+            return StepOutcome(
+                state=state,
+                record={"round": rnd,
+                        "loss": loss_num / total_w if total_w else 0.0,
+                        "t_end": plan.t_end, "cohort": plan.cohort_size,
+                        "survivors": len(plan.clients),
+                        **self._aux_eval(state)},
+                comm_bytes=2 * sum(self._one_way_bytes(c)
+                                   for c in plan.clients),
+                sim_time=plan.round_time,
+                log={"dropped": len(plan.dropped),
+                     "sim_t": round(plan.t_end, 6),
+                     "buckets": {f"p{d}": len(ids)
+                                 for d, (ids, _) in buckets.items()}})
+
+        plans = trace.rounds if max_rounds is None else \
+            trace.rounds[:max_rounds]
+        return self.runner.run_phase(
+            "fleet", dev_state,
+            ((p.round_idx, p) for p in plans if p.round_idx >= start_round),
+            body, history_key="device", monitor="val_loss",
+            checkpoint_every=self.run.checkpoint_every)
+
     def run_fleet(self, trace, gen=None, max_rounds=None,
                   max_server_epochs=None, population=None):
         """The full trace-driven Ampere pipeline through
@@ -249,24 +392,36 @@ class AmpereTrainer:
             device=self.device)
         return get_system("ampere")().run(ctx)
 
+    def _aux_heads(self, dev_state):
+        """(cut depth, split config, auxiliary network) of each depth."""
+        if self.cuts is None:
+            return [(self.run.split.split_point, self.run.split,
+                     dev_state["aux"])]
+        return [(d, self._run_by_depth[d].split, dev_state["aux"][f"p{d}"])
+                for d in self.cuts.depths]
+
     @torch.no_grad()
     def _aux_eval(self, dev_state, max_batches: int = 8,
                   batch_size: int = 64):
-        p = self.run.split.split_point
+        """Auxiliary validation; under heterogeneous cuts each depth's head
+        on its own prefix of the stack, averaged over the depths."""
         n = len(self.eval_data)
         bs = min(batch_size, n)
         ls, accs = [], []
         for s in range(0, min(n, max_batches * bs) - bs + 1, bs):
             batch = self._tensors({k: v[s:s + bs] for k, v in
                                    self.eval_data.arrays.items()})
-            acts = splitting.device_forward(self.model, dev_state["device"],
-                                            batch[self.model.input_key], p)
-            loss, m = auxiliary.aux_loss(self.model, dev_state["aux"],
-                                         dev_state["device"], acts, batch,
-                                         self.run.split)
-            ls.append(float(loss))
-            accs.append(float(m.get("acc", 0.0)))
-        return {"val_loss": float(np.mean(ls)), "val_acc": float(np.mean(accs))}
+            for p, split_cfg, aux in self._aux_heads(dev_state):
+                acts = splitting.device_forward(
+                    self.model, dev_state["device"],
+                    batch[self.model.input_key], p)
+                loss, m = auxiliary.aux_loss(self.model, aux,
+                                             dev_state["device"], acts,
+                                             batch, split_cfg)
+                ls.append(float(loss))
+                accs.append(float(m.get("acc", 0.0)))
+        return {"val_loss": float(np.mean(ls)),
+                "val_acc": float(np.mean(accs))}
 
     # ------------------------------------------------------------------
     # Phase 4: one-shot activation generation + upload
@@ -285,11 +440,15 @@ class AmpereTrainer:
         ``client_bandwidth_bps`` maps client id -> link bytes/s (a
         :class:`~repro_torch.fleet.DeviceProfile`'s ``bandwidth_bps``);
         without it every device has the testbed link (``BANDWIDTH_BPS``)
-        and the largest shard is the slowest."""
+        and the largest shard is the slowest.  Under heterogeneous cuts
+        each client's activations come from its own prefix of the device
+        stack, and its shards carry its cut tag."""
         if upload not in ("serial", "parallel"):
             raise ValueError(f"upload={upload!r} not in serial|parallel")
-        p = self.run.split.split_point
         for client in self.clients:
+            cut = None if self.cuts is None \
+                else self.cuts.cut_of(client.client_id)
+            p = self.run.split.split_point if cut is None else cut
             arrays = client.dataset.arrays
             for s in range(0, len(client.dataset), batch_size):
                 inp = arrays[self.model.input_key][s:s + batch_size]
@@ -299,7 +458,7 @@ class AmpereTrainer:
                 store.add(client.client_id,
                           {"acts": acts.float().cpu().numpy(),
                            self.model.label_key: arrays[self.model.label_key][
-                               s:s + batch_size]})
+                               s:s + batch_size]}, cut=cut)
         if upload == "parallel":
             # the bytes a sample ships, int8 payloads included
             per_sample = store.bytes_received / max(store.num_samples(), 1)
@@ -319,57 +478,48 @@ class AmpereTrainer:
     # ------------------------------------------------------------------
     def run_server_phase(self, dev_state, srv_params, store: ActivationStore,
                          max_epochs: Optional[int] = None):
+        """Server epochs over the consolidated pool, merged-model
+        validation after each.  Under heterogeneous cuts the device-trained
+        overlap layers are first copied into the server block, and each
+        epoch runs one pass per cut depth (:meth:`_depth_epochs`)."""
         run = self.run
         self._store = store
-        srv_state, start_epoch = self.runner.restore(
-            "server", steps.init_server_state(self.model, run, srv_params),
-            step_name="epoch")
-        merged_model = build_model(splitting.merged_config(self.model))
-        epochs = max_epochs if max_epochs is not None else run.fed.server_epochs
-        bs = run.fed.server_batch_size
-        # an int8 pool is admitted, uploaded and kept as int8; a pool too
-        # small for one batch or over the budget streams from the host
-        resident = store.num_samples() >= bs and self._fits(
-            store.pool_nbytes())
-        pool = self._tensors(store.pool()) if resident else None
-        epoch_sim_time = comm_model.ampere_server_epoch_time(
-            self.model, run.split, comm_model.TimeModel(),
-            n_samples=store.num_samples(), seq_len=self._seq_len(),
-            sizes=self.sizes)
-
-        def body(srv_state, epoch, _plan):
-            # rebinding drops the only reference to the old state (the
-            # Runner keeps none), so its optimizer buffers are freed before
-            # the merged evaluation, as the reference's donated epoch frees
-            # them
-            if resident:
-                idx = torch.as_tensor(store.epoch_indices(bs),
-                                      dtype=torch.long, device=self.device)
-                srv_state, losses = self._server_epoch(srv_state, pool, idx)
-            else:
-                out = []
-                for batch in DevicePrefetcher(
-                        store.batches(bs, epochs=1),
-                        self.device):
-                    srv_state, m = self._server_step(srv_state, batch)
-                    out.append(m["loss"])
-                losses = (torch.stack(out) if out
-                          else torch.zeros((0,), device=self.device))
-            ls = losses.double().cpu().numpy()   # one host sync per epoch
-            val = evaluate.evaluate(merged_model,
-                                    self.merged_params(dev_state,
-                                                       srv_state["server"]),
-                                    self.eval_data, self.device)
-            return StepOutcome(
-                state=srv_state,
-                record={"epoch": epoch,
-                        "loss": float(np.mean(ls)) if len(ls) else float("nan"),
-                        "val_loss": val["loss"], "val_acc": val["acc"]},
-                sim_time=epoch_sim_time)
-
-        held = [srv_state]   # handed over: the Runner empties it
-        del srv_state
         try:
+            if self.cuts is not None:
+                srv_params = self._sync_overlap_from_device(
+                    dev_state["device"], srv_params)
+            srv_state, start_epoch = self.runner.restore(
+                "server", steps.init_server_state(self.model, run,
+                                                  srv_params),
+                step_name="epoch")
+            merged_model = build_model(splitting.merged_config(self.model))
+            epochs = max_epochs if max_epochs is not None \
+                else run.fed.server_epochs
+            train_epoch, epoch_sim_time = (
+                self._one_cut_epochs(store) if self.cuts is None
+                else self._depth_epochs(store))
+
+            def body(srv_state, epoch, _plan):
+                # handed over: the Runner keeps no reference and neither
+                # does this frame, so each step frees the state it replaced
+                # (the reference donates it)
+                held = [srv_state]
+                del srv_state
+                srv_state, ls = train_epoch(held)
+                val = evaluate.evaluate(
+                    merged_model,
+                    self.merged_params(dev_state, srv_state["server"]),
+                    self.eval_data, self.device)
+                return StepOutcome(
+                    state=srv_state,
+                    record={"epoch": epoch,
+                            "loss": float(np.mean(ls)) if len(ls)
+                            else float("nan"),
+                            "val_loss": val["loss"], "val_acc": val["acc"]},
+                    sim_time=epoch_sim_time)
+
+            held = [srv_state]   # handed over: the Runner empties it
+            del srv_state
             return self.runner.run_phase(
                 "server", held,
                 ((e, None) for e in range(start_epoch, epochs)),
@@ -379,7 +529,101 @@ class AmpereTrainer:
         finally:
             self._store = None
 
+    def _one_cut_epochs(self, store: ActivationStore):
+        """``(train_epoch, epoch_sim_time)`` at one cut: an epoch over the
+        device-resident pool (an int8 pool is admitted, uploaded and kept
+        as int8), or, for a pool too small for one batch or over the
+        budget, over the store's batches streamed from the host.
+        ``train_epoch(held)`` takes the state out of the one-element list
+        ``held`` and returns the new state and the epoch's losses on the
+        host (one sync)."""
+        bs = self.run.fed.server_batch_size
+        resident = store.num_samples() >= bs and self._fits(
+            store.pool_nbytes())
+        pool = self._tensors(store.pool()) if resident else None
+
+        def train_epoch(held):
+            if resident:
+                idx = torch.as_tensor(store.epoch_indices(bs),
+                                      dtype=torch.long, device=self.device)
+                srv_state, losses = self._server_epoch(held.pop(), pool, idx)
+            else:
+                srv_state, out = held.pop(), []
+                for batch in DevicePrefetcher(store.batches(bs, epochs=1),
+                                              self.device):
+                    srv_state, m = self._server_step(srv_state, batch)
+                    out.append(m["loss"])
+                losses = (torch.stack(out) if out
+                          else torch.zeros((0,), device=self.device))
+            return srv_state, losses.double().cpu().numpy()
+
+        return train_epoch, comm_model.ampere_server_epoch_time(
+            self.model, self.run.split, comm_model.TimeModel(),
+            n_samples=store.num_samples(), seq_len=self._seq_len(),
+            sizes=self.sizes)
+
+    def _depth_epochs(self, store: ActivationStore):
+        """``(train_epoch, epoch_sim_time)`` over a heterogeneous-cut pool:
+        the shards are bucketed by their cut tag, and an epoch runs one
+        pass per depth, in sorted order (so the store's rng stream is
+        deterministic), each entering the server block at its depth.  The
+        pool must fit the device budget (no host-streaming fallback, as in
+        the reference), and the simulated epoch is the sum of each
+        bucket's, priced at its depth."""
+        run = self.run
+        if not self._fits(store.pool_nbytes()):
+            raise ValueError(
+                f"heterogeneous-cut pool ({store.pool_nbytes()} bytes) "
+                f"exceeds device_pool_budget_mb={run.device_pool_budget_mb}"
+                "; per-bucket server epochs require a resident pool")
+        present = [d for d in store.cut_depths()
+                   if store.num_samples(cut=d) > 0]
+        if not present:
+            raise ValueError("heterogeneous server phase: store has no "
+                             "cut-tagged activation shards")
+        pools = {d: self._tensors(store.pool(cut=d)) for d in present}
+        epoch_fns = {d: steps.make_server_epoch_fn(self.model, run, entry=d)
+                     for d in present}
+        bs = run.fed.server_batch_size
+
+        def train_epoch(held):
+            ls = []
+            for d in present:
+                idx = store.epoch_indices(min(bs, store.num_samples(cut=d)),
+                                          cut=d)
+                srv_state, losses = epoch_fns[d](
+                    held.pop(), pools[d],
+                    torch.as_tensor(idx, dtype=torch.long,
+                                    device=self.device))
+                held.append(srv_state)
+                del srv_state
+                ls.append(losses.double().cpu().numpy())
+            return held.pop(), np.concatenate(ls)
+
+        return train_epoch, sum(
+            comm_model.ampere_server_epoch_time(
+                self.model, self._run_by_depth[d].split,
+                comm_model.TimeModel(), n_samples=store.num_samples(cut=d),
+                seq_len=self._seq_len(), sizes=self._sizes_by_depth[d])
+            for d in present)
+
+    def _sync_overlap_from_device(self, device, server):
+        """The server block with the device-trained overlap layers
+        ``[p_min, p_max)`` of the device stack in its loose region: the
+        block was carved at init, and the device phase has since trained
+        those layers for the deeper buckets."""
+        p_min = self.run.split.split_point
+        key = "layers_head" if self.model.kind == "lm" else "layers"
+        layers = list(server[key])
+        for layer in range(p_min, self.cuts.depths[-1]):
+            layers[layer - p_min] = device["layers"][layer]
+        return dict(server, **{key: layers})
+
     def merged_params(self, dev_state, server_params):
+        """The full merged model.  Under heterogeneous cuts the device
+        stack is oversized: ``merge_params`` reads its first
+        ``split_point`` layers, and the overlap layers come from the server
+        block's loose region, which holds the server-trained copy."""
         return splitting.merge_params(self.model, dev_state["device"],
                                       server_params,
                                       self.run.split.split_point)

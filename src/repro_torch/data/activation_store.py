@@ -22,7 +22,15 @@ dequantizes each batch (``runtime.compression.dequantize_int8``).
 ``batches`` streams shuffled host batches of the whole pool from the
 same permutation :meth:`ActivationStore.epoch_indices` draws, for the
 server phase's over-budget fallback; an int8 payload stays quantized
-there too.  The writer thread, cut tags and the streaming ring are later slices.
+there too.
+
+Heterogeneous cuts: a shard may carry a *cut depth* tag (the layer its
+activations were made at).  The tags live in an index parallel to the
+shards, so the payloads are those of the untagged path, and ``pool``,
+``num_samples`` and ``epoch_indices`` take ``cut=`` to address one depth's
+bucket: shards of different depths never share a pool.  Disk shards keep
+no tag (:func:`load_store` rebuilds an untagged store), as in the
+reference.  The writer thread and the streaming ring are later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ class ActivationStore:
         self.quantize = quantize_int8
         self.rng = np.random.default_rng(seed)
         self._mem: Dict[int, List[dict]] = {}
+        # the cut depth of each shard, parallel to _mem (None = untagged)
+        self._cut_tags: Dict[int, List[Optional[int]]] = {}
         self.bytes_received = 0
         if directory:
             os.makedirs(directory, exist_ok=True)
@@ -47,9 +57,10 @@ class ActivationStore:
     # ------------------------------------------------------------------
     # receive & store
     # ------------------------------------------------------------------
-    def add(self, client_id: int, shard: dict):
-        """Store one uploaded shard (synchronously)."""
-        self._store(client_id, shard)
+    def add(self, client_id: int, shard: dict, cut: Optional[int] = None):
+        """Store one uploaded shard (synchronously), tagged with the cut
+        depth it was made at when ``cut`` is given."""
+        self._store(client_id, shard, cut)
 
     @staticmethod
     def shard_nbytes(shard: dict, quantize: bool = False) -> int:
@@ -86,11 +97,14 @@ class ActivationStore:
                       if k not in ("acts", "acts_scale"))
         return shard, nbytes
 
-    def _store(self, client_id: int, shard: dict):
+    def _store(self, client_id: int, shard: dict,
+               cut: Optional[int] = None):
         shard, nbytes = self.prepare_shard(shard, self.quantize)
         assert nbytes == self.shard_nbytes(shard, self.quantize)
         lst = self._mem.setdefault(int(client_id), [])
         lst.append(shard)
+        self._cut_tags.setdefault(int(client_id), []).append(
+            None if cut is None else int(cut))
         self.bytes_received += nbytes
         if self.dir:
             i = len(lst) - 1
@@ -102,15 +116,30 @@ class ActivationStore:
     # ------------------------------------------------------------------
     # load for training
     # ------------------------------------------------------------------
-    def _shards(self, client_id: Optional[int] = None) -> List[dict]:
+    def _shards(self, client_id: Optional[int] = None,
+                cut: Optional[int] = None) -> List[dict]:
+        """The shards of every client (or one), in client insertion order,
+        all of them or those of one cut bucket."""
         cids = list(self._mem) if client_id is None else [int(client_id)]
-        return [s for c in cids for s in self._mem.get(c, [])]
+        if cut is None:
+            return [s for c in cids for s in self._mem.get(c, [])]
+        return [s for c in cids
+                for s, t in zip(self._mem.get(c, []),
+                                self._cut_tags.get(c, []))
+                if t == cut]
 
-    def pool(self, client_id: Optional[int] = None) -> dict:
-        """The consolidated (or one client's) pool as one dict of arrays,
-        in client insertion order, as the reference lays it out; an int8
-        payload stays quantized, with its ``acts_scale``."""
-        shards = self._shards(client_id)
+    def cut_depths(self) -> List[int]:
+        """The distinct cut tags present, sorted (untagged shards not)."""
+        return sorted({t for tags in self._cut_tags.values()
+                       for t in tags if t is not None})
+
+    def pool(self, client_id: Optional[int] = None,
+             cut: Optional[int] = None) -> dict:
+        """The consolidated (or one client's, or one cut bucket's) pool as
+        one dict of arrays, in client insertion order, as the reference
+        lays it out; an int8 payload stays quantized, with its
+        ``acts_scale``."""
+        shards = self._shards(client_id, cut)
         if not shards:
             return {}
         return {k: np.concatenate([s[k] for s in shards])
@@ -122,17 +151,21 @@ class ActivationStore:
         return sum(np.asarray(v).nbytes
                    for s in self._shards(client_id) for v in s.values())
 
-    def num_samples(self, client_id: Optional[int] = None) -> int:
-        return sum(len(s["acts"]) for s in self._shards(client_id))
+    def num_samples(self, client_id: Optional[int] = None,
+                    cut: Optional[int] = None) -> int:
+        return sum(len(s["acts"]) for s in self._shards(client_id, cut))
 
     def clients(self) -> List[int]:
         return sorted(self._mem)
 
     def epoch_indices(self, batch_size: int,
-                      client_id: Optional[int] = None) -> np.ndarray:
+                      client_id: Optional[int] = None,
+                      cut: Optional[int] = None) -> np.ndarray:
         """(nb, batch_size) int32 gather indices for one shuffled epoch:
-        one ``rng.permutation``, trailing remainder dropped."""
-        n = self.num_samples(client_id)
+        one ``rng.permutation``, trailing remainder dropped.  With ``cut=``
+        they index that bucket's pool; a caller draws the buckets in
+        sorted-depth order, so the rng stream is deterministic."""
+        n = self.num_samples(client_id, cut)
         order = self.rng.permutation(n)
         nb = n // batch_size
         return order[:nb * batch_size].reshape(nb, batch_size).astype(np.int32)
@@ -161,4 +194,5 @@ def load_store(directory: str, seed: int = 0) -> ActivationStore:
         with np.load(os.path.join(directory, fname)) as z:
             shard = {k: z[k] for k in z.files}
         st._mem.setdefault(client_id, []).append(shard)
+        st._cut_tags.setdefault(client_id, []).append(None)
     return st

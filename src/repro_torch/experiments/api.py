@@ -6,8 +6,9 @@ live objects (model from the arch registry, synthetic non-IID data, an
 optional JSONL-loaded or simulated fleet trace and its device population)
 and runs every listed system on them in turn, writing one results
 directory with a ``summary.json`` plus ``<system>_history.json`` files.
-Runs on CUDA unless ``device="cpu"``.  Transport, observability,
-streaming and per-profile cuts are later slices;
+A per-profile cut policy resolves to a cut per device class
+(:func:`resolve_cut_policy`).  Runs on CUDA unless ``device="cpu"``.
+Transport, observability and streaming are later slices;
 :meth:`ExperimentSpec.validate` refuses a spec that sets them.
 """
 
@@ -64,9 +65,46 @@ def resolve_setup(spec: ExperimentSpec):
     return spec, model, clients, eval_data
 
 
+def resolve_cut_policy(spec: ExperimentSpec, model, *, seq_len: int = 0):
+    """``spec.cut`` resolved into a per-client cut assignment: ``(spec,
+    cuts, cut_summary)``.  A uniform assignment (every device class
+    picked one depth) is collapsed onto ``run.split.split_point`` with
+    ``cuts=None``, so the single-cut path runs as it would without the
+    policy; a heterogeneous one rewrites ``split_point`` to the shallowest
+    cut (where the server block is split) and goes to the trainer.
+    Heterogeneous cuts are Ampere-only: the baselines' round steps train
+    at one split."""
+    if spec.cut is None or spec.cut.mode == "static":
+        return spec, None, None
+    if spec.fleet is None:
+        raise ValueError(
+            "cut.mode='per_profile' needs spec.fleet — the device classes "
+            "whose cost frontier picks each cut")
+    from repro_torch.fleet.cuts import resolve_cuts
+
+    assignment = resolve_cuts(spec.cut, model, spec.run, spec.fleet,
+                              seq_len=seq_len)
+    cut_summary = assignment.summary()
+    p = assignment.depths[0]
+    if p != spec.run.split.split_point:
+        spec = dataclasses.replace(
+            spec, run=dataclasses.replace(
+                spec.run, split=dataclasses.replace(
+                    spec.run.split, split_point=int(p))))
+    if assignment.uniform:
+        return spec, None, cut_summary
+    if sorted(set(spec.systems)) != ["ampere"]:
+        raise ValueError(
+            f"heterogeneous resolved cuts {cut_summary['by_class']} are "
+            f"ampere-only; drop {sorted(set(spec.systems) - {'ampere'})} "
+            "from spec.systems or constrain the policy (min_cut/max_cut/"
+            "overrides) to a uniform depth")
+    return spec, assignment, cut_summary
+
+
 def resolve_trace(spec: ExperimentSpec, model, run_cfg, *,
-                  seq_len: int = 0) -> Tuple[Optional[object],
-                                             Optional[list]]:
+                  seq_len: int = 0,
+                  cuts=None) -> Tuple[Optional[object], Optional[list]]:
     """(trace, population) for a spec, or (None, None) without a fleet.
 
     Loads the JSONL at ``spec.trace_path`` when it exists; otherwise
@@ -76,7 +114,9 @@ def resolve_trace(spec: ExperimentSpec, model, run_cfg, *,
     always the *synchronous* schedule (the async knobs are zeroed before
     simulating): the buffered systems derive theirs from the same
     population (:func:`repro_torch.experiments.systems.fedbuff_schedule`),
-    so one spec compares both disciplines over one churn realization."""
+    so one spec compares both disciplines over one churn realization.
+    ``cuts`` (a class -> cut map) prices each class's rounds at its own
+    cut."""
     from repro_torch.fleet import (FleetScheduler, FleetTrace,
                                    make_latency_fn, sample_population)
 
@@ -98,7 +138,8 @@ def resolve_trace(spec: ExperimentSpec, model, run_cfg, *,
     if spec.fleet is None:
         raise FileNotFoundError(
             f"trace_path {spec.trace_path!r} missing and spec.fleet is null")
-    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq_len)
+    lat = make_latency_fn(model, run_cfg, algo="ampere", seq_len=seq_len,
+                          cuts=cuts)
     sim_cfg = spec.fleet if spec.fleet.async_buffer_size == 0 else \
         dataclasses.replace(spec.fleet, async_buffer_size=0)
     trace = FleetScheduler(population, lat, sim_cfg).simulate(rounds)
@@ -130,7 +171,10 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
     spec, model, clients, eval_data = resolve_setup(spec)
     seq = int(eval_data.arrays["tokens"].shape[1]) if model.kind == "lm" \
         else 0
-    trace, population = resolve_trace(spec, model, spec.run, seq_len=seq)
+    spec, cuts, cut_summary = resolve_cut_policy(spec, model, seq_len=seq)
+    trace, population = resolve_trace(
+        spec, model, spec.run, seq_len=seq,
+        cuts=cuts.by_class if cuts is not None else None)
     results_dir = spec.results_dir or os.path.join("results", spec.name)
     results, summary = {}, {}
     for name, sys_cls in systems.items():
@@ -142,7 +186,8 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
             fleet_cfg=spec.fleet,
             max_rounds=spec.max_rounds,
             max_server_epochs=spec.max_server_epochs,
-            patience=spec.patience, log_echo=log_echo, device=device)
+            patience=spec.patience, log_echo=log_echo, device=device,
+            cuts=cuts)
         system = sys_cls()
         system.on_start(ctx)
         try:
@@ -155,6 +200,8 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
         system.on_finish(ctx, result)
         results[name] = result
         summary[name] = _history_summary(result["history"])
+        if cut_summary is not None:
+            summary[name]["cuts"] = cut_summary
 
     out = {"spec": spec, "results": results, "summary": summary,
            "results_dir": results_dir}

@@ -11,12 +11,14 @@ committed file drives either package.
 A spec may name a fleet (``fleet``, a
 :class:`~repro_torch.fleet.FleetConfig`, and/or ``trace_path``, a JSONL
 trace): every system then replays one shared churn trace, as in the
-reference.  The other optional sections — transport, fault injection,
-streaming, observability and the per-profile cut — are kept here as data
-(the reference's fields, defaults and checks); the port cannot run them
-yet, so :meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of
-each one a spec asks for, and
-:func:`repro_torch.experiments.run_experiment` refuses such a spec.
+reference, and a ``cut`` (:class:`~repro_torch.fleet.cuts.CutPolicy`)
+may give each device class of that fleet its own cut layer.  The other
+optional sections — transport, fault injection, streaming and
+observability — are kept here as data (the reference's fields, defaults
+and checks); the port cannot run them yet, so
+:meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of each
+one a spec asks for, and :func:`repro_torch.experiments.run_experiment`
+refuses such a spec.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.fleet.profiles import DEVICE_CLASSES, FleetConfig
+from repro_torch.fleet.cuts import CutPolicy
+from repro_torch.fleet.profiles import FleetConfig
 
 #: systems that train on a buffered-asynchronous schedule (plans carry
 #: staleness) rather than replaying synchronous cohort rounds
@@ -217,49 +220,6 @@ class ObservabilitySpec:
         return problems
 
 
-@dataclass(frozen=True)
-class CutPolicy:
-    """How the cut layer is chosen (``repro.fleet.cuts.CutPolicy``; a
-    per-profile cut is queue A5b).  ``max_cut = 0`` means the deepest
-    legal cut."""
-
-    mode: str = "static"              # static | per_profile
-    objective: str = "epoch_time"     # reserved for future objectives
-    min_cut: int = 1
-    max_cut: int = 0
-    overrides: Tuple[Tuple[str, int], ...] = ()
-
-    def validate(self, num_layers: Optional[int] = None) -> list:
-        problems = []
-        if self.mode not in ("static", "per_profile"):
-            problems.append(f"cut.mode {self.mode!r} not in static|per_profile")
-        if self.objective != "epoch_time":
-            problems.append(f"cut.objective {self.objective!r} unsupported")
-        if self.min_cut < 1:
-            problems.append(f"cut.min_cut {self.min_cut} < 1")
-        if self.max_cut < 0:
-            problems.append(f"cut.max_cut {self.max_cut} < 0")
-        if self.max_cut and self.max_cut < self.min_cut:
-            problems.append(
-                f"cut.max_cut {self.max_cut} < cut.min_cut {self.min_cut}")
-        hi = num_layers - 1 if num_layers else None
-        if hi is not None:
-            if self.min_cut > hi:
-                problems.append(
-                    f"cut.min_cut {self.min_cut} outside [1, {hi}]")
-            if self.max_cut > hi:
-                problems.append(
-                    f"cut.max_cut {self.max_cut} outside [1, {hi}]")
-        for name, p in self.overrides:
-            if name not in DEVICE_CLASSES:
-                problems.append(f"cut.overrides: unknown device class {name!r}")
-            if p < 1 or (hi is not None and p > hi):
-                problems.append(
-                    f"cut.overrides[{name!r}] = {p} outside "
-                    f"[1, {hi if hi is not None else '?'}]")
-        return problems
-
-
 # ---------------------------------------------------------------------------
 # the spec
 # ---------------------------------------------------------------------------
@@ -422,8 +382,6 @@ class ExperimentSpec:
                     "schedule is derived from the device population")
         # features the port cannot run yet, one problem each
         pending = (
-            ("cut", self.cut if self.cut is None or self.cut.mode != "static"
-             else None, "A5b (heterogeneous cuts)"),
             ("transport", self.transport,
              "A6 (transport, streaming, observability)"),
             ("faults", self.faults,

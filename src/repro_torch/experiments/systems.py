@@ -10,12 +10,13 @@ composes them into the full pipeline for one :class:`SystemContext`.
 :class:`~repro_torch.experiments.spec.ExperimentSpec`.
 
 The port registers every system of the reference: ``"ampere"``
-(i.i.d. cohorts, or a fleet trace's, at a static cut), the synchronous
-baselines — the SFL family (``splitfed``, ``splitfed_mb``,
-``splitfedv2``, ``splitgp``, ``scaffold``, ``pipar``) and ``fedavg`` —
-which replay a shared fleet trace through :func:`replay_plan`, and the
-buffered ones (``fedbuff``, ``splitfed_pa``), whose asynchronous schedule
-:func:`fedbuff_schedule` derives from the same device population.
+(i.i.d. cohorts, or a fleet trace's, at one cut or a cut per device
+class), the synchronous baselines — the SFL family (``splitfed``,
+``splitfed_mb``, ``splitfedv2``, ``splitgp``, ``scaffold``, ``pipar``)
+and ``fedavg`` — which replay a shared fleet trace through
+:func:`replay_plan`, and the buffered ones (``fedbuff``,
+``splitfed_pa``), whose asynchronous schedule :func:`fedbuff_schedule`
+derives from the same device population.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ class SystemContext:
     gen: Optional[torch.Generator] = None
     trainer: Any = None            # reuse a live trainer
     device: Any = None             # None = CUDA (raises without a card)
+    cuts: Any = None               # CutAssignment (None/uniform = one cut)
 
     @property
     def seq_len(self) -> int:
@@ -184,7 +186,7 @@ class AmpereSystem(System):
             ctx.trainer = AmpereTrainer(
                 ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
                 workdir=ctx.workdir, patience=ctx.patience,
-                log_echo=ctx.log_echo, device=ctx.device)
+                log_echo=ctx.log_echo, device=ctx.device, cuts=ctx.cuts)
         return ctx.trainer
 
     def init_state(self, ctx: SystemContext, gen=None):

@@ -7,11 +7,14 @@
                 saved traces are the reference's bytes.
 ``engine``    — the multi-client round over a device-resident sample
                 pool.
-
-Per-profile cut layers (``repro.fleet.cuts``) are ROADMAP.md queue A5b.
+``cuts``      — per-device-class cut layers: the policy, its cost-model
+                resolution and the per-client assignment.
 """
 
+# the engine first: its import of repro_torch.core reaches the spec,
+# which imports the cut policy
 from repro_torch.fleet.engine import FleetEngine
+from repro_torch.fleet.cuts import CutAssignment, CutPolicy, resolve_cuts
 from repro_torch.fleet.profiles import (DEVICE_CLASSES, DeviceClass,
                                         DeviceProfile, FleetConfig,
                                         make_latency_fn, sample_population,
@@ -19,7 +22,8 @@ from repro_torch.fleet.profiles import (DEVICE_CLASSES, DeviceClass,
 from repro_torch.fleet.scheduler import FleetScheduler, FleetTrace, RoundPlan
 
 __all__ = [
-    "DEVICE_CLASSES", "DeviceClass", "DeviceProfile", "FleetConfig",
-    "FleetEngine", "FleetScheduler", "FleetTrace", "RoundPlan",
-    "make_latency_fn", "sample_population", "trace_round_times",
+    "CutAssignment", "CutPolicy", "DEVICE_CLASSES", "DeviceClass",
+    "DeviceProfile", "FleetConfig", "FleetEngine", "FleetScheduler",
+    "FleetTrace", "RoundPlan", "make_latency_fn", "resolve_cuts",
+    "sample_population", "trace_round_times",
 ]

@@ -163,33 +163,34 @@ def make_latency_fn(model, run_cfg, *, algo: str = "ampere",
     samples on the device; :func:`comm_model.epoch_time` prices the local
     compute plus the per-round exchange traffic of ``algo`` (model-only for
     Ampere; activations+gradients every iteration for the SFL family).
-    ``split_sizes`` is evaluated once and shared across all profiles.
+    ``split_sizes`` is evaluated once per distinct cut and shared across
+    all profiles.
 
-    ``cuts`` maps device-class name -> cut layer (a resolved per-class
-    cut assignment); per-class cuts are ROADMAP.md queue A5b, so a
-    non-empty map raises and every profile prices at
-    ``run_cfg.split.split_point``.  The returned callable carries a
-    ``.parts(profile) -> (compute_s, comm_s)`` attribute
-    (:func:`comm_model.epoch_time_parts`) so the scheduler can stretch
-    only the link-bound share under ``FleetConfig.shared_uplink``.
+    ``cuts`` maps device-class name -> cut layer (a resolved
+    :class:`repro_torch.fleet.cuts.CutAssignment`'s ``by_class``); a class
+    not in the map prices at ``run_cfg.split.split_point``.  The returned
+    callable carries a ``.parts(profile) -> (compute_s, comm_s)``
+    attribute (:func:`comm_model.epoch_time_parts`) so the scheduler can
+    stretch only the link-bound share under ``FleetConfig.shared_uplink``.
     """
-    if cuts:
-        raise ValueError(
-            f"per-class cuts {dict(cuts)} are not ported yet (ROADMAP.md "
-            "queue A5b, heterogeneous cuts)")
     fed = run_cfg.fed
     n_round_samples = fed.local_steps * fed.device_batch_size
-    sizes = []
+    split_by_class = {name: dataclasses.replace(run_cfg.split,
+                                                split_point=int(p))
+                      for name, p in dict(cuts or {}).items()}
+    sizes_cache = {}
 
     def price(fn, profile: DeviceProfile):
-        if not sizes:
-            sizes.append(comm_model.split_sizes(model, run_cfg.split,
-                                                seq_len=max(seq_len, 1)))
+        split_cfg = split_by_class.get(profile.cls, run_cfg.split)
+        p = split_cfg.split_point
+        if p not in sizes_cache:
+            sizes_cache[p] = comm_model.split_sizes(model, split_cfg,
+                                                    seq_len=max(seq_len, 1))
         tm = comm_model.TimeModel(device_gflops=profile.gflops,
                                   bandwidth=profile.bandwidth_bps)
-        return fn(algo, model, run_cfg.split, tm, n_samples=n_round_samples,
+        return fn(algo, model, split_cfg, tm, n_samples=n_round_samples,
                   batch_size=fed.device_batch_size, seq_len=seq_len,
-                  sizes=sizes[0])
+                  sizes=sizes_cache[p])
 
     def latency(profile: DeviceProfile) -> float:
         return price(comm_model.epoch_time, profile)

@@ -572,7 +572,6 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
     ("faults", FaultSpec(), "A6"),
     ("streaming", StreamingSpec(), "A6"),
     ("observability", ObservabilitySpec(), "A6"),
-    ("cut", CutPolicy(mode="per_profile"), "A5b"),
     ("arch", "qwen2-moe-a2.7b", "A7"),
 ])
 def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
@@ -589,19 +588,22 @@ def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
         os.path.abspath(__file__))), "examples/specs/fleet_trace_smoke.jsonl")),
     ("systems", ("ampere", "splitfed_pa")),
     ("systems", ("fedbuff",)),
+    ("cut", CutPolicy(mode="per_profile")),
 ])
 def test_fleet_and_buffered_specs_validate_clean(feature, value):
     """A fleet, a committed trace and the buffered systems (queue A5) run
-    now; a buffered system takes its schedule from the fleet section."""
+    now, and so does a per-profile cut (A5b); a buffered system takes its
+    schedule, and a per-profile cut its device classes, from the fleet
+    section."""
     kw = {feature: value}
-    if feature == "systems":
+    if feature in ("systems", "cut"):
         kw["fleet"] = FleetConfig(n_devices=4)
     spec = dataclasses.replace(_t_spec("results/t"), **kw)
     assert spec.validate() == []
     assert run_experiment(spec, dry_run=True)["valid"]
-    # without a population to derive it from, the buffered schedule is
-    # refused as the reference refuses it
-    if feature == "systems":
+    # without a population to derive it from, the buffered schedule (and
+    # the per-class cut) is refused as the reference refuses it
+    if feature in ("systems", "cut"):
         bare = dataclasses.replace(spec, fleet=None)
         assert any("fleet section" in p for p in bare.validate())
 

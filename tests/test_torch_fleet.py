@@ -113,10 +113,17 @@ def test_latency_fn_equals_reference(arch, seq, algo):
 
 
 def test_latency_fn_refuses_per_class_cuts(priced):
+    """Per-class cuts are no longer refused: each class prices at its own
+    cut, as the reference prices it (``tests/test_torch_cuts.py`` holds
+    more cases), and an empty assignment is the uniform cut."""
     tm, t_run, _ = priced["t"]
-    with pytest.raises(ValueError, match="A5b"):
-        make_latency_fn(tm, t_run, cuts={"jetson-fast": 2})
-    # an empty assignment is the uniform cut
+    jm, j_run, _ = priced["j"]
+    pop = sample_population(FleetConfig(n_devices=6))
+    jpop = j_population(JFleet(n_devices=6))
+    cut = make_latency_fn(tm, t_run, cuts={"jetson-fast": 2})
+    assert [cut(p) for p in pop] == \
+        [j_latency(jm, j_run, cuts={"jetson-fast": 2})(p) for p in jpop]
+    assert any(cut(p) != priced["t"][2](p) for p in pop)
     lat = make_latency_fn(tm, t_run, cuts={})
     p = sample_population(FleetConfig(n_devices=1))[0]
     assert lat(p) == priced["t"][2](p)

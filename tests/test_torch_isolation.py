@@ -40,6 +40,7 @@ import repro_torch.experiments.runner
 import repro_torch.experiments.spec
 import repro_torch.experiments.systems
 import repro_torch.fleet
+import repro_torch.fleet.cuts
 import repro_torch.fleet.engine
 import repro_torch.fleet.profiles
 import repro_torch.fleet.scheduler

@@ -93,13 +93,19 @@ def reference_run(j_spec):
     from repro.experiments import systems as j_systems
 
     _, model, clients, evald = j_api.resolve_setup(j_spec)
-    tr = JTrainer(model, j_spec.run, clients, evald, patience=j_spec.patience)
+    # a per-profile cut policy: the trainer the run builds, with the
+    # resolved split point and cut assignment
+    seq = int(evald.arrays["tokens"].shape[1]) if model.kind == "lm" else 0
+    cut_spec, cuts, _ = j_api.resolve_cut_policy(j_spec, model, seq_len=seq)
+    tr = JTrainer(model, cut_spec.run, clients, evald,
+                  patience=j_spec.patience, cuts=cuts)
     # one compiled init (eagerly, every parameter shape compiles its own
-    # sampler), kept for the next spec with the same model, seed and split
-    # (int8 payloads do not change it), handed to the reference's run as
-    # fresh arrays
+    # sampler), kept for the next spec with the same model, seed, split
+    # (int8 payloads do not change it) and cut depths, handed to the
+    # reference's run as fresh arrays
     key = (j_spec.arch, j_spec.smoke, j_spec.run.seed, repr(
-        dataclasses.replace(j_spec.run.split, quantize_activations=False)))
+        dataclasses.replace(cut_spec.run.split, quantize_activations=False)),
+        None if cuts is None or cuts.uniform else cuts.depths)
     if key not in _INITS:
         dev, srv, aux = jax.jit(tr._init_states)(
             jax.random.PRNGKey(j_spec.run.seed))
