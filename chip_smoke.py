@@ -183,10 +183,44 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    server epoch the sum of each depth's); each bucket's wall seconds,
    the round times and the peak memory beside the card's name and power
    limit.  (b) ``examples/specs/cut_smoke.json`` without its
-   observability section (queue A6), at its 2 rounds and 2 server
-   epochs, on the card and on the CPU from the same CPU-seeded init:
-   the same cut summary, losses within 1e-4 relative, accuracies within
-   1e-2, ``comm_bytes`` and ``sim_time`` equal.
+   observability section (14(d) runs it whole), at its 2 rounds and 2
+   server epochs, on the card and on the CPU from the same CPU-seeded
+   init: the same cut summary, losses within 1e-4 relative, accuracies
+   within 1e-2, ``comm_bytes`` and ``sim_time`` equal.
+14. Chaos: (a) phase 12's qwen3-1.7b federation and corpus at the main
+   path's static cut through ``AmpereSystem.run`` (``CHAOS_ROUNDS``
+   rounds, the upload, one server epoch), twice from the same init: under
+   an ``InProcessTransport`` with every fault kind of ``CHAOS_FAULTS``
+   (drops, corruptions through the frame CRC, duplicates, latency
+   spikes, resets; ``CHAOS_RETRY``'s six attempts), ``quorum_frac``
+   ``CHAOS_QUORUM`` and observability on, and with neither.  No client is
+   excluded; the faulted history less ``comm_bytes`` and ``sim_time``
+   equals the clean one bit for bit, and those two are larger; the wire
+   total is ``comm_bytes``; retries plus duplicates are above 0; the
+   tracer closed every span, dropped nothing and has spans on the
+   device, transfer, server and eval tracks; its exported ``trace.json``
+   validates and its span log reads back strictly.  Both runs' round
+   times, the wire statistics and the peaks beside the card's name and
+   power limit.  (b) One device round, the upload and one server epoch of
+   (a)'s faulted setup with a ``profile=True`` tracer inside
+   ``profile_run`` (``torch.profiler``, CPU and CUDA, NVTX ranges): from
+   the profiler's Chrome trace (each kernel tied to its launch by its
+   correlation id) every ``fa_fwd_tc_kernel`` launches inside a
+   ``flash_fwd`` range, every ``fa_bwd_tc_kernel`` inside
+   ``flash_bwd_fused`` and every xent kernel inside ``fused_xent_pallas``,
+   on the launching thread, one range per wrapper launch (the forward's
+   ranges hold its combine kernel, the backward's its GEMMs); every
+   kernel of the round lies inside a tracer span; and per span its
+   device time, idle share and top ten device operations (the call-site
+   table).  (c) ``examples/specs/chaos_smoke.json`` (faults with torn
+   checkpoint and journal writes; vit-s, no hand-written kernel) on the
+   card and on the CPU: wire statistics, the tracer's digest and the
+   metrics' counters (exclusions included) ``==``, histories within
+   phase 12(c)'s gate.  (d) ``examples/specs/cut_smoke.json`` whole, its
+   observability section included, on the card: the history ``==``
+   13(b)'s card run without it.  Drive it alone with
+   ``chip_smoke.chaos_phase(dev, chip_smoke.cuts_experiment(dev)[1])``
+   after ``build.build()`` and a CUDA context (~80 s).
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -200,7 +234,7 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
-runs too), 9, 10, 11, 12 and 13,
+runs too), 9, 10, 11, 12, 13 and 14,
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -215,6 +249,7 @@ phase fails.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import io
@@ -259,7 +294,13 @@ from repro_torch.kernels.ssd_chunk import ref as SR  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.observability import Observability  # noqa: E402
+from repro_torch.observability.export import (  # noqa: E402
+    export_artifacts, read_span_log, validate_chrome_trace)
+from repro_torch.observability.profiling import profile_run  # noqa: E402
 from repro_torch.streaming import VersionRing  # noqa: E402
+from repro_torch.transport import (FaultPlan, FaultSpec,  # noqa: E402
+                                   InProcessTransport, RetryPolicy)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -387,6 +428,35 @@ COMPARE_ROUNDS, COMPARE_EPOCHS = 2, 1
 CUT_POLICY = CutPolicy(mode="per_profile",
                        overrides=(("jetson-slow", 2), ("phone-3g", 4)))
 CUT_SPEC = "examples/specs/cut_smoke.json"
+# phase 14: chaos.  (a) phase 12's federation at the main path's static
+# cut under every fault kind at the reference chaos test's rates; six
+# attempts absorb them all (seed 7 excludes no client: every fault
+# decision is a pure function of the seed and the message keys, which do
+# not depend on the model's width, so a CPU run of the same federation
+# tells); (b) its profiled call sites; (c) chaos_smoke.json card vs CPU;
+# (d) cut_smoke.json with its observability section
+CHAOS_ROUNDS = 3
+CHAOS_FAULTS = FaultSpec(seed=7, drop_prob=0.15, corrupt_prob=0.15,
+                         duplicate_prob=0.1, latency_spike_prob=0.1,
+                         reset_prob=0.05)
+CHAOS_RETRY = RetryPolicy(max_attempts=6, base_backoff_s=0.01,
+                          max_backoff_s=0.1, attempt_timeout_s=0.2)
+CHAOS_QUORUM = 0.5
+CHAOS_SPEC = "examples/specs/chaos_smoke.json"
+# 14(b): each kernel entry point's profiler range and the kernel families
+# launched inside it (the xent range holds the forward, whose combine
+# kernel only it launches, and the backward, whose dH / dW GEMM only it
+# launches); CHAOS_WINDOW brackets the profiled device round
+CALL_SITES = {
+    "flash_fwd": ("flash_fwd", ("fa_fwd_tc_kernel",)),
+    "flash_bwd_fused": ("flash_bwd_fused", ("fa_bwd_tc_kernel",)),
+    "xent": ("fused_xent_pallas", ("xent_split_kernel",
+                                   "xent_split_h_kernel",
+                                   "xent_tc_logits_kernel",
+                                   "xent_combine_kernel",
+                                   "xent_tc_gemm_kernel")),
+}
+CHAOS_WINDOW = "chip_smoke.device_round"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -1917,8 +1987,8 @@ def cuts_fleet(dev):
 
 def cuts_experiment(dev):
     """13(b): ``examples/specs/cut_smoke.json`` without its observability
-    section (queue A6), at its 2 rounds and 2 server epochs, on the card
-    and on the CPU from the same CPU-seeded init."""
+    section (14(d) runs it whole), at its 2 rounds and 2 server epochs,
+    on the card and on the CPU from the same CPU-seeded init."""
     with tempfile.TemporaryDirectory() as tmp:
         spec = dataclasses.replace(
             ExperimentSpec.load(os.path.join(ROOT, CUT_SPEC)),
@@ -1937,14 +2007,376 @@ def cuts_experiment(dev):
     card_vs_cpu("cuts_experiment", spec.systems, card, cpu)
     log("cuts_experiment", cuts=cut_summary, seconds_card=seconds,
         launches=launches, card=card_line())
+    return launches, card["results"]["ampere"]["history"]
+
+
+def cuts_phase(dev) -> tuple:
+    """Phase 13: launches by path of (a) and (b), and (b)'s card
+    history (phase 14(d) holds the spec with observability to it)."""
+    by_path = {"cuts:ampere": cuts_fleet(dev)}
+    torch.cuda.empty_cache()
+    by_path["cuts_experiment"], card_hist = cuts_experiment(dev)
+    torch.cuda.empty_cache()
+    return by_path, card_hist
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: chaos — the fault-injecting transport, quorum-degraded rounds,
+# torn writes and span tracing
+# ---------------------------------------------------------------------------
+
+
+def chaos_transport(obs=None):
+    """14(a)'s transport: every fault kind of ``CHAOS_FAULTS``, with
+    ``CHAOS_RETRY``'s attempts to absorb them."""
+    return InProcessTransport(FaultPlan(CHAOS_FAULTS), CHAOS_RETRY, obs=obs)
+
+
+def chaos_trainer(dev, transport=None, obs=None):
+    """Phase 12's qwen3-1.7b federation and corpus in an Ampere trainer at
+    the main path's static cut, with ``transport`` and ``obs``."""
+    cfg, run_cfg, model, clients, evald, _ = fleet_setup()
+    return cfg, AmpereTrainer(
+        model, run_cfg, clients, evald, device=dev, transport=transport,
+        quorum_frac=CHAOS_QUORUM if transport is not None else 1.0,
+        obs=obs)
+
+
+def chaos_run(dev, faulty: bool) -> dict:
+    """One 14(a) run through ``AmpereSystem.run``: ``CHAOS_ROUNDS`` i.i.d.
+    rounds, the upload and one server epoch; faulty: under
+    :func:`chaos_transport` with observability on, else with neither.
+    Each round's ``_device_round`` is timed (the card synchronized around
+    it)."""
+    obs = Observability() if faulty else None
+    transport = chaos_transport(obs) if faulty else None
+    cfg, tr = chaos_trainer(dev, transport, obs)
+    ctx = SystemContext(model=tr.model, run_cfg=tr.run, clients=tr.clients,
+                        eval_data=tr.eval_data, max_rounds=CHAOS_ROUNDS,
+                        max_server_epochs=SERVER_EPOCHS, device=dev,
+                        trainer=tr, transport=transport,
+                        quorum_frac=tr.quorum_frac, obs=obs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    round_s = []
+    t = time.perf_counter()
+    with timed_calls(tr, "_device_round", dev, round_s):
+        out = AmpereSystem().run(ctx)
+    seconds = time.perf_counter() - t
+    run = dict(cfg=cfg, hist=out["history"], launches=read_launches(),
+               round_s=round_s, seconds=seconds,
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               transport=transport, obs=obs)
+    del out
+    return run
+
+
+def chaos_full(dev) -> dict:
+    """14(a): full-width qwen3-1.7b under every fault kind, then clean.
+    No client is excluded, so the faulted history less ``comm_bytes`` and
+    ``sim_time`` equals the clean one bit for bit, while those two are
+    larger (retries, duplicates, backoff, timeouts and spikes); the
+    summary's wire bytes are the history's ``comm_bytes``; the tracer
+    closed every span, dropped nothing and has spans on the device,
+    transfer, server and eval tracks; its exported ``trace.json``
+    validates and its span log reads back strictly."""
+    faulted = chaos_run(dev, True)
+    torch.cuda.empty_cache()
+    clean = chaos_run(dev, False)
+    torch.cuda.empty_cache()
+    hf, hc = faulted["hist"], clean["hist"]
+    obs = faulted["obs"]
+    wire = dict(faulted["transport"].stats)
+    counters = obs.metrics.to_dict()["counters"]
+    trace = obs.tracer.summary()
+    with tempfile.TemporaryDirectory() as tmp:
+        arts = export_artifacts(obs.tracer, tmp)
+        with open(arts["trace_json"]) as f:
+            problems = validate_chrome_trace(json.load(f))
+        spans = read_span_log(arts["span_log"], strict=True)
+    span_tracks = sorted({e.track for e in obs.tracer.events
+                          if e.kind == "span"})
+    log("chaos", arch=faulted["cfg"].name, rounds=CHAOS_ROUNDS,
+        faults=dataclasses.asdict(CHAOS_FAULTS),
+        retry=dataclasses.asdict(CHAOS_RETRY), quorum_frac=CHAOS_QUORUM,
+        round_s_faulted=faulted["round_s"], round_s_clean=clean["round_s"],
+        seconds_faulted=faulted["seconds"], seconds_clean=clean["seconds"],
+        peak_mem_gib_faulted=faulted["peak_mem_gib"],
+        peak_mem_gib_clean=clean["peak_mem_gib"], wire=wire,
+        comm_bytes=[hf["comm_bytes"], hc["comm_bytes"]],
+        sim_time_s=[hf["sim_time"], hc["sim_time"]], trace=trace,
+        span_tracks=span_tracks, spans_read=len(spans),
+        trace_json_problems=problems[:5],
+        phases=obs.metrics.phase_table(), counters=counters,
+        device=hf["device"], server=hf["server"],
+        launches=faulted["launches"], card=card_line())
+    if wire["failures"] or any(k.startswith("excluded_devices")
+                               for k in counters):
+        raise AssertionError(f"chaos: a client was excluded: {wire}, "
+                             f"{counters}")
+
+    def rest(h):
+        return {k: v for k, v in h.items()
+                if k not in ("comm_bytes", "sim_time")}
+
+    if rest(hf) != rest(hc):
+        raise AssertionError(f"chaos: the faulted trajectory differs from "
+                             f"the clean one: {rest(hf)} vs {rest(hc)}")
+    if not (hf["comm_bytes"] > hc["comm_bytes"]
+            and hf["sim_time"] > hc["sim_time"]):
+        raise AssertionError(f"chaos: accounting not above the clean run's:"
+                             f" {hf['comm_bytes']}, {hf['sim_time']} vs "
+                             f"{hc['comm_bytes']}, {hc['sim_time']}")
+    if wire["wire_bytes"] != hf["comm_bytes"] or \
+            wire["retries"] + wire["duplicates"] <= 0:
+        raise AssertionError(f"chaos: wire {wire} vs comm_bytes "
+                             f"{hf['comm_bytes']}")
+    if trace["open_spans"] or trace["dropped"] or problems or \
+            len(spans) != trace["events"] or \
+            not {"device", "transfer", "server", "eval"} <= set(span_tracks):
+        raise AssertionError(f"chaos: tracer {trace}, span tracks "
+                             f"{span_tracks}, trace.json {problems[:5]}, "
+                             f"{len(spans)} spans read")
+    _check_fleet_path("chaos", faulted["cfg"], hf, faulted["launches"],
+                      CHAOS_ROUNDS)
+    _check_fleet_path("chaos clean", clean["cfg"], hc, clean["launches"],
+                      CHAOS_ROUNDS)
+    return {"chaos:faulted": faulted["launches"],
+            "chaos:clean": clean["launches"]}
+
+
+def call_sites(doc: dict, span_names, window: str) -> dict:
+    """The profiler's Chrome trace ``doc`` of 14(b), read by launch.
+
+    Each device operation (a kernel, memcpy or memset) is attributed to
+    its launch, the runtime call with its correlation id.  Returns, for
+    each entry point of ``CALL_SITES``, the kernels of its families, how
+    many were launched inside a range of its name on the launching thread,
+    and how many such ranges launched one of each family; the kernels
+    launched inside the ``window`` range and how many of them lie inside
+    some range named in ``span_names`` (on any thread: a backward runs on
+    autograd's thread inside the step's span); and, per span name, the
+    device time of the operations launched inside its ranges, its idle
+    share (one less the union of their intervals within the ranges over
+    the ranges' time), and its ``PROFILE_TOP`` operations by device
+    time.  Ranges of one name never nest, so the last one starting at or
+    before a launch is the only one that can hold it."""
+    ev = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e for e in ev
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ops = []     # (launch ts, launch end, tid, start, end, name, cat)
+    unlinked = 0
+    for e in ev:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        la = launch.get(e.get("args", {}).get("correlation"))
+        if la is None:
+            unlinked += 1
+            continue
+        ops.append((la["ts"], la["ts"] + la["dur"], la["tid"], e["ts"],
+                    e["ts"] + e["dur"], e["name"], e["cat"]))
+    ops.sort(key=lambda o: o[0])
+    ranges = {}  # name -> sorted [(ts, end, tid)]
+    for e in ev:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["tid"]))
+    by_tid = {}
+    for name, rs in ranges.items():
+        rs.sort()
+        for r in rs:
+            by_tid.setdefault((name, r[2]), []).append(r)
+    starts = {k: [r[0] for r in rs]
+              for k, rs in list(ranges.items()) + list(by_tid.items())}
+
+    def holding(name, o, same_thread):
+        """The range of ``name`` that holds launch ``o``, or None."""
+        key = (name, o[2]) if same_thread else name
+        rs = (by_tid if same_thread else ranges).get(key, [])
+        i = bisect.bisect_right(starts.get(key, []), o[0]) - 1
+        return rs[i] if i >= 0 and rs[i][1] >= o[1] else None
+
+    sites = {}
+    for entry, (rng, families) in CALL_SITES.items():
+        mine = [o for o in ops if any(f in o[5] for f in families)]
+        held = [holding(rng, o, True) for o in mine]
+        sites[entry] = {
+            "range": rng, "kernels": len(mine),
+            "in_range": sum(r is not None for r in held),
+            "ranges_by_family": {f: len({r for o, r in zip(mine, held)
+                                         if r is not None and f in o[5]})
+                                 for f in families}}
+    win = ranges.get(window, [])
+    in_window = [o for o in ops if o[6] == "kernel"
+                 and any(w[0] <= o[0] and o[1] <= w[1] for w in win)]
+    spanned = sum(any(holding(n, o, False) is not None for n in span_names)
+                  for o in in_window)
+    op_starts = [o[0] for o in ops]
+    table = {}
+    for name in span_names:
+        dev_us, busy_us, span_us, by_op = 0.0, 0.0, 0.0, {}
+        for t0, t1, _ in ranges.get(name, []):
+            span_us += t1 - t0
+            mine = [o for o in ops[bisect.bisect_left(op_starts, t0):
+                                   bisect.bisect_right(op_starts, t1)]
+                    if o[1] <= t1]
+            for o in mine:
+                dev_us += o[4] - o[3]
+                ms, n = by_op.get(o[5], (0.0, 0))
+                by_op[o[5]] = (ms + (o[4] - o[3]) / 1e3, n + 1)
+            busy_us += _union_us([(max(o[3], t0), min(o[4], t1))
+                                  for o in mine if o[4] > t0 and o[3] < t1])
+        if span_us:
+            top = sorted(by_op.items(), key=lambda kv: -kv[1][0])
+            table[name] = {
+                "ranges": len(ranges[name]), "wall_ms": span_us / 1e3,
+                "device_ms": dev_us / 1e3,
+                "idle_share": 1.0 - busy_us / span_us,
+                "top": [{"name": k[:100], "ms": ms, "calls": n}
+                        for k, (ms, n) in top[:PROFILE_TOP]]}
+    return {"sites": sites, "window_kernels": len(in_window),
+            "window_kernels_in_spans": spanned, "unlinked": unlinked,
+            "table": table}
+
+
+def chaos_profiled(dev) -> dict:
+    """14(b): one device round, the upload and one server epoch of 14(a)'s
+    faulted setup with a ``profile=True`` tracer inside ``profile_run``.
+    Each of ``flash_fwd``, ``flash_bwd_fused``, ``xent_fwd`` and
+    ``xent_bwd`` launches inside a range of its entry point's name (one
+    range per wrapper launch), every kernel of the round lies inside some
+    tracer span, and each span's device time, idle share and top device
+    operations are printed: the call-site table."""
+    obs = Observability(profile=True)
+    cfg, tr = chaos_trainer(dev, chaos_transport(obs), obs)
+    dp, srv, ap = tr._init_states(torch.Generator().manual_seed(tr.run.seed))
+    store = ActivationStore(seed=tr.run.seed)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        with profile_run(tmp) as prof:
+            with torch.profiler.record_function(CHAOS_WINDOW):
+                st = tr.run_device_phase({"device": dp, "aux": ap}, 1)
+                torch.cuda.synchronize(dev)
+            del dp, ap
+            tr.generate_activations(st, store)
+            tr.run_server_phase(st, srv, store, SERVER_EPOCHS)
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+        t = time.perf_counter()
+        with open(prof.trace_path) as f:
+            doc = json.load(f)
+        trace_mb = os.path.getsize(prof.trace_path) / 2 ** 20
+    del prof, st, srv, store
+    span_names = sorted({e.name for e in obs.tracer.events
+                         if e.kind == "span"})
+    out = call_sites(doc, span_names, CHAOS_WINDOW)
+    del doc
+    log("chaos_profile", arch=cfg.name, seconds=seconds,
+        read_s=time.perf_counter() - t, trace_mb=trace_mb,
+        launches={k: launches[k] for k in FLEET_KERNELS},
+        sites=out["sites"], window_kernels=out["window_kernels"],
+        window_kernels_in_spans=out["window_kernels_in_spans"],
+        unlinked_device_ops=out["unlinked"], card=card_line())
+    for name, row in out["table"].items():
+        log("call_site", span=name, **row, card=card_line())
+    want = {"flash_fwd": {"fa_fwd_tc_kernel": launches["flash_fwd"]},
+            "flash_bwd_fused": {
+                "fa_bwd_tc_kernel": launches["flash_bwd_fused"]},
+            "xent": {"xent_combine_kernel": launches["xent_fwd"],
+                     "xent_tc_gemm_kernel": launches["xent_bwd"]}}
+    for entry, site in out["sites"].items():
+        if not (site["kernels"] > 0
+                and site["in_range"] == site["kernels"]
+                and site["ranges_by_family"] == {
+                    **site["ranges_by_family"], **want[entry]}
+                and all(n > 0 for n in want[entry].values())):
+            raise AssertionError(f"chaos profile: {entry} kernels outside "
+                                 f"their range {site['range']!r}: {site}, "
+                                 f"wrapper launches {want[entry]}")
+    if not 0 < out["window_kernels"] == out["window_kernels_in_spans"]:
+        raise AssertionError(
+            f"chaos profile: {out['window_kernels_in_spans']} of the "
+            f"round's {out['window_kernels']} kernels inside a tracer span")
+    if not {"device.round", "server.epoch"} <= set(out["table"]):
+        raise AssertionError(f"chaos profile: spans {sorted(out['table'])}")
     return launches
 
 
-def cuts_phase(dev) -> dict:
-    """Phase 13: launches by path of (a) and (b)."""
-    by_path = {}
-    for name, fn in (("cuts:ampere", cuts_fleet),
-                     ("cuts_experiment", cuts_experiment)):
+def chaos_experiment(dev) -> dict:
+    """14(c): ``examples/specs/chaos_smoke.json`` (transport, faults with
+    torn checkpoint and journal writes, observability; vit-s, so no
+    hand-written kernel) on the card and on the CPU from the same
+    CPU-seeded init: wire statistics, the tracer's digest and the metrics'
+    counters (the exclusions among them) ``==``, and the histories within
+    phase 12(c)'s gate (losses 1e-4 relative, accuracies 1e-2,
+    ``comm_bytes`` and ``sim_time`` equal)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ExperimentSpec.load(os.path.join(ROOT, CHAOS_SPEC))
+        reset_launches()
+        t = time.perf_counter()
+        card = run_experiment(dataclasses.replace(
+            base, results_dir=os.path.join(tmp, "card")), device=dev,
+            write_results=False)
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+        cpu = run_experiment(dataclasses.replace(
+            base, results_dir=os.path.join(tmp, "cpu")), device="cpu",
+            write_results=False)
+    card_vs_cpu("chaos_experiment", base.systems, card, cpu)
+    for name in base.systems:
+        got, want = (
+            (o["summary"][name]["wire"], o["summary"][name]["trace"],
+             o["results"][name]["history"]["observability"]["metrics"][
+                 "counters"]) for o in (card, cpu))
+        log("chaos_experiment", system=name, wire=got[0], trace=got[1],
+            excluded={k: v for k, v in got[2].items()
+                      if k.startswith("excluded")},
+            seconds_card=seconds, launches=launches, card=card_line())
+        if got != want:
+            raise AssertionError(f"chaos_smoke {name}: card (wire, trace, "
+                                 f"counters) {got} vs cpu {want}")
+    return launches
+
+
+def cuts_observed(dev, cut_card_hist) -> dict:
+    """14(d): ``examples/specs/cut_smoke.json`` whole, its observability
+    section included, on the card: the history equals (``==``) phase
+    13(b)'s card run without it, and the tracer closed every span."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dataclasses.replace(
+            ExperimentSpec.load(os.path.join(ROOT, CUT_SPEC)),
+            results_dir=tmp)
+        reset_launches()
+        t = time.perf_counter()
+        out = run_experiment(spec, device=dev, write_results=False)
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+    hist = dict(out["results"]["ampere"]["history"])
+    digest = hist.pop("observability")
+    log("cuts_observed", seconds_card=seconds, trace=digest["tracer"],
+        phases=out["summary"]["ampere"]["phases"], launches=launches,
+        card=card_line())
+    if hist != cut_card_hist:
+        raise AssertionError(f"cut_smoke with observability vs without: "
+                             f"{hist} vs {cut_card_hist}")
+    if digest["tracer"]["open_spans"] or not digest["tracer"]["events"]:
+        raise AssertionError(f"cut_smoke tracer: {digest['tracer']}")
+    return launches
+
+
+def chaos_phase(dev, cut_card_hist) -> dict:
+    """Phase 14: launches by path of (a), (b), (c) and (d)."""
+    by_path = chaos_full(dev)
+    for name, fn in (("chaos_profile", chaos_profiled),
+                     ("chaos_experiment", chaos_experiment),
+                     ("cuts_observed",
+                      lambda d: cuts_observed(d, cut_card_hist))):
         by_path[name] = fn(dev)
         torch.cuda.empty_cache()
     return by_path
@@ -2245,7 +2677,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(baselines(dev))
     by_path.update(fleet(dev))
-    by_path.update(cuts_phase(dev))
+    cut_paths, cut_card_hist = cuts_phase(dev)
+    by_path.update(cut_paths)
+    t = time.perf_counter()
+    by_path.update(chaos_phase(dev, cut_card_hist))
+    log("chaos_phase", seconds=time.perf_counter() - t)
     for arch in MAIN_PATHS:
         profile_step(dev, arch)
         torch.cuda.empty_cache()

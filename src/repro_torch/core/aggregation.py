@@ -118,6 +118,18 @@ def pad_cohort(client_ids, weights, pad_to: int):
     return ids, w
 
 
+def survivors(client_ids, weights, kept, excluded):
+    """The clients ``kept`` (indices into ``client_ids``) of a round and
+    their weights, renormalized over them when the transport excluded any
+    (a quorum-degraded round), as every reference trainer does inline."""
+    ids = [client_ids[i] for i in kept]
+    w = [weights[i] for i in kept]
+    if excluded:
+        total = sum(w)
+        w = [x / total for x in w]
+    return ids, w
+
+
 def sample_cohort(rng: np.random.Generator, fed_cfg, round_idx: int = 0):
     """Sample the participating cohort for one round and apply the
     fault-tolerance policy; returns clients, weights, dropped, times,

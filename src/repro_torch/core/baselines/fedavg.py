@@ -22,6 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.interop import tree_map
 from repro_torch.optim import make_schedule
+from repro_torch.transport import cohort_exchange
 
 
 def make_fedavg_round_step(model, run_cfg):
@@ -70,13 +71,16 @@ class FedAvgTrainer:
 
     def __init__(self, model, run_cfg, clients: List[ClientData], eval_data,
                  workdir: Optional[str] = None, patience: int = 15,
-                 log_echo: bool = False, *, device=None):
+                 log_echo: bool = False, *, device=None, transport=None,
+                 quorum_frac: float = 1.0, obs=None):
         self.model = model
         self.run = run_cfg
         self.clients = clients
         self.eval_data = eval_data
         self.patience = patience
         self.device = resolve_device(device)
+        self.transport = transport
+        self.quorum_frac = quorum_frac
         self.rng = np.random.default_rng(run_cfg.fed.seed)
         self._round = make_fedavg_round_step(model, run_cfg)
         self.runner = Runner(workdir, patience=patience, log_echo=log_echo,
@@ -87,7 +91,10 @@ class FedAvgTrainer:
                              host_state=(
                                  lambda: generators_state(self.rng, clients),
                                  lambda st: load_generators_state(
-                                     self.rng, clients, st)))
+                                     self.rng, clients, st)),
+                             fault_plan=(transport.fault_plan
+                                         if transport is not None else None),
+                             obs=obs)
         self.log = self.runner.log
         self.history = self.runner.history
         self._sched = make_schedule(run_cfg.optim)
@@ -136,8 +143,12 @@ class FedAvgTrainer:
             else:
                 cohort = aggregation.sample_cohort(self.rng, fed, rnd)
                 pad_k = K
-            ids, w = aggregation.pad_cohort(cohort["clients"],
-                                            cohort["weights"], pad_k)
+            kept, wire, extra, excluded = cohort_exchange(
+                self.transport, round_key=f"fedavg/{rnd}",
+                clients=cohort["clients"], one_way_bytes=full_bytes,
+                quorum_frac=self.quorum_frac, phase="fedavg")
+            ids, w = aggregation.pad_cohort(*aggregation.survivors(
+                cohort["clients"], cohort["weights"], kept, excluded), pad_k)
             batches = {k: torch.as_tensor(v, device=self.device)
                        for k, v in round_batches(
                            self.clients, ids, fed.local_steps,
@@ -147,16 +158,20 @@ class FedAvgTrainer:
             del batches
             val = evaluate.evaluate(self.model, params, self.eval_data,
                                     self.device)
+            log = self.runner.exchange_log(
+                self.transport, {"variant": "fedavg"}, phase="fedavg",
+                one_way_bytes=full_bytes * len(cohort["clients"]),
+                excluded=excluded)
             return StepOutcome(
                 state=params,
                 record={"round": rnd, "loss": float(metrics["loss"]),
                         "val_loss": val["loss"], "val_acc": val["acc"]},
-                comm_bytes=2 * len(cohort["clients"]) * full_bytes,
+                comm_bytes=wire,
                 sim_time=(float(cohort["round_time"])
                           if cohort_plan is not None
                           and cohort.get("round_time") is not None
-                          else round_time),
-                log={"variant": "fedavg"})
+                          else round_time) + extra,
+                log=log)
 
         held = [params]   # handed over: the Runner empties it
         del params

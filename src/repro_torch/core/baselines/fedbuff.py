@@ -28,9 +28,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core import aggregation
 from repro_torch.core.uit import AmpereTrainer
 from repro_torch.experiments.runner import StepOutcome
 from repro_torch.streaming.versions import VersionRing
+from repro_torch.transport import cohort_exchange
 
 
 class FedBuffTrainer(AmpereTrainer):
@@ -69,26 +71,36 @@ class FedBuffTrainer(AmpereTrainer):
         del dev_state
 
         def body(ring, rnd, plan):
+            kept, wire, extra, excluded = cohort_exchange(
+                self.transport, round_key=f"fedbuff/{rnd}",
+                clients=plan.clients, one_way_bytes=self._one_way_bytes(),
+                quorum_frac=self.quorum_frac, phase="fedbuff")
+            clients, weights = aggregation.survivors(
+                plan.clients, plan.weights, kept, excluded)
+            staleness = [plan.staleness[i] for i in kept]
             vring = VersionRing.from_state_dict(ring, s_max=s_max)
             del ring
-            snaps = vring.snapshots(rnd, plan.staleness)
+            snaps = vring.snapshots(rnd, staleness)
             new, metrics = engine.run_buffered_round(
-                vring.get(rnd), snaps, rnd, plan.clients, plan.weights,
+                vring.get(rnd), snaps, rnd, clients, weights,
                 self._sched(rnd))
             del snaps
             vring.append(rnd + 1, new)
-            return StepOutcome(
-                state=vring.state_dict(),
-                record={"round": rnd, "loss": float(metrics["loss"]),
-                        "t_end": plan.t_end,
-                        "buffered": len(plan.clients),
-                        "staleness_max": int(max(plan.staleness)),
-                        **self._aux_eval(new)},
-                comm_bytes=2 * len(plan.clients) * self._one_way_bytes(),
-                sim_time=plan.round_time,
-                log={"dropped": len(plan.dropped),
-                     "sim_t": round(plan.t_end, 6),
-                     "ring_versions": len(vring)})
+            record = {"round": rnd, "loss": float(metrics["loss"]),
+                      "t_end": plan.t_end, "buffered": len(clients),
+                      "staleness_max": int(max(staleness)),
+                      **self._aux_eval(new)}
+            log = self._round_log({"dropped": len(plan.dropped),
+                                   "sim_t": round(plan.t_end, 6),
+                                   "ring_versions": len(vring)},
+                                  "fedbuff", plan.clients, excluded)
+            if self.obs.enabled:
+                for st in staleness:
+                    self.obs.metrics.observe("staleness", float(st),
+                                             phase="fedbuff")
+            return StepOutcome(state=vring.state_dict(), record=record,
+                               comm_bytes=wire,
+                               sim_time=plan.round_time + extra, log=log)
 
         held = [ring]   # handed over: the Runner empties it
         del ring

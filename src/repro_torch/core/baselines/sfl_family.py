@@ -27,8 +27,11 @@
 The K cohort clients train one after another (a Python loop where the JAX
 package vmaps), each update done in fp32 and cast back.  Every iteration
 exchanges activations and their gradients with the server; the trainer
-counts those bytes and the model exchange per round as the reference does
-without a transport.
+counts those bytes and the model exchange per round as the reference does.
+Under a transport (``transport=``, ``quorum_frac=``) each client's round
+exchange is one :func:`~repro_torch.transport.cohort_exchange` message
+each way: excluded clients drop out of the round and the survivors are
+reweighted, and ``comm_bytes`` is what the wire moved.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.interop import tree_map
 from repro_torch.models import build_model
 from repro_torch.optim import make_schedule
+from repro_torch.transport import cohort_exchange
 
 def _e2e_split_loss(model, run_cfg, dev, srv, batch):
     """Device forward, server forward and the task loss in one graph.  The
@@ -242,7 +246,8 @@ class SFLTrainer:
     def __init__(self, model, run_cfg, clients: List[ClientData], eval_data,
                  variant: str = "splitfed", workdir: Optional[str] = None,
                  patience: int = 15, log_echo: bool = False, *,
-                 device=None):
+                 device=None, transport=None, quorum_frac: float = 1.0,
+                 obs=None):
         self.model = model
         self.run = run_cfg
         self.variant = variant
@@ -250,6 +255,8 @@ class SFLTrainer:
         self.eval_data = eval_data
         self.patience = patience
         self.device = resolve_device(device)
+        self.transport = transport
+        self.quorum_frac = quorum_frac
         self.rng = np.random.default_rng(run_cfg.fed.seed)
         self._round = make_sfl_round_step(model, run_cfg, variant)
         self.runner = Runner(workdir, patience=patience, log_echo=log_echo,
@@ -260,7 +267,10 @@ class SFLTrainer:
                              host_state=(
                                  lambda: generators_state(self.rng, clients),
                                  lambda st: load_generators_state(
-                                     self.rng, clients, st)))
+                                     self.rng, clients, st)),
+                             fault_plan=(transport.fault_plan
+                                         if transport is not None else None),
+                             obs=obs)
         self.log = self.runner.log
         self.history = self.runner.history
         self._sched = make_schedule(run_cfg.optim)
@@ -332,6 +342,7 @@ class SFLTrainer:
         if self.variant == "scaffold":
             model_bytes *= 2
         one_way = (act_bytes + model_bytes) // 2
+        phase = f"sfl-{self.variant}"
         # every variant but PiPar is priced as SplitFed, as the reference
         # prices it
         round_time = comm_model.epoch_time(
@@ -349,8 +360,12 @@ class SFLTrainer:
             else:
                 cohort = aggregation.sample_cohort(self.rng, fed, rnd)
                 pad_k = K
-            ids, w = aggregation.pad_cohort(cohort["clients"],
-                                            cohort["weights"], pad_k)
+            kept, wire, extra, excluded = cohort_exchange(
+                self.transport, round_key=f"sfl-{self.variant}/{rnd}",
+                clients=cohort["clients"], one_way_bytes=one_way,
+                quorum_frac=self.quorum_frac, phase=phase)
+            ids, w = aggregation.pad_cohort(*aggregation.survivors(
+                cohort["clients"], cohort["weights"], kept, excluded), pad_k)
             batches = {k: torch.as_tensor(v, device=self.device)
                        for k, v in round_batches(self.clients, ids, iters,
                                                  b).items()}
@@ -375,16 +390,20 @@ class SFLTrainer:
             val = evaluate.evaluate(merged_model, merged, self.eval_data,
                                     self.device)
             del merged
+            log = self.runner.exchange_log(
+                self.transport, {"variant": self.variant}, phase=phase,
+                one_way_bytes=one_way * len(cohort["clients"]),
+                excluded=excluded)
             return StepOutcome(
                 state=(state, controls),
                 record={"round": rnd, "loss": float(metrics["loss"]),
                         "val_loss": val["loss"], "val_acc": val["acc"]},
-                comm_bytes=2 * len(cohort["clients"]) * one_way,
+                comm_bytes=wire,
                 sim_time=(float(cohort["round_time"])
                           if cohort_plan is not None
                           and cohort.get("round_time") is not None
-                          else round_time),
-                log={"variant": self.variant})
+                          else round_time) + extra,
+                log=log)
 
         held = [pack]   # handed over: the Runner empties it
         del pack

@@ -46,8 +46,19 @@ fleet round buckets its survivors by cut, each bucket trains the
 :func:`~repro_torch.core.aggregation.prefix_fedavg` folds the buckets
 back over the layers they share; the store tags each shard with its cut,
 and each server epoch runs one pass per depth that enters the server
-block at that depth.  Transport, observability and streaming are later
-slices (ROADMAP.md queue A6).
+block at that depth.
+
+Transport and observability (``transport=``, ``quorum_frac=``, ``obs=``):
+each round's model exchange goes through
+:func:`~repro_torch.transport.cohort_exchange` (a client whose download
+or verified upload exhausts its retries is excluded and the survivors
+reweighted, unless fewer than the quorum survive), each activation shard
+is one transfer, and ``comm_bytes`` is the bytes the wire moved, retries
+included.  Without a transport, or with a fault-free one, the accounting
+is the analytic one above; faults that retries absorb change only
+``comm_bytes`` and ``sim_time``.  ``obs`` records the ``consolidate``,
+``aux_eval`` and ``merged_eval`` spans and the per-phase metrics, and
+changes no history.
 """
 
 from __future__ import annotations
@@ -69,14 +80,18 @@ from repro_torch.device import resolve_device
 from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.interop import tree_map
 from repro_torch.models import build_model
+from repro_torch.observability import NULL_OBS
 from repro_torch.optim import make_schedule
+from repro_torch.transport import (QuorumError, cohort_exchange,
+                                   required_quorum)
 
 
 class AmpereTrainer:
     def __init__(self, model, run_cfg, clients: List[ClientData], eval_data,
                  workdir: Optional[str] = None, patience: int = 15,
                  log_echo: bool = False, *,
-                 device=None, cuts=None):
+                 device=None, cuts=None, transport=None,
+                 quorum_frac: float = 1.0, obs=None):
         self.model = model
         self.run = run_cfg
         self.clients = clients
@@ -84,6 +99,11 @@ class AmpereTrainer:
         self.workdir = workdir
         self.patience = patience
         self.device = resolve_device(device)
+        # an optional fault-injecting transport; None keeps the analytic
+        # accounting
+        self.transport = transport
+        self.quorum_frac = quorum_frac
+        self.obs = obs if obs is not None else NULL_OBS
         # a non-uniform cut assignment switches the fleet device phase to
         # per-depth buckets and the server phase to per-depth entry
         # points; a uniform one is collapsed onto split_point upstream
@@ -108,7 +128,10 @@ class AmpereTrainer:
                                       "comm_bytes": 0, "sim_time": 0.0},
                              device=self.device,
                              host_state=(self._host_state,
-                                         self._load_host_state))
+                                         self._load_host_state),
+                             fault_plan=(transport.fault_plan
+                                         if transport is not None else None),
+                             obs=self.obs)
         self.log = self.runner.log
         self.ckpt = self.runner.ckpt
         self.journal = self.runner.journal
@@ -145,6 +168,23 @@ class AmpereTrainer:
             return self.sizes.device + self.sizes.aux
         s = self._sizes_by_depth[self.cuts.cut_of(client_id)]
         return s.device + s.aux
+
+    def _exchange(self, round_key: str, clients, weights, phase: str):
+        """One round's model exchange over the transport: ``(survivors,
+        weights, wire bytes, extra simulated seconds, excluded ids)``."""
+        kept, wire, extra, excluded = cohort_exchange(
+            self.transport, round_key=round_key, clients=clients,
+            one_way_bytes=[self._one_way_bytes(c) for c in clients],
+            quorum_frac=self.quorum_frac, phase=phase)
+        return (*aggregation.survivors(clients, weights, kept, excluded),
+                wire, extra, excluded)
+
+    def _round_log(self, log: dict, phase: str, clients, excluded) -> dict:
+        """:meth:`Runner.exchange_log` of one round of ``clients`` (the
+        cohort, each at its own cut's bytes)."""
+        return self.runner.exchange_log(
+            self.transport, log, phase=phase, excluded=excluded,
+            one_way_bytes=sum(self._one_way_bytes(c) for c in clients))
 
     @staticmethod
     def _device_prefix(device, d: int):
@@ -234,8 +274,10 @@ class AmpereTrainer:
 
         def body(state, rnd, _plan):
             cohort = aggregation.sample_cohort(self.rng, fed, rnd)
-            ids, w = aggregation.pad_cohort(cohort["clients"],
-                                            cohort["weights"], K)
+            survivors, weights, wire, extra, excluded = self._exchange(
+                f"ampere/device/{rnd}", cohort["clients"],
+                cohort["weights"], "device")
+            ids, w = aggregation.pad_cohort(survivors, weights, K)
             if resident:
                 idx = np.stack([
                     offsets[int(c)] + self.clients[int(c)].batch_indices(
@@ -250,13 +292,13 @@ class AmpereTrainer:
                     fed.device_batch_size))
             state, metrics = self._device_round(state, batches, w,
                                                 self._sched(rnd))
-            return StepOutcome(
-                state=state,
-                record={"round": rnd, "loss": float(metrics["loss"]),
-                        **self._aux_eval(state)},
-                comm_bytes=2 * len(cohort["clients"]) * self._one_way_bytes(),
-                sim_time=cohort["round_time"],
-                log={"dropped": len(cohort["dropped"])})
+            record = {"round": rnd, "loss": float(metrics["loss"]),
+                      **self._aux_eval(state)}
+            log = self._round_log({"dropped": len(cohort["dropped"])},
+                                  "device", cohort["clients"], excluded)
+            return StepOutcome(state=state, record=record, comm_bytes=wire,
+                               sim_time=cohort["round_time"] + extra,
+                               log=log)
 
         rounds = max_rounds if max_rounds is not None else fed.device_epochs
         return self.runner.run_phase(
@@ -286,19 +328,19 @@ class AmpereTrainer:
         dev_state, start_round = self.runner.restore("fleet", dev_state)
 
         def body(state, rnd, plan):
+            survivors, weights, wire, extra, excluded = self._exchange(
+                f"ampere/fleet/{rnd}", plan.clients, plan.weights, "fleet")
             state, metrics = engine.run_round(
-                state, rnd, plan.clients, plan.weights, self._sched(rnd),
+                state, rnd, survivors, weights, self._sched(rnd),
                 pad_to=plan.cohort_size)
-            return StepOutcome(
-                state=state,
-                record={"round": rnd, "loss": float(metrics["loss"]),
-                        "t_end": plan.t_end, "cohort": plan.cohort_size,
-                        "survivors": len(plan.clients),
-                        **self._aux_eval(state)},
-                comm_bytes=2 * len(plan.clients) * self._one_way_bytes(),
-                sim_time=plan.round_time,
-                log={"dropped": len(plan.dropped),
-                     "sim_t": round(plan.t_end, 6)})
+            record = {"round": rnd, "loss": float(metrics["loss"]),
+                      "t_end": plan.t_end, "cohort": plan.cohort_size,
+                      "survivors": len(survivors), **self._aux_eval(state)}
+            log = self._round_log({"dropped": len(plan.dropped),
+                                   "sim_t": round(plan.t_end, 6)},
+                                  "fleet", plan.clients, excluded)
+            return StepOutcome(state=state, record=record, comm_bytes=wire,
+                               sim_time=plan.round_time + extra, log=log)
 
         plans = trace.rounds if max_rounds is None else \
             trace.rounds[:max_rounds]
@@ -327,8 +369,10 @@ class AmpereTrainer:
 
         def body(state, rnd, plan):
             lr = self._sched(rnd)
+            survivors, weights, wire, extra, excluded = self._exchange(
+                f"ampere/fleet/{rnd}", plan.clients, plan.weights, "fleet")
             buckets = {d: ([], []) for d in cuts.depths}
-            for c, w in zip(plan.clients, plan.weights):
+            for c, w in zip(survivors, weights):
                 ids, ws = buckets[cuts.cut_of(c)]
                 ids.append(c)
                 ws.append(w)
@@ -351,20 +395,17 @@ class AmpereTrainer:
                        **{f"p{d}": t["aux"] for d, t in trained.items()})
             state = {"device": device, "aux": aux}
             total_w = sum(bucket_w.values())
-            return StepOutcome(
-                state=state,
-                record={"round": rnd,
-                        "loss": loss_num / total_w if total_w else 0.0,
-                        "t_end": plan.t_end, "cohort": plan.cohort_size,
-                        "survivors": len(plan.clients),
-                        **self._aux_eval(state)},
-                comm_bytes=2 * sum(self._one_way_bytes(c)
-                                   for c in plan.clients),
-                sim_time=plan.round_time,
-                log={"dropped": len(plan.dropped),
-                     "sim_t": round(plan.t_end, 6),
-                     "buckets": {f"p{d}": len(ids)
-                                 for d, (ids, _) in buckets.items()}})
+            record = {"round": rnd,
+                      "loss": loss_num / total_w if total_w else 0.0,
+                      "t_end": plan.t_end, "cohort": plan.cohort_size,
+                      "survivors": len(survivors), **self._aux_eval(state)}
+            log = self._round_log(
+                {"dropped": len(plan.dropped), "sim_t": round(plan.t_end, 6),
+                 "buckets": {f"p{d}": len(ids)
+                             for d, (ids, _) in buckets.items()}},
+                "fleet", plan.clients, excluded)
+            return StepOutcome(state=state, record=record, comm_bytes=wire,
+                               sim_time=plan.round_time + extra, log=log)
 
         plans = trace.rounds if max_rounds is None else \
             trace.rounds[:max_rounds]
@@ -405,23 +446,26 @@ class AmpereTrainer:
                   batch_size: int = 64):
         """Auxiliary validation; under heterogeneous cuts each depth's head
         on its own prefix of the stack, averaged over the depths."""
-        n = len(self.eval_data)
-        bs = min(batch_size, n)
-        ls, accs = [], []
-        for s in range(0, min(n, max_batches * bs) - bs + 1, bs):
-            batch = self._tensors({k: v[s:s + bs] for k, v in
-                                   self.eval_data.arrays.items()})
-            for p, split_cfg, aux in self._aux_heads(dev_state):
-                acts = splitting.device_forward(
-                    self.model, dev_state["device"],
-                    batch[self.model.input_key], p)
-                loss, m = auxiliary.aux_loss(self.model, aux,
-                                             dev_state["device"], acts,
-                                             batch, split_cfg)
-                ls.append(float(loss))
-                accs.append(float(m.get("acc", 0.0)))
-        return {"val_loss": float(np.mean(ls)),
-                "val_acc": float(np.mean(accs))}
+        with self.obs.tracer.span("aux_eval", track="eval") as sp:
+            n = len(self.eval_data)
+            bs = min(batch_size, n)
+            ls, accs = [], []
+            for s in range(0, min(n, max_batches * bs) - bs + 1, bs):
+                batch = self._tensors({k: v[s:s + bs] for k, v in
+                                       self.eval_data.arrays.items()})
+                for p, split_cfg, aux in self._aux_heads(dev_state):
+                    acts = splitting.device_forward(
+                        self.model, dev_state["device"],
+                        batch[self.model.input_key], p)
+                    loss, m = auxiliary.aux_loss(self.model, aux,
+                                                 dev_state["device"], acts,
+                                                 batch, split_cfg)
+                    ls.append(float(loss))
+                    accs.append(float(m.get("acc", 0.0)))
+            out = {"val_loss": float(np.mean(ls)),
+                   "val_acc": float(np.mean(accs))}
+            sp.set(**out)
+        return out
 
     # ------------------------------------------------------------------
     # Phase 4: one-shot activation generation + upload
@@ -442,23 +486,86 @@ class AmpereTrainer:
         without it every device has the testbed link (``BANDWIDTH_BPS``)
         and the largest shard is the slowest.  Under heterogeneous cuts
         each client's activations come from its own prefix of the device
-        stack, and its shards carry its cut tag."""
+        stack, and its shards carry its cut tag.
+
+        The store's writer thread stores the shards while the next ones
+        are computed; each reaches it as a host copy (a synchronous
+        device-to-host copy, so no shard is read before it has landed).
+        Under a transport each shard is one transfer
+        (``acts/{client}/{i}``, stable across retries and a resumed
+        rerun), a duplicate is absorbed by its idempotency key, and under
+        faults a client's shards are held back until all of them verify,
+        so a client that fails mid-stream never half-lands; too few
+        verified clients raise :class:`~repro_torch.transport.QuorumError`.
+        ``comm_bytes`` is then the wire's total, retries included."""
         if upload not in ("serial", "parallel"):
             raise ValueError(f"upload={upload!r} not in serial|parallel")
-        for client in self.clients:
-            cut = None if self.cuts is None \
-                else self.cuts.cut_of(client.client_id)
-            p = self.run.split.split_point if cut is None else cut
-            arrays = client.dataset.arrays
-            for s in range(0, len(client.dataset), batch_size):
-                inp = arrays[self.model.input_key][s:s + batch_size]
-                acts = splitting.device_forward(
-                    self.model, dev_state["device"],
-                    torch.as_tensor(inp, device=self.device), p)
-                store.add(client.client_id,
-                          {"acts": acts.float().cpu().numpy(),
-                           self.model.label_key: arrays[self.model.label_key][
-                               s:s + batch_size]}, cut=cut)
+        with self.obs.tracer.span("consolidate", track="transfer",
+                                  upload=upload) as sp:
+            return self._generate_activations(dev_state, store, batch_size,
+                                              upload, client_bandwidth_bps,
+                                              sp)
+
+    def _generate_activations(self, dev_state, store, batch_size, upload,
+                              client_bandwidth_bps, sp):
+        transport = self.transport
+        faulty = transport is not None and transport.faulty
+        lab_key = self.model.label_key
+        wire_total = 0
+        client_extra: dict = {}
+        failed: set = set()
+        pending: dict = {}
+        store.start_writer()
+        try:
+            for client in self.clients:
+                cid = client.client_id
+                cut = None if self.cuts is None else self.cuts.cut_of(cid)
+                p = self.run.split.split_point if cut is None else cut
+                arrays = client.dataset.arrays
+                for i, s in enumerate(range(0, len(client.dataset),
+                                            batch_size)):
+                    inp = arrays[self.model.input_key][s:s + batch_size]
+                    acts = splitting.device_forward(
+                        self.model, dev_state["device"],
+                        torch.as_tensor(inp, device=self.device), p)
+                    shard = {"acts": acts.float().cpu().numpy(),
+                             lab_key: arrays[lab_key][s:s + batch_size]}
+                    del acts
+                    if transport is not None:
+                        bw = (client_bandwidth_bps.get(
+                                  cid, comm_model.BANDWIDTH_BPS)
+                              if client_bandwidth_bps is not None else None)
+                        res = transport.transfer(
+                            f"acts/{cid}/{i}",
+                            ActivationStore.shard_nbytes(shard,
+                                                         store.quantize),
+                            device=cid, bandwidth_bps=bw, phase="transfer")
+                        wire_total += res.wire_bytes
+                        client_extra[cid] = client_extra.get(cid, 0.0) \
+                            + res.extra_time
+                        if not res.ok:
+                            failed.add(cid)
+                            continue
+                        if not res.first_delivery:
+                            continue    # a duplicate, absorbed
+                    if faulty:
+                        pending.setdefault(cid, []).append((shard, cut))
+                    else:
+                        store.submit(cid, shard, cut=cut)
+            for cid, shards in pending.items():
+                if cid not in failed:
+                    for shard, cut in shards:
+                        store.submit(cid, shard, cut=cut)
+        finally:
+            store.finish()
+        if faulty and failed:
+            survivors = len(self.clients) - len(failed)
+            need = required_quorum(len(self.clients), self.quorum_frac)
+            if survivors < need:
+                raise QuorumError(
+                    f"activation upload: only {survivors}/"
+                    f"{len(self.clients)} clients verified, quorum needs "
+                    f"{need} (failed: {sorted(failed)})")
         if upload == "parallel":
             # the bytes a sample ships, int8 payloads included
             per_sample = store.bytes_received / max(store.num_samples(), 1)
@@ -468,9 +575,26 @@ class AmpereTrainer:
                        for c in self.clients)
         else:
             t_up = store.bytes_received / comm_model.BANDWIDTH_BPS
-        self.runner.account(comm_bytes=store.bytes_received, sim_time=t_up)
-        self.log.log(phase="transfer", bytes=store.bytes_received,
-                     upload=upload)
+        extra_total = 0.0
+        if client_extra:
+            extra_total = (max(client_extra.values()) if upload == "parallel"
+                           else sum(client_extra.values()))
+        self.runner.account(
+            comm_bytes=(wire_total if transport is not None
+                        else store.bytes_received),
+            sim_time=t_up + extra_total, phase="transfer", direction="up")
+        if self.obs.enabled and failed:
+            self.obs.metrics.counter("excluded_devices", len(failed),
+                                     phase="transfer")
+        sp.set(bytes=store.bytes_received, sim_time_s=round(t_up, 9),
+               excluded=len(failed))
+        if faulty:
+            self.log.log(phase="transfer", bytes=store.bytes_received,
+                         upload=upload, wire=wire_total,
+                         excluded=len(failed))
+        else:
+            self.log.log(phase="transfer", bytes=store.bytes_received,
+                         upload=upload)
         return store
 
     # ------------------------------------------------------------------
@@ -506,10 +630,13 @@ class AmpereTrainer:
                 held = [srv_state]
                 del srv_state
                 srv_state, ls = train_epoch(held)
-                val = evaluate.evaluate(
-                    merged_model,
-                    self.merged_params(dev_state, srv_state["server"]),
-                    self.eval_data, self.device)
+                with self.obs.tracer.span("merged_eval", track="eval",
+                                          epoch=epoch) as esp:
+                    val = evaluate.evaluate(
+                        merged_model,
+                        self.merged_params(dev_state, srv_state["server"]),
+                        self.eval_data, self.device)
+                    esp.set(val_loss=val["loss"], val_acc=val["acc"])
                 return StepOutcome(
                     state=srv_state,
                     record={"epoch": epoch,

@@ -15,10 +15,19 @@ persisted as disk shards.
   dropped, so a store seeded identically yields the reference's batch
   order.
 
-``add`` stores synchronously, in call order (the order the reference's
-writer thread keeps).  ``pool`` keeps an int8 payload quantized, with its
-``acts_scale``, for the device-resident server phase, whose step
-dequantizes each batch (``runtime.compression.dequantize_int8``).
+Two upload paths, as the reference's: ``add`` stores synchronously, and
+``start_writer`` / ``submit`` / ``finish`` hand shards to a writer thread
+through a queue of ``queue_depth`` (64) shards, so a producer that
+outruns the writer blocks (backpressure) and the next shard is computed
+while the last is stored; both store in call order.  ``submit`` takes
+host arrays (a torch tensor is copied to the host synchronously first,
+so the thread never reads device memory that the next batch may reuse),
+and an exception in the thread is raised again by ``finish`` (or the
+next ``submit``), never dropped.
+
+``pool`` keeps an int8 payload quantized, with its ``acts_scale``, for
+the device-resident server phase, whose step dequantizes each batch
+(``runtime.compression.dequantize_int8``).
 ``batches`` streams shuffled host batches of the whole pool from the
 same permutation :meth:`ActivationStore.epoch_indices` draws, for the
 server phase's over-budget fallback; an int8 payload stays quantized
@@ -30,12 +39,14 @@ shards, so the payloads are those of the untagged path, and ``pool``,
 ``num_samples`` and ``epoch_indices`` take ``cut=`` to address one depth's
 bucket: shards of different depths never share a pool.  Disk shards keep
 no tag (:func:`load_store` rebuilds an untagged store), as in the
-reference.  The writer thread and the streaming ring are later slices.
+reference.  The streaming ring is queue A6b of ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,13 +54,19 @@ import numpy as np
 
 class ActivationStore:
     def __init__(self, directory: Optional[str] = None,
-                 quantize_int8: bool = False, seed: int = 0):
+                 quantize_int8: bool = False, seed: int = 0,
+                 queue_depth: int = 64):
         self.dir = directory
         self.quantize = quantize_int8
         self.rng = np.random.default_rng(seed)
         self._mem: Dict[int, List[dict]] = {}
         # the cut depth of each shard, parallel to _mem (None = untagged)
         self._cut_tags: Dict[int, List[Optional[int]]] = {}
+        self._lock = threading.Lock()
+        # bounded: a producer outrunning the writer blocks on put()
+        self._q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         self.bytes_received = 0
         if directory:
             os.makedirs(directory, exist_ok=True)
@@ -57,6 +74,53 @@ class ActivationStore:
     # ------------------------------------------------------------------
     # receive & store
     # ------------------------------------------------------------------
+    def start_writer(self):
+        """Start the writer thread (non-daemon: ``finish`` joins it, so it
+        never races interpreter teardown mid-write)."""
+        if self._writer is None:
+            self._error = None
+            self._writer = threading.Thread(target=self._writer_loop,
+                                            daemon=False)
+            self._writer.start()
+
+    def _writer_loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                break
+            if self._error is not None:
+                continue        # drain, so a blocked producer moves on
+            try:
+                self._store(*item)
+            except BaseException as err:    # raised again by finish()
+                self._error = err
+
+    def submit(self, client_id: int, shard: dict,
+               cut: Optional[int] = None):
+        """Queue one shard for the writer thread (after
+        :meth:`start_writer`).  Its arrays must be host arrays the caller
+        does not write again; a torch tensor is copied to the host here,
+        synchronously.  Raises the writer's error, if it has one."""
+        if self._writer is None:
+            raise RuntimeError("ActivationStore.submit before start_writer")
+        if self._error is not None:
+            self.finish()           # joins the writer and raises its error
+        shard = {k: (v.detach().to("cpu", copy=True).numpy()
+                     if hasattr(v, "detach") else v)
+                 for k, v in shard.items()}
+        self._q.put((client_id, shard, cut))
+
+    def finish(self):
+        """Join the writer thread after every queued shard is stored, and
+        raise the exception it stopped on, if any."""
+        if self._writer is not None:
+            self._q.put(None)
+            self._writer.join()
+            self._writer = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
     def add(self, client_id: int, shard: dict, cut: Optional[int] = None):
         """Store one uploaded shard (synchronously), tagged with the cut
         depth it was made at when ``cut`` is given."""
@@ -101,13 +165,14 @@ class ActivationStore:
                cut: Optional[int] = None):
         shard, nbytes = self.prepare_shard(shard, self.quantize)
         assert nbytes == self.shard_nbytes(shard, self.quantize)
-        lst = self._mem.setdefault(int(client_id), [])
-        lst.append(shard)
-        self._cut_tags.setdefault(int(client_id), []).append(
-            None if cut is None else int(cut))
-        self.bytes_received += nbytes
-        if self.dir:
+        with self._lock:
+            lst = self._mem.setdefault(int(client_id), [])
+            lst.append(shard)
+            self._cut_tags.setdefault(int(client_id), []).append(
+                None if cut is None else int(cut))
+            self.bytes_received += nbytes
             i = len(lst) - 1
+        if self.dir:
             tmp = os.path.join(self.dir, f".tmp_{client_id}_{i}.npz")
             final = os.path.join(self.dir, f"client_{client_id}_{i}.npz")
             np.savez(tmp, **shard)

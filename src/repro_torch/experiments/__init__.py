@@ -9,8 +9,8 @@
 ``api``     — :func:`run_experiment`, the one entry point.
 """
 
-from repro_torch.experiments.api import (resolve_setup, resolve_trace,
-                                         run_experiment)
+from repro_torch.experiments.api import (build_transport, resolve_setup,
+                                         resolve_trace, run_experiment)
 from repro_torch.experiments.runner import Runner, StepOutcome
 from repro_torch.experiments.spec import (CutPolicy, DataSpec,
                                           ExperimentSpec, FaultSpec,
@@ -26,7 +26,7 @@ __all__ = [
     "AmpereSystem", "CutPolicy", "DataSpec", "ExperimentSpec", "FaultSpec",
     "FleetConfig", "ObservabilitySpec", "Runner", "StepOutcome",
     "StreamingSpec", "System", "SystemContext", "TransportSpec",
-    "dataclass_from_dict", "dataclass_to_dict", "get_system",
-    "list_systems", "register_system", "resolve_setup", "resolve_trace",
-    "run_experiment",
+    "build_transport", "dataclass_from_dict", "dataclass_to_dict",
+    "get_system", "list_systems", "register_system", "resolve_setup",
+    "resolve_trace", "run_experiment",
 ]

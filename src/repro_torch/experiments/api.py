@@ -7,9 +7,12 @@ optional JSONL-loaded or simulated fleet trace and its device population)
 and runs every listed system on them in turn, writing one results
 directory with a ``summary.json`` plus ``<system>_history.json`` files.
 A per-profile cut policy resolves to a cut per device class
-(:func:`resolve_cut_policy`).  Runs on CUDA unless ``device="cpu"``.
-Transport, observability and streaming are later slices;
-:meth:`ExperimentSpec.validate` refuses a spec that sets them.
+(:func:`resolve_cut_policy`).  A ``transport`` / ``faults`` section gives
+each system its own fault-injecting transport (:func:`build_transport`),
+and an ``observability`` section its own tracer and metrics, whose phase
+table, trace digest and exported artifacts land in the summary.  Runs on
+CUDA unless ``device="cpu"``.  The command line is
+``python -m repro_torch.launch.run_experiment``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import json
 import os
 from typing import Optional, Tuple
 
-from repro_torch.experiments.spec import ExperimentSpec
+from repro_torch.experiments.spec import ExperimentSpec, TransportSpec
 from repro_torch.experiments.systems import SystemContext, get_system
+from repro_torch.observability import Observability
 
 
 def _history_summary(history: dict) -> dict:
@@ -148,6 +152,23 @@ def resolve_trace(spec: ExperimentSpec, model, run_cfg, *,
     return trace, population
 
 
+def build_transport(spec: ExperimentSpec, *, obs=None):
+    """A fresh transport for one system of a spec (None = the analytic
+    accounting).  A transport exists when the spec asks for one (a
+    ``transport`` or ``faults`` section); each system gets its own, so
+    idempotency keys and fault statistics never leak across systems.
+    ``obs`` (an :class:`~repro_torch.observability.Observability`) gives it
+    a tracer for per-message spans."""
+    if spec.transport is None and spec.faults is None:
+        return None
+    from repro_torch.transport import FaultPlan, InProcessTransport
+
+    tspec = spec.transport or TransportSpec()
+    plan = FaultPlan(spec.faults) if spec.faults is not None else None
+    return InProcessTransport(fault_plan=plan, retry=tspec.retry_policy(),
+                              obs=obs)
+
+
 def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
                    dry_run: bool = False, write_results: bool = True,
                    device=None) -> dict:
@@ -176,8 +197,13 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
         spec, model, spec.run, seq_len=seq,
         cuts=cuts.by_class if cuts is not None else None)
     results_dir = spec.results_dir or os.path.join("results", spec.name)
+    obs_spec = spec.observability
     results, summary = {}, {}
     for name, sys_cls in systems.items():
+        obs = Observability.from_spec(obs_spec)
+        transport = build_transport(spec, obs=obs)
+        if obs.enabled and trace is not None and obs_spec.scheduler_events:
+            obs.tracer.ingest_fleet_trace(trace)
         ctx = SystemContext(
             model=model, run_cfg=spec.run, clients=clients,
             eval_data=eval_data,
@@ -187,13 +213,17 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
             max_rounds=spec.max_rounds,
             max_server_epochs=spec.max_server_epochs,
             patience=spec.patience, log_echo=log_echo, device=device,
-            cuts=cuts)
+            cuts=cuts, transport=transport,
+            quorum_frac=(spec.transport.quorum_frac
+                         if spec.transport is not None else 1.0),
+            obs=obs)
         system = sys_cls()
         system.on_start(ctx)
         try:
             result = system.run(ctx)
         finally:
-            # the Runner's metrics-log handle must not leak on an abort
+            # the Runner's metrics-log handle must not leak on an abort (a
+            # mid-round QuorumError among them)
             runner = getattr(ctx.trainer, "runner", None)
             if runner is not None:
                 runner.close()
@@ -202,6 +232,24 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
         summary[name] = _history_summary(result["history"])
         if cut_summary is not None:
             summary[name]["cuts"] = cut_summary
+        if transport is not None:
+            # the bytes actually moved, retries included, beside the
+            # history's totals
+            summary[name]["wire"] = dict(transport.stats)
+        if obs.enabled:
+            # the per-phase breakdown in the summary; the registry and the
+            # tracer's digest under a history key of their own (every
+            # other history key is the same with observability off)
+            summary[name]["phases"] = obs.metrics.phase_table()
+            summary[name]["trace"] = obs.tracer.summary()
+            result["history"]["observability"] = obs.summary()
+            if write_results:
+                from repro_torch.observability.export import \
+                    export_artifacts
+                summary[name]["artifacts"] = export_artifacts(
+                    obs.tracer, os.path.join(results_dir, name),
+                    trace_json=obs_spec.trace_json,
+                    span_log=obs_spec.span_log)
 
     out = {"spec": spec, "results": results, "summary": summary,
            "results_dir": results_dir}

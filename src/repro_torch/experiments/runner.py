@@ -15,6 +15,13 @@ the caller's host-side state (``host_state``: the trainer's cohort and
 batch generators).  :meth:`Runner.restore` puts both back, so a run
 killed mid-phase and resumed gives the same history, bytes and simulated
 time as one that was never interrupted.
+
+``obs`` (an :class:`~repro_torch.observability.Observability` bundle) gets
+the simulated clock bound, a ``{phase}.{step_name}`` span around each
+step and the ``steps`` / ``comm_bytes`` / ``step_wall_s`` /
+``step_sim_s`` metrics; ``fault_plan`` (a
+:class:`~repro_torch.transport.FaultPlan`) tears checkpoint and journal
+writes on purpose for the chaos runs.  Neither changes a history.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import dataclasses
 import os
 from typing import Any, Callable, Iterable, Optional, Tuple
 
+from repro_torch.observability import NULL_OBS
 from repro_torch.runtime.checkpoint import (CheckpointCorruptError,
                                             Checkpointer)
 from repro_torch.runtime.fault_tolerance import RoundJournal
@@ -61,11 +69,13 @@ class Runner:
                  log_name: str = "metrics.jsonl",
                  history: Optional[dict] = None, device="cpu",
                  host_state: Optional[Tuple[Callable[[], dict],
-                                            Callable[[dict], None]]] = None):
+                                            Callable[[dict], None]]] = None,
+                 fault_plan=None, obs=None):
         self.workdir = workdir
         self.patience = patience
         self.device = device
         self.host_state = host_state
+        self.obs = obs if obs is not None else NULL_OBS
         self.history = history if history is not None else {}
         self.history.setdefault("comm_bytes", 0)
         self.history.setdefault("sim_time", 0.0)
@@ -74,9 +84,11 @@ class Runner:
         self.log = MetricsLogger(
             os.path.join(workdir, log_name) if workdir else None,
             echo=log_echo, clock=lambda: self.history["sim_time"])
-        self.ckpt = Checkpointer(os.path.join(workdir, "ckpt")) \
-            if workdir else None
-        self.journal = RoundJournal(os.path.join(workdir, "journal.jsonl")) \
+        self.obs.tracer.bind_sim_clock(lambda: self.history["sim_time"])
+        self.ckpt = Checkpointer(os.path.join(workdir, "ckpt"),
+                                 fault_plan=fault_plan) if workdir else None
+        self.journal = RoundJournal(os.path.join(workdir, "journal.jsonl"),
+                                    fault_plan=fault_plan) \
             if workdir else None
         # early-stop state restored per phase by restore(), consumed by the
         # next run_phase of that phase
@@ -84,7 +96,10 @@ class Runner:
 
     # ------------------------------------------------------------------
     def close(self):
-        """Release the metrics-log handle (idempotent)."""
+        """Release the metrics-log handle (idempotent).
+        :func:`repro_torch.experiments.run_experiment` calls it in a
+        ``finally``, so a mid-round
+        :class:`~repro_torch.transport.QuorumError` leaks no handle."""
         self.log.close()
 
     # ------------------------------------------------------------------
@@ -111,10 +126,41 @@ class Runner:
             return tree, meta[step_name] + 1
         return state, 0
 
-    def account(self, *, comm_bytes: int = 0, sim_time: float = 0.0):
-        """Out-of-loop accounting (the one-shot activation upload)."""
+    def account(self, *, comm_bytes: int = 0, sim_time: float = 0.0,
+                phase: Optional[str] = None, direction: str = "up"):
+        """Out-of-loop accounting (the one-shot activation upload);
+        ``phase`` also attributes the bytes and time to that phase's
+        metrics row (the history totals are the same either way)."""
         self.history["comm_bytes"] += comm_bytes
         self.history["sim_time"] += sim_time
+        if phase is not None and self.obs.enabled:
+            m = self.obs.metrics
+            if comm_bytes:
+                m.counter("comm_bytes", comm_bytes, phase=phase,
+                          direction=direction)
+            if sim_time:
+                m.observe("step_sim_s", sim_time, phase=phase)
+
+    def exchange_log(self, transport, log: dict, *, phase: str,
+                     one_way_bytes: int, excluded) -> dict:
+        """One round's model exchange in ``log`` and the metrics: the
+        exclusions (under faults) and the transport's statistics since the
+        last round go into ``log``; the cohort's analytic bytes each way
+        (``one_way_bytes``) and the exclusions into ``phase``'s metrics
+        (the step's undirected ``comm_bytes`` is the wire's total)."""
+        if transport is not None and transport.faulty:
+            log["excluded"] = len(excluded)
+        if transport is not None:
+            log["wire"] = transport.delta_stats()
+        if self.obs.enabled:
+            m = self.obs.metrics
+            m.counter("comm_bytes", one_way_bytes, phase=phase,
+                      direction="down")
+            m.counter("comm_bytes", one_way_bytes, phase=phase,
+                      direction="up")
+            if excluded:
+                m.counter("excluded_devices", len(excluded), phase=phase)
+        return log
 
     # ------------------------------------------------------------------
     def run_phase(self, phase: str, state,
@@ -151,13 +197,25 @@ class Runner:
             # the phase had already stopped before the run died (in a
             # later phase): train nothing the uninterrupted run did not
             return slot.pop()
+        tracer, metrics = self.obs.tracer, self.obs.metrics
         for step_idx, plan in plans:
-            out = body(slot.pop(), step_idx, plan)
-            slot.append(out.state)
-            out.state = None     # the slot holds the only reference
-            self.history[history_key].append(out.record)
-            self.history["comm_bytes"] += out.comm_bytes
-            self.history["sim_time"] += out.sim_time
+            with tracer.span(f"{phase}.{step_name}", track=phase,
+                             **{step_name: step_idx}) as sp:
+                out = body(slot.pop(), step_idx, plan)
+                slot.append(out.state)
+                out.state = None     # the slot holds the only reference
+                self.history[history_key].append(out.record)
+                self.history["comm_bytes"] += out.comm_bytes
+                self.history["sim_time"] += out.sim_time
+                sp.set(**{k: v for k, v in out.record.items()
+                          if isinstance(v, (int, float, str, bool))})
+            if self.obs.enabled:
+                metrics.counter("steps", 1, phase=phase)
+                if out.comm_bytes:
+                    metrics.counter("comm_bytes", out.comm_bytes,
+                                    phase=phase)
+                metrics.observe("step_wall_s", sp.dur_wall, phase=phase)
+                metrics.observe("step_sim_s", out.sim_time, phase=phase)
             self.log.log(phase=phase, **out.record, **out.log)
             # update the stopper before checkpointing so the saved state
             # covers this step (restore resumes at step + 1)

@@ -12,13 +12,14 @@ A spec may name a fleet (``fleet``, a
 :class:`~repro_torch.fleet.FleetConfig`, and/or ``trace_path``, a JSONL
 trace): every system then replays one shared churn trace, as in the
 reference, and a ``cut`` (:class:`~repro_torch.fleet.cuts.CutPolicy`)
-may give each device class of that fleet its own cut layer.  The other
-optional sections — transport, fault injection, streaming and
-observability — are kept here as data (the reference's fields, defaults
-and checks); the port cannot run them yet, so
-:meth:`ExperimentSpec.validate` names the ROADMAP.md queue item of each
-one a spec asks for, and :func:`repro_torch.experiments.run_experiment`
-refuses such a spec.
+may give each device class of that fleet its own cut layer.  A
+``transport`` (in process), ``faults``
+(:class:`~repro_torch.transport.FaultSpec`) and ``observability`` run as
+the reference's do.  ``streaming`` and the socket transport are kept as
+data (the reference's fields, defaults and checks); the port cannot run
+them yet, so :meth:`ExperimentSpec.validate` names their ROADMAP.md queue
+item (A6b), and :func:`repro_torch.experiments.run_experiment` refuses
+such a spec.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from typing import Optional, Tuple
 from repro_torch.configs.base import RunConfig
 from repro_torch.fleet.cuts import CutPolicy
 from repro_torch.fleet.profiles import FleetConfig
+from repro_torch.transport.faults import FaultSpec
+from repro_torch.transport.retry import RetryPolicy
 
 #: systems that train on a buffered-asynchronous schedule (plans carry
 #: staleness) rather than replaying synchronous cohort rounds
@@ -94,7 +97,7 @@ def dataclass_to_dict(obj) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the optional sections (data only in the port)
+# the optional sections
 # ---------------------------------------------------------------------------
 
 
@@ -113,7 +116,12 @@ class DataSpec:
 
 @dataclass(frozen=True)
 class TransportSpec:
-    """How bytes move between device and server blocks (queue A6)."""
+    """How bytes move between device and server blocks.  ``inprocess``
+    prices transfers through the simulated link; ``socket`` (two
+    processes) is queue A6b.  The retry knobs map onto one
+    :class:`~repro_torch.transport.RetryPolicy` shared by every transfer,
+    and ``quorum_frac`` is the fraction of a cohort whose uploads must
+    verify before a round closes."""
 
     kind: str = "inprocess"
     quorum_frac: float = 1.0
@@ -124,6 +132,12 @@ class TransportSpec:
     host: str = "127.0.0.1"     # socket mode only
     port: int = 7733            # socket mode only
 
+    def retry_policy(self) -> RetryPolicy:
+        return RetryPolicy(max_attempts=self.max_attempts,
+                           base_backoff_s=self.base_backoff_s,
+                           max_backoff_s=self.max_backoff_s,
+                           attempt_timeout_s=self.attempt_timeout_s)
+
     def validate(self) -> list:
         problems = []
         if self.kind not in ("inprocess", "socket"):
@@ -132,49 +146,14 @@ class TransportSpec:
         if not 0.0 < self.quorum_frac <= 1.0:
             problems.append(
                 f"transport.quorum_frac={self.quorum_frac} outside (0, 1]")
-        # the retry policy's own checks
-        if self.max_attempts < 1:
-            problems.append(
-                f"transport.max_attempts={self.max_attempts} < 1")
-        if self.base_backoff_s < 0 or self.max_backoff_s < 0:
-            problems.append("transport backoff seconds must be >= 0")
-        if self.attempt_timeout_s <= 0:
-            problems.append(
-                f"transport.attempt_timeout_s={self.attempt_timeout_s} <= 0")
-        return problems
-
-
-@dataclass(frozen=True)
-class FaultSpec:
-    """Fault-injection knobs, all probabilities per attempt (queue A6)."""
-
-    seed: int = 0
-    drop_prob: float = 0.0
-    corrupt_prob: float = 0.0
-    duplicate_prob: float = 0.0
-    latency_spike_prob: float = 0.0
-    latency_spike_s: float = 1.0
-    reset_prob: float = 0.0
-    torn_write_prob: float = 0.0
-    perma_fail_devices: Tuple[int, ...] = ()
-
-    def validate(self) -> list:
-        problems = []
-        for f in ("drop_prob", "corrupt_prob", "duplicate_prob",
-                  "latency_spike_prob", "reset_prob", "torn_write_prob"):
-            v = getattr(self, f)
-            if not 0.0 <= v <= 1.0:
-                problems.append(f"faults.{f}={v} outside [0, 1]")
-        if self.latency_spike_s < 0:
-            problems.append(f"faults.latency_spike_s={self.latency_spike_s}"
-                            " negative")
+        problems.extend(self.retry_policy().validate())
         return problems
 
 
 @dataclass(frozen=True)
 class StreamingSpec:
     """The activation ring between the upload and the server phase
-    (queue A6)."""
+    (queue A6b)."""
 
     enabled: bool = True
     backend: str = "memmap"          # falls back to "memory" w/o a workdir
@@ -203,7 +182,8 @@ class StreamingSpec:
 
 @dataclass(frozen=True)
 class ObservabilitySpec:
-    """Span tracing and phase/round metrics (queue A6)."""
+    """Span tracing and phase/round metrics; ``profile`` couples the
+    spans to ``torch.profiler`` and NVTX ranges."""
 
     enabled: bool = True
     trace_json: bool = True      # export Chrome trace-event JSON
@@ -278,7 +258,8 @@ class ExperimentSpec:
     def validate(self) -> list:
         """Human-readable problems (empty = valid): every check of the
         reference, plus one problem for each feature the port cannot run
-        yet, naming its ROADMAP.md queue item."""
+        yet (streaming, the socket transport, MoE and hybrid archs),
+        naming its ROADMAP.md queue item."""
         from repro_torch.configs import registry
         from repro_torch.configs.base import VisionConfig
         from repro_torch.experiments.systems import list_systems
@@ -381,18 +362,12 @@ class ExperimentSpec:
                     "trace_path need a fleet section too — their buffered "
                     "schedule is derived from the device population")
         # features the port cannot run yet, one problem each
-        pending = (
-            ("transport", self.transport,
-             "A6 (transport, streaming, observability)"),
-            ("faults", self.faults,
-             "A6 (transport, streaming, observability)"),
-            ("observability", self.observability,
-             "A6 (transport, streaming, observability)"),
-            ("streaming", self.streaming,
-             "A6 (transport, streaming, observability)"),
-        )
-        for name, value, item in pending:
-            if value is not None:
-                problems.append(f"spec.{name} is set but the port cannot "
-                                f"run it yet (ROADMAP.md queue {item})")
+        item = "A6b (streaming, socket transport)"
+        if self.streaming is not None:
+            problems.append("spec.streaming is set but the port cannot run "
+                            f"it yet (ROADMAP.md queue {item})")
+        if self.transport is not None and self.transport.kind == "socket":
+            problems.append("spec.transport.kind='socket' is set but the "
+                            "port cannot run it yet (ROADMAP.md queue "
+                            f"{item})")
         return problems

@@ -56,6 +56,9 @@ class SystemContext:
     trainer: Any = None            # reuse a live trainer
     device: Any = None             # None = CUDA (raises without a card)
     cuts: Any = None               # CutAssignment (None/uniform = one cut)
+    transport: Any = None          # InProcessTransport (None = analytic)
+    quorum_frac: float = 1.0       # verified-upload fraction closing a round
+    obs: Any = None                # Observability bundle (None = NULL_OBS)
 
     @property
     def seq_len(self) -> int:
@@ -171,7 +174,13 @@ def fedbuff_schedule(ctx: SystemContext, rounds: int, *,
             fcfg, async_buffer_size=max(2, fcfg.init_cohort // 2))
     lat = make_latency_fn(ctx.model, ctx.run_cfg, algo=algo,
                           seq_len=ctx.seq_len)
-    return FleetScheduler(ctx.population, lat, fcfg).simulate(rounds)
+    trace = FleetScheduler(ctx.population, lat, fcfg).simulate(rounds)
+    if ctx.obs is not None and ctx.obs.enabled:
+        # the derived buffered schedule gets its own scheduler subtrack
+        # (run_experiment ingested the shared sync trace)
+        ctx.obs.tracer.ingest_fleet_trace(trace, track="scheduler/async",
+                                          events=False)
+    return trace
 
 
 @register_system("ampere")
@@ -186,7 +195,9 @@ class AmpereSystem(System):
             ctx.trainer = AmpereTrainer(
                 ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
                 workdir=ctx.workdir, patience=ctx.patience,
-                log_echo=ctx.log_echo, device=ctx.device, cuts=ctx.cuts)
+                log_echo=ctx.log_echo, device=ctx.device, cuts=ctx.cuts,
+                transport=ctx.transport, quorum_frac=ctx.quorum_frac,
+                obs=ctx.obs)
         return ctx.trainer
 
     def init_state(self, ctx: SystemContext, gen=None):
@@ -245,7 +256,9 @@ class FedBuffSystem(AmpereSystem):
             ctx.trainer = FedBuffTrainer(
                 ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
                 workdir=ctx.workdir, patience=ctx.patience,
-                log_echo=ctx.log_echo, device=ctx.device)
+                log_echo=ctx.log_echo, device=ctx.device,
+                transport=ctx.transport, quorum_frac=ctx.quorum_frac,
+                obs=ctx.obs)
         return ctx.trainer
 
     def _device_phase(self, tr, ctx: SystemContext, dev_state):
@@ -267,7 +280,8 @@ class SFLSystem(System):
                 ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
                 variant=self.variant, workdir=ctx.workdir,
                 patience=ctx.patience, log_echo=ctx.log_echo,
-                device=ctx.device)
+                device=ctx.device, transport=ctx.transport,
+                quorum_frac=ctx.quorum_frac, obs=ctx.obs)
         return ctx.trainer
 
     def init_state(self, ctx: SystemContext, gen=None):
@@ -347,7 +361,9 @@ class FedAvgSystem(System):
             ctx.trainer = FedAvgTrainer(
                 ctx.model, ctx.run_cfg, ctx.clients, ctx.eval_data,
                 workdir=ctx.workdir, patience=ctx.patience,
-                log_echo=ctx.log_echo, device=ctx.device)
+                log_echo=ctx.log_echo, device=ctx.device,
+                transport=ctx.transport, quorum_frac=ctx.quorum_frac,
+                obs=ctx.obs)
         return ctx.trainer
 
     def init_state(self, ctx: SystemContext, gen=None):

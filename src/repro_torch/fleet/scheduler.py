@@ -44,8 +44,8 @@ import numpy as np
 
 from repro_torch.fleet.profiles import DeviceProfile, FleetConfig
 from repro_torch.runtime.elastic import ElasticCohort
-from repro_torch.runtime.fault_tolerance import (Heartbeats, RoundJournal,
-                                                 crc32)
+from repro_torch.runtime.fault_tolerance import Heartbeats, RoundJournal
+from repro_torch.transport.framing import crc32
 
 
 def required_quorum(n: int, frac: float) -> int:
@@ -244,12 +244,17 @@ class FleetScheduler:
                  latency_fn: Callable[[DeviceProfile], float],
                  cfg: Optional[FleetConfig] = None, *,
                  seed: Optional[int] = None,
-                 journal: Optional[RoundJournal] = None):
+                 journal: Optional[RoundJournal] = None,
+                 tracer=None):
         self.pop = list(population)
         self.cfg = cfg or FleetConfig(n_devices=len(self.pop))
         self.latency_fn = latency_fn
         self.seed = self.cfg.seed if seed is None else seed
         self.journal = journal
+        # optional repro_torch.observability.Tracer: the heap's loop stays
+        # as it is, and the finished trace is replayed into sim-domain
+        # scheduler spans after simulate()
+        self.tracer = tracer
         self._lat = {p.device_id: float(latency_fn(p)) for p in self.pop}
         self.base_latency = float(np.median(list(self._lat.values())))
         self._by_id = {p.device_id: p for p in self.pop}
@@ -294,8 +299,12 @@ class FleetScheduler:
         "round" is one buffered aggregation (see :meth:`_simulate_async`).
         """
         if self.cfg.async_buffer_size > 0:
-            return self._simulate_async(num_rounds)
-        return self._simulate_sync(num_rounds)
+            trace = self._simulate_async(num_rounds)
+        else:
+            trace = self._simulate_sync(num_rounds)
+        if self.tracer is not None:
+            self.tracer.ingest_fleet_trace(trace)
+        return trace
 
     def _seed_population(self, push, online, next_offline, hb_dt):
         """t=0 churn/heartbeat seeding shared by both simulation modes."""

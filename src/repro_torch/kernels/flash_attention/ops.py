@@ -18,6 +18,8 @@ recomputed in each sweep).  Neither has atomics: both give bit-identical
 gradients run to run on the card, though not the same bits as each other
 (they sum dQ in different orders).  On CUDA tensors the wrappers launch
 the Hopper kernels; on CPU tensors they run the kernels' plain versions.
+Under profiling the launches sit in ranges named as the reference names
+its annotations: ``flash_fwd`` and ``flash_bwd_{fused,split}``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.observability.profiling import annotate
 
 
 def _pad_to(x, dim, mult):
@@ -65,9 +68,10 @@ class _FlashAttention(torch.autograd.Function):
         qp = _pad_to(qk, 1, bq).contiguous()
         kp = _pad_to(kk, 1, bk).contiguous()
         vp = _pad_to(vk, 1, bk).contiguous()
-        op, lsep = K.flash_fwd(qp, kp, vp, group=G, causal=causal,
-                               window=window, softcap=softcap, scale=scale,
-                               kv_len=Skv)
+        with annotate("flash_fwd"):     # a profiler range (--profile)
+            op, lsep = K.flash_fwd(qp, kp, vp, group=G, causal=causal,
+                                   window=window, softcap=softcap,
+                                   scale=scale, kv_len=Skv)
         ctx.save_for_backward(qp, kp, vp, op, lsep)
         ctx.cfg = (causal, window, softcap, scale, block_q, block_k, Skv,
                    bwd_strategy)
@@ -88,14 +92,16 @@ class _FlashAttention(torch.autograd.Function):
         delta = torch.sum(dok * op, dim=-1)
         kw = dict(group=G, causal=causal, window=window, softcap=softcap,
                   scale=scale, kv_len=Skv)
-        if strategy == "split":
-            # the sweeps read dO in q's dtype; exact, since do is the grad
-            # of the output that forward returned in q's dtype
-            doq = dok.to(qp.dtype)
-            dq = K.flash_bwd_dq(qp, kp, vp, doq, lsep, delta, **kw)
-            dk, dv = K.flash_bwd_dkv(qp, kp, vp, doq, lsep, delta, **kw)
-        else:
-            dq, dk, dv = K.flash_bwd_fused(qp, kp, vp, dok, lsep, delta, **kw)
+        with annotate(f"flash_bwd_{strategy}"):
+            if strategy == "split":
+                # the sweeps read dO in q's dtype; exact, since do is the
+                # grad of the output that forward returned in q's dtype
+                doq = dok.to(qp.dtype)
+                dq = K.flash_bwd_dq(qp, kp, vp, doq, lsep, delta, **kw)
+                dk, dv = K.flash_bwd_dkv(qp, kp, vp, doq, lsep, delta, **kw)
+            else:
+                dq, dk, dv = K.flash_bwd_fused(qp, kp, vp, dok, lsep, delta,
+                                               **kw)
         dq = dq[:, :S].reshape(B, Hkv, G, S, hd).permute(0, 3, 1, 2, 4)
         dk = dk[:, :Skv].reshape(B, Hkv, Skv, hd).permute(0, 2, 1, 3)
         dv = dv[:, :Skv].reshape(B, Hkv, Skv, hd).permute(0, 2, 1, 3)

@@ -35,7 +35,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.runtime.fault_tolerance import crc32
+from repro_torch.transport.framing import crc32
 
 _PY_TYPES = {"int": int, "float": float, "bool": bool}
 
@@ -127,9 +127,13 @@ def _from_host(flat: dict, torch_dtypes: dict, py_types: dict, device):
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, fault_plan=None):
         self.dir = directory
         self.keep = keep
+        # chaos runs: a FaultPlan whose torn_write(f"ckpt/{step}") fires
+        # truncates the arrays file after its CRC is recorded, so restore
+        # detects the tear and falls back to an older snapshot
+        self.fault_plan = fault_plan
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
         # a writer killed between makedirs(tmp) and os.replace leaves a
@@ -190,8 +194,16 @@ class Checkpointer:
         os.makedirs(tmp, exist_ok=True)
         arrays = os.path.join(tmp, "arrays.npz")
         np.savez(arrays, **flat)
+        # the CRC is recorded over the intact file, before any injected
+        # tear, so a torn publish is detected at restore
         with open(arrays, "rb") as f:
             arrays_crc = crc32(f.read())
+        torn = (self.fault_plan.torn_write(f"ckpt/{step}")
+                if self.fault_plan is not None else None)
+        if torn is not None:
+            size = os.path.getsize(arrays)
+            with open(arrays, "r+b") as f:
+                f.truncate(max(1, int(size * torn)))
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, "arrays_crc": arrays_crc,
                        "torch_dtypes": torch_dtypes, "py_types": py_types,

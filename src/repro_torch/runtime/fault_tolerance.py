@@ -1,28 +1,27 @@
-"""The round journal and the heartbeats of the federated loop, as
+"""The round journal, retries and the heartbeats of the federated loop, as
 ``repro.runtime.fault_tolerance``.
 
-:class:`RoundJournal` is a write-ahead journal of round boundaries so a
-restarted coordinator knows where it stopped (used together with the
-:class:`~repro_torch.runtime.checkpoint.Checkpointer`).  Records carry a
-CRC so a torn or bit-flipped line is rejected, never resumed from.
-:class:`Heartbeats` tracks when each simulated device was last seen (the
-fleet scheduler's liveness filter).  Retries come with the transport
-slice.
+* :class:`RoundJournal` — a write-ahead journal of round boundaries so a
+  restarted coordinator knows where it stopped (used together with the
+  :class:`~repro_torch.runtime.checkpoint.Checkpointer`).  Records carry a
+  CRC so a torn or bit-flipped line is rejected, never resumed from; a
+  ``fault_plan`` tears appends on purpose for the chaos runs.
+* :func:`with_retries` — bounded retries of flaky host-side work (a thin
+  wrapper kept beside :meth:`repro_torch.transport.RetryPolicy.call`).
+* :class:`Heartbeats` — when each simulated device was last seen (the
+  fleet scheduler's liveness filter).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import zlib
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 
-
-def crc32(data: bytes, value: int = 0) -> int:
-    """CRC-32 of ``data`` as an unsigned int (the transport framing's)."""
-    return zlib.crc32(data, value) & 0xFFFFFFFF
+from repro_torch.transport.framing import crc32
 
 
 def _canonical(record: dict) -> bytes:
@@ -38,18 +37,29 @@ class RoundJournal:
     canonical JSON of the record without it).  ``last()`` only trusts
     records whose CRC verifies — a line that merely parses as JSON (a
     tear can keep it syntactically valid) is not enough to resume from.
+    ``fault_plan`` (a :class:`~repro_torch.transport.FaultPlan`) cuts the
+    ``n``-th append at the fraction its ``torn_write(f"journal/{n}")``
+    draws, as the reference's does.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, fault_plan=None):
         self.path = path
+        self.fault_plan = fault_plan
+        self._n = 0
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def append(self, record: dict):
         rec = dict(record)
         rec["_crc"] = crc32(_canonical(record))
+        line = json.dumps(rec)
+        torn = (self.fault_plan.torn_write(f"journal/{self._n}")
+                if self.fault_plan is not None else None)
+        self._n += 1
+        if torn is not None:
+            line = line[:max(1, int(len(line) * torn))]
         created = not os.path.exists(self.path)
         with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+            f.write(line + "\n")
             f.flush()
             os.fsync(f.fileno())
         if created:
@@ -89,6 +99,32 @@ class RoundJournal:
                     continue
                 last = rec
         return last
+
+
+def with_retries(fn: Callable, *args, retries: int = 3, backoff: float = 0.0,
+                 exceptions=(OSError, IOError), sleep_fn: Callable = None,
+                 **kwargs):
+    """Bounded retry with exponential backoff (no jitter, no deadlines):
+    ``fn`` up to ``retries`` times, sleeping ``backoff * 2^attempt``
+    between attempts and never after the last; the terminal
+    :class:`~repro_torch.transport.RetryExhaustedError` chains the last
+    error.  ``sleep_fn`` replaces :func:`time.sleep` (tests, simulated
+    callers).  :meth:`repro_torch.transport.RetryPolicy.call` is the
+    jittered policy."""
+    from repro_torch.transport.retry import RetryExhaustedError
+
+    sleeper = time.sleep if sleep_fn is None else sleep_fn
+    err = None
+    for attempt in range(retries):
+        try:
+            return fn(*args, **kwargs)
+        except exceptions as e:
+            err = e
+            if backoff and attempt < retries - 1:
+                sleeper(backoff * (2 ** attempt))
+    raise RetryExhaustedError(
+        f"{getattr(fn, '__name__', fn)} failed after {retries} attempts: "
+        f"{err}", retries) from err
 
 
 class Heartbeats:

@@ -44,8 +44,14 @@ import repro_torch.fleet.cuts
 import repro_torch.fleet.engine
 import repro_torch.fleet.profiles
 import repro_torch.fleet.scheduler
+import repro_torch.launch.run_experiment
 import repro_torch.launch.train
 import repro_torch.models.cnn
+import repro_torch.observability
+import repro_torch.observability.export
+import repro_torch.observability.metrics
+import repro_torch.observability.profiling
+import repro_torch.observability.tracer
 import repro_torch.models.vit
 import repro_torch.runtime.checkpoint
 import repro_torch.runtime.compression
@@ -54,6 +60,11 @@ import repro_torch.runtime.fault_tolerance
 import repro_torch.runtime.metrics
 import repro_torch.streaming
 import repro_torch.streaming.versions
+import repro_torch.transport
+import repro_torch.transport.faults
+import repro_torch.transport.framing
+import repro_torch.transport.inprocess
+import repro_torch.transport.retry
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
