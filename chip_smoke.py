@@ -221,6 +221,38 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    13(b)'s card run without it.  Drive it alone with
    ``chip_smoke.chaos_phase(dev, chip_smoke.cuts_experiment(dev)[1])``
    after ``build.build()`` and a CUDA context (~80 s).
+15. Streaming: (a) 14(a)'s clean setup (``CHAOS_ROUNDS`` rounds, the
+   upload, one server epoch) through ``AmpereSystem.run`` with
+   observability on, twice from one init: with the serialized store and
+   with a memmap ``StreamingActivationStore`` in a temp dir
+   (``STREAM_CAPACITY`` segments, reopening at ``STREAM_LOW_WATERMARK``):
+   the 64-sample upload (~268.6 MB fp32) is 4 client segments of 50-80
+   MB, so the third put stalls.  The ring's history equals the serialized
+   one less ``sim_time``, which is no larger; stalls and the phase
+   table's ``overlap_s`` are above 0; the ``consolidate`` span's wall
+   seconds of both, each segment's write + fsync and CRC re-verify
+   seconds, the ring's stats and both peaks are printed.  (b)
+   ``examples/specs/streaming_smoke.json`` (vit-s; memmap ring under
+   faults with torn writes) on the card and on the CPU: ring stats, wire
+   statistics and counters ``==``; every record within phase 12(c)'s gate
+   but the last server epoch's, which diverges in every package and is
+   held at ``STREAM_DIVERGED_RTOL``.  (c) ``transport.roles``'
+   ``run_server_role`` and ``run_device_role`` in two threads over
+   loopback (a port bound from 0), handed (a)'s setup (``setup=``;
+   ``SOCKET_TRANSPORT``): the server's history ``==`` (a)'s serialized
+   one, ``analytic_transfer_bytes`` its upload bytes, and the measured
+   wire bytes exactly the frames': the analytic bytes, the state frame
+   (more than the 1,244,659,712-byte fp32 embedding) and the framing;
+   the frame counts, the card's peak and the host's ``ru_maxrss``
+   printed.  (d) ``python -m repro_torch.launch.run_experiment SPEC
+   --role server`` and ``--role device`` as two processes on the card
+   (the kernels already built), the qwen3 smoke spec with a socket
+   transport: both exit 0 and the server's ``summary.json`` is the two
+   roles' CPU run's within phase 12(c)'s gate, every frame before the
+   ``done`` frame the same bytes (the ``done`` frame carries the device
+   history's floats as JSON, each run's own digits).  Drive it alone with
+   ``chip_smoke.streaming_phase(torch.device("cuda", 0))`` after
+   ``build.build()`` and a CUDA context.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -234,7 +266,8 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
-runs too), 9, 10, 11, 12, 13 and 14,
+runs too), 9, 10, 11, 12, 13, 14 and 15 (its (d) launches in processes
+of its own, uncounted),
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -256,10 +289,13 @@ import io
 import json
 import math
 import os
+import resource
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -279,8 +315,8 @@ from repro_torch.data import (ActivationStore, Dataset, federate,  # noqa: E402
                               make_dataset_for_model, make_lm_dataset)
 from repro_torch.experiments import (AmpereSystem, DataSpec,  # noqa: E402
                                      ExperimentSpec, SystemContext,
-                                     resolve_setup, resolve_trace,
-                                     run_experiment)
+                                     TransportSpec, resolve_setup,
+                                     resolve_trace, run_experiment)
 from repro_torch.experiments.systems import (FedBuffSystem,  # noqa: E402
                                              fedbuff_schedule)
 from repro_torch.fleet import (CutPolicy, FleetConfig,  # noqa: E402
@@ -298,9 +334,11 @@ from repro_torch.observability import Observability  # noqa: E402
 from repro_torch.observability.export import (  # noqa: E402
     export_artifacts, read_span_log, validate_chrome_trace)
 from repro_torch.observability.profiling import profile_run  # noqa: E402
-from repro_torch.streaming import VersionRing  # noqa: E402
+from repro_torch.streaming import (StreamingActivationStore,  # noqa: E402
+                                   VersionRing)
 from repro_torch.transport import (FaultPlan, FaultSpec,  # noqa: E402
-                                   InProcessTransport, RetryPolicy)
+                                   FrameReceiver, InProcessTransport,
+                                   RetryPolicy, encode_frame, roles)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -457,6 +495,26 @@ CALL_SITES = {
                                    "xent_tc_gemm_kernel")),
 }
 CHAOS_WINDOW = "chip_smoke.device_round"
+# phase 15: streaming.  (a) phase 14(a)'s clean run with the serialized
+# store and with a memmap ring of STREAM_CAPACITY segments that reopens at
+# STREAM_LOW_WATERMARK: 64 samples in 4 client shards of ~67 MB, so the
+# third put stalls; (b) streaming_smoke.json card vs CPU, whose server
+# phase diverges in every package (merged val loss ~4.5 after epoch 0, ~25
+# after epoch 1): its last epoch is held at STREAM_DIVERGED_RTOL, the rest
+# at phase 12(c)'s gate; (c) the two socket roles in two threads at full
+# width; (d) the two roles as two processes of the command line on the
+# qwen3 smoke spec.  The full-width state frame (the fp32 embedding alone
+# is 1,244,659,712 bytes) needs more than the spec's default one-second
+# attempt deadline
+STREAM_CAPACITY = 2
+STREAM_LOW_WATERMARK = 0
+STREAM_SPEC = "examples/specs/streaming_smoke.json"
+STREAM_DIVERGED_RTOL = 1e-3
+SOCKET_TRANSPORT = TransportSpec(kind="socket", attempt_timeout_s=300.0)
+# a float's shortest repr differs by a few characters between two runs
+# whose values differ in the last bits (17 significant digits at most)
+DONE_FRAME_SLACK = 8
+ROLE_JOIN_S = 900.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -2382,6 +2440,390 @@ def chaos_phase(dev, cut_card_hist) -> dict:
     return by_path
 
 
+def _span_wall_s(obs, name) -> list:
+    return [e.dur_wall for e in obs.tracer.events
+            if e.kind == "span" and e.name == name]
+
+
+def _host_timed(obj, name, out: list):
+    """Appends the wall seconds of every call of ``obj.name`` (a host
+    function: no card synchronization) to ``out``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            out.append(time.perf_counter() - t)
+
+    setattr(obj, name, wrapper)
+
+
+class _StoreGiven(AmpereSystem):
+    """Ampere with a store made by the caller."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def _make_store(self, tr, ctx):
+        return self.store
+
+
+def streaming_run(dev, ring_dir=None) -> dict:
+    """One 15(a) run through ``AmpereSystem.run``: phase 14(a)'s clean
+    setup (``CHAOS_ROUNDS`` i.i.d. rounds, the upload, one server epoch)
+    with observability on, the serialized store, or a memmap ring under
+    ``ring_dir`` whose segment writes (+ fsync) and CRC re-verifies are
+    timed."""
+    obs = Observability()
+    cfg, tr = chaos_trainer(dev, obs=obs)
+    system, write_s, verify_s = AmpereSystem(), [], []
+    if ring_dir is not None:
+        system = _StoreGiven(StreamingActivationStore(
+            directory=ring_dir, seed=tr.run.seed,
+            capacity_segments=STREAM_CAPACITY,
+            low_watermark=STREAM_LOW_WATERMARK, backend="memmap", obs=obs))
+        _host_timed(system.store.ring, "_store_blob", write_s)
+        _host_timed(system.store.ring, "_verify", verify_s)
+    ctx = SystemContext(model=tr.model, run_cfg=tr.run, clients=tr.clients,
+                        eval_data=tr.eval_data, max_rounds=CHAOS_ROUNDS,
+                        max_server_epochs=SERVER_EPOCHS, device=dev,
+                        trainer=tr, obs=obs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    out = system.run(ctx)
+    seconds = time.perf_counter() - t
+    store = out["store"]
+    run = dict(cfg=cfg, hist=out["history"], launches=read_launches(),
+               seconds=seconds, bytes=store.bytes_received,
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               consolidate_s=_span_wall_s(obs, "consolidate"),
+               stream_consume_s=_span_wall_s(obs, "stream_consume"),
+               phases=obs.metrics.phase_table(), write_s=write_s,
+               verify_s=verify_s,
+               ring_stats=dict(store.ring.stats) if ring_dir else None)
+    del out, store, system
+    return run
+
+
+def streaming_full(dev) -> tuple:
+    """15(a): full-width qwen3-1.7b with the serialized store, then with a
+    memmap ring of ``STREAM_CAPACITY`` segments in a temp dir: the
+    histories ``==`` less ``sim_time``, which the ring's run does not
+    exceed; backpressure stalls and ``overlap_s`` above 0.  Returns the
+    launches by path, the serialized history and its upload bytes."""
+    serial = streaming_run(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ring = streaming_run(dev, os.path.join(tmp, "ring"))
+        seg_bytes = sorted(os.path.getsize(os.path.join(tmp, "ring", f))
+                           for f in os.listdir(os.path.join(tmp, "ring")))
+    torch.cuda.empty_cache()
+    hs, hr, stats = serial["hist"], ring["hist"], ring["ring_stats"]
+    server_row = [r for r in ring["phases"] if r["phase"] == "server"]
+    overlap_s = server_row[0]["overlap_s"] if server_row else 0.0
+    log("streaming", arch=serial["cfg"].name, rounds=CHAOS_ROUNDS,
+        capacity_segments=STREAM_CAPACITY,
+        low_watermark=STREAM_LOW_WATERMARK, ring_stats=stats,
+        segment_bytes=seg_bytes,
+        upload_bytes=[serial["bytes"], ring["bytes"]],
+        ring_write_fsync_s=ring["write_s"], ring_verify_crc_s=ring["verify_s"],
+        consolidate_s_serialized=serial["consolidate_s"],
+        consolidate_s_ring=ring["consolidate_s"],
+        stream_consume_s=ring["stream_consume_s"],
+        seconds_serialized=serial["seconds"], seconds_ring=ring["seconds"],
+        peak_mem_gib_serialized=serial["peak_mem_gib"],
+        peak_mem_gib_ring=ring["peak_mem_gib"],
+        sim_time_s=[hs["sim_time"], hr["sim_time"]], overlap_s=overlap_s,
+        comm_bytes=[hs["comm_bytes"], hr["comm_bytes"]],
+        device=hr["device"], server=hr["server"],
+        launches=ring["launches"], card=card_line())
+
+    def rest(h):
+        return {k: v for k, v in h.items() if k != "sim_time"}
+
+    if rest(hs) != rest(hr):
+        raise AssertionError(f"streaming: the ring's history differs from "
+                             f"the serialized one: {rest(hr)} vs {rest(hs)}")
+    if not hr["sim_time"] <= hs["sim_time"] or not overlap_s > 0 or \
+            not stats["stalls"] > 0 or stats["torn_repairs"] or \
+            serial["bytes"] != ring["bytes"]:
+        raise AssertionError(f"streaming: sim_time {hr['sim_time']} vs "
+                             f"{hs['sim_time']}, overlap_s {overlap_s}, "
+                             f"ring {stats}, bytes {serial['bytes']} vs "
+                             f"{ring['bytes']}")
+    _check_fleet_path("streaming serialized", serial["cfg"], hs,
+                      serial["launches"], CHAOS_ROUNDS)
+    _check_fleet_path("streaming ring", ring["cfg"], hr, ring["launches"],
+                      CHAOS_ROUNDS)
+    return ({"streaming:serialized": serial["launches"],
+             "streaming:ring": ring["launches"]}, hs, serial["bytes"])
+
+
+def streaming_experiment(dev) -> dict:
+    """15(b): ``examples/specs/streaming_smoke.json`` (vit-s; a memmap ring
+    of 4 under faults with a quarter of the writes torn; observability
+    on) on the card and on the CPU from the same CPU-seeded init: the ring
+    stats, the wire statistics and the counters ``==``; every record but
+    the last server epoch's within phase 12(c)'s gate, that one (the run
+    diverges) at ``STREAM_DIVERGED_RTOL``."""
+    base = ExperimentSpec.load(os.path.join(ROOT, STREAM_SPEC))
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            reset_launches()
+            t = time.perf_counter()
+            outs[where] = run_experiment(dataclasses.replace(
+                base, results_dir=os.path.join(tmp, where)), device=device,
+                write_results=False)
+            outs[f"{where}_s"] = time.perf_counter() - t
+            if where == "card":
+                launches = read_launches()      # before the CPU run
+    card, cpu = outs["card"], outs["cpu"]
+    h_card, h_cpu = (o["results"]["ampere"]["history"] for o in (card, cpu))
+    rel = {f"{ph}{i}_{k}": abs(x[k] - y[k]) / abs(y[k])
+           for ph in ("device", "server")
+           for i, (x, y) in enumerate(zip(h_card[ph], h_cpu[ph]))
+           for k in ("loss", "val_loss")}
+    got, want = ((o["results"]["ampere"]["store"].ring.stats,
+                  o["summary"]["ampere"]["wire"],
+                  o["results"]["ampere"]["history"]["observability"][
+                      "metrics"]["counters"]) for o in (card, cpu))
+    log("streaming_experiment", ring_stats=got[0], wire=got[1],
+        counters={k: v for k, v in got[2].items() if "ring" in k
+                  or "overlap" in k}, rel_diff=rel,
+        seconds_card=outs["card_s"], seconds_cpu=outs["cpu_s"],
+        launches=launches, card=card_line())
+    if got != want:
+        raise AssertionError(f"streaming_smoke: card (ring, wire, counters) "
+                             f"{got} vs cpu {want}")
+    last = f"server{len(h_cpu['server']) - 1}_"
+    for key, r in rel.items():
+        if not r <= (STREAM_DIVERGED_RTOL if key.startswith(last)
+                     else 1e-4):
+            raise AssertionError(f"streaming_smoke card vs cpu {key}: {r}")
+    for ph in ("device", "server"):
+        if len(h_card[ph]) != len(h_cpu[ph]) or any(
+                abs(x["val_acc"] - y["val_acc"]) > 1e-2
+                for x, y in zip(h_card[ph], h_cpu[ph])):
+            raise AssertionError(f"streaming_smoke {ph}: {h_card[ph]} vs "
+                                 f"{h_cpu[ph]}")
+    for key in ("comm_bytes", "sim_time"):
+        if h_card[key] != h_cpu[key]:
+            raise AssertionError(f"streaming_smoke {key}: {h_card[key]} vs "
+                                 f"{h_cpu[key]}")
+    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _in_thread(fn, *args, **kwargs):
+    """``fn`` in a daemon thread: ``(thread, out)``, ``out`` getting
+    ``"result"`` or ``"error"``."""
+    out = {}
+
+    def run():
+        try:
+            out["result"] = fn(*args, **kwargs)
+        except BaseException as err:
+            out["error"] = err
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, out
+
+
+def _joined(th, out, what):
+    th.join(timeout=ROLE_JOIN_S)
+    if th.is_alive():
+        raise AssertionError(f"{what}: still running after {ROLE_JOIN_S} s")
+    if "error" in out:
+        raise AssertionError(f"{what} failed: {out['error']!r}") \
+            from out["error"]
+    return out["result"]
+
+
+def _two_roles(spec, device, setup=None, results_dir=None):
+    """The server role and the device role in two threads over loopback
+    (a port bound from 0): (server result, device result)."""
+    port = _free_port()
+    srv = _in_thread(roles.run_server_role, spec, port=port,
+                     results_dir=results_dir, device=device, setup=setup)
+    dev_side = _in_thread(roles.run_device_role, spec, port=port,
+                          device=device, setup=setup)
+    return (_joined(*srv, "server role"),
+            _joined(*dev_side, "device role"))
+
+
+def socket_full(dev, serial_hist, upload_bytes) -> dict:
+    """15(c): the two roles at full width in two threads, handed 15(a)'s
+    setup: the server's history ``==`` 15(a)'s serialized run's (records,
+    ``comm_bytes``, ``sim_time``), ``analytic_transfer_bytes`` its upload
+    bytes, and the measured wire bytes exactly the frames' (no retry):
+    the analytic bytes, the state frame, and the framing (frame headers,
+    metadata, CRCs, the npz containers, the ``done`` frame)."""
+    cfg, run_cfg, model, clients, evald, _ = fleet_setup()
+    spec = ExperimentSpec(
+        name="socket_full", arch=FLEET_ARCH, smoke=False, run=run_cfg,
+        data=DataSpec(train_samples=TRAIN_SAMPLES, eval_samples=EVAL_SAMPLES,
+                      seq_len=MAIN_PATHS[FLEET_ARCH]["seq"]),
+        max_rounds=CHAOS_ROUNDS, max_server_epochs=SERVER_EPOCHS,
+        transport=SOCKET_TRANSPORT)
+    frames, hists = [], []
+    recv, run_server_phase = FrameReceiver.recv, AmpereTrainer.run_server_phase
+
+    def recording_recv(self):
+        f = recv(self)
+        stored = 0
+        if f.kind == "shard":
+            with np.load(io.BytesIO(f.payload)) as z:
+                stored = sum(z[k].nbytes for k in z.files)
+        frames.append((f.kind, len(encode_frame(f)), stored))
+        return f
+
+    def recording_phase(self, *args, **kwargs):
+        out = run_server_phase(self, *args, **kwargs)
+        hists.append(dict(self.history))
+        return out
+
+    FrameReceiver.recv = recording_recv
+    AmpereTrainer.run_server_phase = recording_phase
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            server, device = _two_roles(
+                spec, dev, setup=(spec, model, clients, evald),
+                results_dir=tmp)
+    finally:
+        FrameReceiver.recv = recv
+        AmpereTrainer.run_server_phase = run_server_phase
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    summary = server["summary"]
+    measured, analytic = (summary["measured_wire_bytes"],
+                          summary["analytic_transfer_bytes"])
+    state = [n for kind, n, _ in frames if kind == "state"]
+    stored = sum(st for _, _, st in frames)
+    framing = sum(n - st for kind, n, st in frames if kind != "state")
+    log("socket", arch=FLEET_ARCH, seconds=seconds,
+        measured_wire_bytes=measured, analytic_transfer_bytes=analytic,
+        device_sent_bytes=device["sent_bytes"], state_frame_bytes=state,
+        framing_bytes=framing, frame_stats=summary["frames"],
+        frames={k: sum(1 for f in frames if f[0] == k)
+                for k in ("state", "shard", "done")},
+        sender_stats=device["stats"], comm_bytes=summary["comm_bytes"],
+        sim_time_s=summary["sim_time_s"],
+        server=hists[0]["server"] if hists else None,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        ru_maxrss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        / 2 ** 20, launches=launches, card=card_line())
+    if len(hists) != 1 or hists[0] != serial_hist:
+        raise AssertionError(f"socket: the server's history {hists} vs the "
+                             f"serialized run's {serial_hist}")
+    if analytic != upload_bytes or stored != analytic or \
+            summary["device_analytic_bytes"] != analytic or \
+            len(state) != 1 or \
+            not state[0] > cfg.vocab_size * cfg.d_model * 4 > upload_bytes \
+            or measured != sum(n for _, n, _ in frames) or \
+            measured - analytic != state[0] + framing or \
+            device["stats"]["retries"] or summary["frames"]["corrupt"]:
+        raise AssertionError(f"socket: wire {measured} vs analytic "
+                             f"{analytic} (upload {upload_bytes}, stored "
+                             f"{stored}), state {state}, framing {framing}, "
+                             f"{device['stats']}, {summary['frames']}")
+    _check_fleet_path("socket", cfg, hists[0], launches, CHAOS_ROUNDS)
+    return launches
+
+
+def socket_cli(dev) -> None:
+    """15(d): ``python -m repro_torch.launch.run_experiment SPEC --role
+    server`` and ``... --role device`` as two processes on the card (the
+    kernels already built), the qwen3 smoke spec over a socket; both exit
+    0, and the server's ``summary.json`` matches the two roles run on the
+    CPU: losses within 1e-4 relative, accuracies within 1e-2, the bytes
+    of every frame before the ``done`` frame, the analytic bytes,
+    ``comm_bytes`` and ``sim_time`` equal, and the ``done`` frame within
+    ``DONE_FRAME_SLACK`` bytes a float of its history."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dataclasses.replace(experiment_spec(tmp), persist=False,
+                                   transport=TransportSpec(kind="socket"))
+        path = os.path.join(tmp, "spec.json")
+        spec.save(path)
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        # on the card the roles run on the launcher's default device
+        cmd = [sys.executable, "-m", "repro_torch.launch.run_experiment",
+               path, "--port", str(port)] + (
+                   [] if torch.device(dev).type == "cuda"
+                   else ["--device", str(dev)])
+        t = time.perf_counter()
+        procs = []
+        try:
+            procs.append(subprocess.Popen(
+                cmd + ["--role", "server", "--results-dir",
+                       os.path.join(tmp, "out")], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            procs.append(subprocess.Popen(
+                cmd + ["--role", "device"], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            outs = [p.communicate(timeout=ROLE_JOIN_S)
+                    for p in reversed(procs)]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise AssertionError(f"socket cli: exit codes {codes} "
+                                 f"(server, device): {outs[1][1][-3000:]} "
+                                 f"{outs[0][1][-3000:]}")
+        with open(os.path.join(tmp, "out", "summary.json")) as f:
+            card = json.load(f)["summary"]
+        cpu = _two_roles(spec, "cpu",
+                         results_dir=os.path.join(tmp, "cpu"))[0]["summary"]
+    # the done frame (measured less device_sent) carries the device
+    # history as JSON, whose floats print each run's own last digits
+    done = [s["measured_wire_bytes"] - s["device_sent_bytes"]
+            for s in (card, cpu)]
+    slack = DONE_FRAME_SLACK * (3 * cpu["num_device"] + 1)
+    log("socket_cli", seconds=seconds, card=card, cpu=cpu,
+        done_frame_bytes=done, done_frame_slack=slack,
+        nvidia_smi=card_line())
+    same = ("device_sent_bytes", "analytic_transfer_bytes",
+            "device_analytic_bytes", "frames", "comm_bytes", "sim_time_s",
+            "num_device", "num_server")
+    if any(card[k] != cpu[k] for k in same) or \
+            not abs(done[0] - done[1]) <= slack or \
+            not abs(card["final_val_loss"] - cpu["final_val_loss"]) \
+            <= 1e-4 * abs(cpu["final_val_loss"]) or \
+            not abs(card["final_val_acc"] - cpu["final_val_acc"]) <= 1e-2:
+        raise AssertionError(f"socket cli: card {card} vs cpu {cpu}")
+
+
+def streaming_phase(dev) -> dict:
+    """Phase 15: launches by path of (a), (b) and (c); (d) launches in its
+    own processes."""
+    by_path, serial_hist, upload_bytes = streaming_full(dev)
+    by_path["streaming_experiment"] = streaming_experiment(dev)
+    torch.cuda.empty_cache()
+    by_path["socket"] = socket_full(dev, serial_hist, upload_bytes)
+    torch.cuda.empty_cache()
+    socket_cli(dev)
+    return by_path
+
+
 def tf32_flags() -> dict:
     return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "cublas_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
@@ -2682,6 +3124,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(chaos_phase(dev, cut_card_hist))
     log("chaos_phase", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    by_path.update(streaming_phase(dev))
+    log("streaming_phase", seconds=time.perf_counter() - t)
     for arch in MAIN_PATHS:
         profile_step(dev, arch)
         torch.cuda.empty_cache()

@@ -59,6 +59,16 @@ is the analytic one above; faults that retries absorb change only
 ``comm_bytes`` and ``sim_time``.  ``obs`` records the ``consolidate``,
 ``aux_eval`` and ``merged_eval`` spans and the per-phase metrics, and
 changes no history.
+
+Streaming (a :class:`~repro_torch.streaming.StreamingActivationStore`,
+told apart by its ``sample_arrivals``): each shard is committed to the
+activation ring with its simulated arrival time (its share of the
+upload's clock, priced as the upload is), and a resident server phase
+charges each epoch only its pipeline increment past the upload's
+accounted end (:class:`~repro_torch.streaming.OverlapAccountant`), the
+seconds hidden behind the device round landing in the ``overlap_s``
+counter.  The computation is the serialized run's, so every history
+record is too; only ``sim_time`` shrinks.
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ from repro_torch.interop import tree_map
 from repro_torch.models import build_model
 from repro_torch.observability import NULL_OBS
 from repro_torch.optim import make_schedule
+from repro_torch.streaming.overlap import OverlapAccountant
 from repro_torch.transport import (QuorumError, cohort_exchange,
                                    required_quorum)
 
@@ -123,6 +134,9 @@ class AmpereTrainer:
                 for d in cuts.depths}
         self.rng = np.random.default_rng(run_cfg.fed.seed)
         self._store: Optional[ActivationStore] = None
+        # the upload's accounted end, where a streamed server phase's
+        # overlap accounting starts its frontier
+        self._transfer_sim_s = 0.0
         self.runner = Runner(workdir, patience=patience, log_echo=log_echo,
                              history={"device": [], "server": [],
                                       "comm_bytes": 0, "sim_time": 0.0},
@@ -515,6 +529,32 @@ class AmpereTrainer:
         client_extra: dict = {}
         failed: set = set()
         pending: dict = {}
+        # a streaming store: each shard carries its simulated arrival,
+        # serial: the stored bytes so far through the shared link plus
+        # every retry's extra so far (the last lands at the upload's
+        # accounted end); parallel: the client's bytes so far on its own
+        # link plus its own extras
+        streams = hasattr(store, "sample_arrivals")
+        bytes_cum: dict = {None: 0}
+
+        def arrival(cid, nbytes):
+            if upload == "parallel":
+                bytes_cum[cid] = bytes_cum.get(cid, 0) + nbytes
+                bw_c = (client_bandwidth_bps.get(cid,
+                                                 comm_model.BANDWIDTH_BPS)
+                        if client_bandwidth_bps is not None
+                        else comm_model.BANDWIDTH_BPS)
+                return bytes_cum[cid] / bw_c + client_extra.get(cid, 0.0)
+            bytes_cum[None] += nbytes
+            return (bytes_cum[None] / comm_model.BANDWIDTH_BPS
+                    + sum(client_extra.values()))
+
+        def submit(cid, shard, t_arr, cut):
+            if streams:
+                store.submit(cid, shard, t_arrival=t_arr, cut=cut)
+            else:
+                store.submit(cid, shard, cut=cut)
+
         store.start_writer()
         try:
             for client in self.clients:
@@ -548,14 +588,17 @@ class AmpereTrainer:
                             continue
                         if not res.first_delivery:
                             continue    # a duplicate, absorbed
+                    t_arr = (arrival(cid, ActivationStore.shard_nbytes(
+                        shard, store.quantize)) if streams else 0.0)
                     if faulty:
-                        pending.setdefault(cid, []).append((shard, cut))
+                        pending.setdefault(cid, []).append(
+                            (shard, t_arr, cut))
                     else:
-                        store.submit(cid, shard, cut=cut)
+                        submit(cid, shard, t_arr, cut)
             for cid, shards in pending.items():
                 if cid not in failed:
-                    for shard, cut in shards:
-                        store.submit(cid, shard, cut=cut)
+                    for shard, t_arr, cut in shards:
+                        submit(cid, shard, t_arr, cut)
         finally:
             store.finish()
         if faulty and failed:
@@ -579,6 +622,7 @@ class AmpereTrainer:
         if client_extra:
             extra_total = (max(client_extra.values()) if upload == "parallel"
                            else sum(client_extra.values()))
+        self._transfer_sim_s = t_up + extra_total
         self.runner.account(
             comm_bytes=(wire_total if transport is not None
                         else store.bytes_received),
@@ -588,6 +632,17 @@ class AmpereTrainer:
                                      phase="transfer")
         sp.set(bytes=store.bytes_received, sim_time_s=round(t_up, 9),
                excluded=len(failed))
+        if streams:
+            rs = store.ring.stats
+            sp.set(streaming=True, ring_segments=rs["segments"],
+                   ring_stalls=rs["stalls"],
+                   ring_max_occupancy=rs["max_occupancy"])
+            self.obs.metrics.counter("ring_backpressure_stalls",
+                                     rs["stalls"], phase="transfer")
+            if rs["torn_repairs"]:
+                self.obs.metrics.counter("ring_torn_repairs",
+                                         rs["torn_repairs"],
+                                         phase="transfer")
         if faulty:
             self.log.log(phase="transfer", bytes=store.bytes_received,
                          upload=upload, wire=wire_total,
@@ -619,9 +674,8 @@ class AmpereTrainer:
             merged_model = build_model(splitting.merged_config(self.model))
             epochs = max_epochs if max_epochs is not None \
                 else run.fed.server_epochs
-            train_epoch, epoch_sim_time = (
-                self._one_cut_epochs(store) if self.cuts is None
-                else self._depth_epochs(store))
+            train_epoch = (self._one_cut_epochs(store) if self.cuts is None
+                           else self._depth_epochs(store))
 
             def body(srv_state, epoch, _plan):
                 # handed over: the Runner keeps no reference and neither
@@ -629,7 +683,7 @@ class AmpereTrainer:
                 # (the reference donates it)
                 held = [srv_state]
                 del srv_state
-                srv_state, ls = train_epoch(held)
+                srv_state, ls, epoch_sim_time = train_epoch(held, epoch)
                 with self.obs.tracer.span("merged_eval", track="eval",
                                           epoch=epoch) as esp:
                     val = evaluate.evaluate(
@@ -657,23 +711,52 @@ class AmpereTrainer:
             self._store = None
 
     def _one_cut_epochs(self, store: ActivationStore):
-        """``(train_epoch, epoch_sim_time)`` at one cut: an epoch over the
-        device-resident pool (an int8 pool is admitted, uploaded and kept
-        as int8), or, for a pool too small for one batch or over the
-        budget, over the store's batches streamed from the host.
-        ``train_epoch(held)`` takes the state out of the one-element list
-        ``held`` and returns the new state and the epoch's losses on the
-        host (one sync)."""
+        """``train_epoch`` at one cut: an epoch over the device-resident
+        pool (an int8 pool is admitted, uploaded and kept as int8), or, for
+        a pool too small for one batch or over the budget, over the
+        store's batches streamed from the host.  ``train_epoch(held,
+        epoch)`` takes the state out of the one-element list ``held`` and
+        returns the new state, the epoch's losses on the host (one sync)
+        and the epoch's simulated seconds: the analytic epoch time, or,
+        over a streamed resident pool, its increment past the accounted
+        frontier (``stream_consume`` span, ``overlap_s`` counter)."""
         bs = self.run.fed.server_batch_size
         resident = store.num_samples() >= bs and self._fits(
             store.pool_nbytes())
+        # pool() concatenates: a streamed pool's read-only segment views
+        # never reach a tensor
         pool = self._tensors(store.pool()) if resident else None
+        epoch_sim_time = comm_model.ampere_server_epoch_time(
+            self.model, self.run.split, comm_model.TimeModel(),
+            n_samples=store.num_samples(), seq_len=self._seq_len(),
+            sizes=self.sizes)
+        accountant = None
+        if resident and hasattr(store, "sample_arrivals"):
+            accountant = OverlapAccountant(
+                store.sample_arrivals(), device_end=self._transfer_sim_s,
+                per_batch_s=epoch_sim_time / max(1, store.num_samples()
+                                                 // bs))
 
-        def train_epoch(held):
+        def train_epoch(held, epoch):
+            sim = epoch_sim_time
             if resident:
-                idx = torch.as_tensor(store.epoch_indices(bs),
-                                      dtype=torch.long, device=self.device)
-                srv_state, losses = self._server_epoch(held.pop(), pool, idx)
+                idx_np = store.epoch_indices(bs)
+                idx = torch.as_tensor(idx_np, dtype=torch.long,
+                                      device=self.device)
+                if accountant is None:
+                    srv_state, losses = self._server_epoch(held.pop(), pool,
+                                                           idx)
+                else:
+                    with self.obs.tracer.span("stream_consume",
+                                              track="streaming",
+                                              epoch=epoch) as csp:
+                        srv_state, losses = self._server_epoch(held.pop(),
+                                                               pool, idx)
+                        sim, overlapped = accountant.epoch(idx_np)
+                        csp.set(sim_s=round(sim, 9),
+                                overlap_s=round(overlapped, 9))
+                    self.obs.metrics.counter("overlap_s", overlapped,
+                                             phase="server")
             else:
                 srv_state, out = held.pop(), []
                 for batch in DevicePrefetcher(store.batches(bs, epochs=1),
@@ -682,15 +765,13 @@ class AmpereTrainer:
                     out.append(m["loss"])
                 losses = (torch.stack(out) if out
                           else torch.zeros((0,), device=self.device))
-            return srv_state, losses.double().cpu().numpy()
+            return srv_state, losses.double().cpu().numpy(), sim
 
-        return train_epoch, comm_model.ampere_server_epoch_time(
-            self.model, self.run.split, comm_model.TimeModel(),
-            n_samples=store.num_samples(), seq_len=self._seq_len(),
-            sizes=self.sizes)
+        return train_epoch
 
     def _depth_epochs(self, store: ActivationStore):
-        """``(train_epoch, epoch_sim_time)`` over a heterogeneous-cut pool:
+        """``train_epoch`` (as :meth:`_one_cut_epochs`'s) over a
+        heterogeneous-cut pool:
         the shards are bucketed by their cut tag, and an epoch runs one
         pass per depth, in sorted order (so the store's rng stream is
         deterministic), each entering the server block at its depth.  The
@@ -713,7 +794,14 @@ class AmpereTrainer:
                      for d in present}
         bs = run.fed.server_batch_size
 
-        def train_epoch(held):
+        epoch_sim_time = sum(
+            comm_model.ampere_server_epoch_time(
+                self.model, self._run_by_depth[d].split,
+                comm_model.TimeModel(), n_samples=store.num_samples(cut=d),
+                seq_len=self._seq_len(), sizes=self._sizes_by_depth[d])
+            for d in present)
+
+        def train_epoch(held, _epoch):
             ls = []
             for d in present:
                 idx = store.epoch_indices(min(bs, store.num_samples(cut=d)),
@@ -725,14 +813,9 @@ class AmpereTrainer:
                 held.append(srv_state)
                 del srv_state
                 ls.append(losses.double().cpu().numpy())
-            return held.pop(), np.concatenate(ls)
+            return held.pop(), np.concatenate(ls), epoch_sim_time
 
-        return train_epoch, sum(
-            comm_model.ampere_server_epoch_time(
-                self.model, self._run_by_depth[d].split,
-                comm_model.TimeModel(), n_samples=store.num_samples(cut=d),
-                seq_len=self._seq_len(), sizes=self._sizes_by_depth[d])
-            for d in present)
+        return train_epoch
 
     def _sync_overlap_from_device(self, device, server):
         """The server block with the device-trained overlap layers

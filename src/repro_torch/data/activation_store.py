@@ -39,7 +39,13 @@ shards, so the payloads are those of the untagged path, and ``pool``,
 ``num_samples`` and ``epoch_indices`` take ``cut=`` to address one depth's
 bucket: shards of different depths never share a pool.  Disk shards keep
 no tag (:func:`load_store` rebuilds an untagged store), as in the
-reference.  The streaming ring is queue A6b of ROADMAP.md.
+reference.
+
+``streaming_batches`` trains while receiving: it yields epochs over
+whatever has landed so far, then, once ``finish`` has joined the writer
+(the ``_closed`` event), one last full epoch over the complete pool.  The
+ring-backed drop-in is
+:class:`~repro_torch.streaming.store.StreamingActivationStore`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -67,6 +74,7 @@ class ActivationStore:
         self._q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._closed = threading.Event()
         self.bytes_received = 0
         if directory:
             os.makedirs(directory, exist_ok=True)
@@ -111,12 +119,14 @@ class ActivationStore:
         self._q.put((client_id, shard, cut))
 
     def finish(self):
-        """Join the writer thread after every queued shard is stored, and
-        raise the exception it stopped on, if any."""
+        """Join the writer thread after every queued shard is stored, mark
+        the store closed, and raise the exception the writer stopped on,
+        if any."""
         if self._writer is not None:
             self._q.put(None)
             self._writer.join()
             self._writer = None
+        self._closed.set()
         err, self._error = self._error, None
         if err is not None:
             raise err
@@ -184,14 +194,17 @@ class ActivationStore:
     def _shards(self, client_id: Optional[int] = None,
                 cut: Optional[int] = None) -> List[dict]:
         """The shards of every client (or one), in client insertion order,
-        all of them or those of one cut bucket."""
-        cids = list(self._mem) if client_id is None else [int(client_id)]
-        if cut is None:
-            return [s for c in cids for s in self._mem.get(c, [])]
-        return [s for c in cids
-                for s, t in zip(self._mem.get(c, []),
-                                self._cut_tags.get(c, []))
-                if t == cut]
+        all of them or those of one cut bucket: a snapshot taken under the
+        lock, so a reader may run beside the writer thread."""
+        with self._lock:
+            cids = list(self._mem) if client_id is None \
+                else [int(client_id)]
+            if cut is None:
+                return [s for c in cids for s in self._mem.get(c, [])]
+            return [s for c in cids
+                    for s, t in zip(self._mem.get(c, []),
+                                    self._cut_tags.get(c, []))
+                    if t == cut]
 
     def cut_depths(self) -> List[int]:
         """The distinct cut tags present, sorted (untagged shards not)."""
@@ -235,18 +248,37 @@ class ActivationStore:
         nb = n // batch_size
         return order[:nb * batch_size].reshape(nb, batch_size).astype(np.int32)
 
+    def _one_epoch(self, pool: dict, batch_size: int):
+        """One shuffled pass over ``pool``: one ``rng.permutation``,
+        trailing remainder dropped, the draw :meth:`epoch_indices` makes."""
+        order = self.rng.permutation(len(pool["acts"]))
+        for s in range(0, len(order) - batch_size + 1, batch_size):
+            yield {k: v[order[s:s + batch_size]] for k, v in pool.items()}
+
     def batches(self, batch_size: int, epochs: int = 1):
-        """Shuffled batches of the whole pool for ``epochs`` passes: one
-        ``rng.permutation`` an epoch, trailing remainder dropped, the draw
-        :meth:`epoch_indices` makes."""
+        """Shuffled batches of the whole pool for ``epochs`` passes."""
         pool = self.pool()
         if not pool:
             return
-        n = len(pool["acts"])
         for _ in range(epochs):
-            order = self.rng.permutation(n)
-            for s in range(0, n - batch_size + 1, batch_size):
-                yield {k: v[order[s:s + batch_size]] for k, v in pool.items()}
+            yield from self._one_epoch(pool, batch_size)
+
+    def streaming_batches(self, batch_size: int, poll: float = 0.01):
+        """Train while receiving: epochs over the pool landed so far until
+        the store is closed, then one full epoch over the complete pool,
+        so a shard that landed after the last mid-stream snapshot is seen
+        at least once."""
+        while not self._closed.is_set():
+            pool = self.pool()
+            if len(pool.get("acts", ())) >= batch_size:
+                yield from self._one_epoch(pool, batch_size)
+            else:
+                time.sleep(poll)
+        # finish() joins the writer before it sets _closed: this snapshot
+        # is the final pool
+        pool = self.pool()
+        if len(pool.get("acts", ())) >= batch_size:
+            yield from self._one_epoch(pool, batch_size)
 
 
 def load_store(directory: str, seed: int = 0) -> ActivationStore:

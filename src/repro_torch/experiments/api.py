@@ -9,8 +9,12 @@ directory with a ``summary.json`` plus ``<system>_history.json`` files.
 A per-profile cut policy resolves to a cut per device class
 (:func:`resolve_cut_policy`).  A ``transport`` / ``faults`` section gives
 each system its own fault-injecting transport (:func:`build_transport`),
-and an ``observability`` section its own tracer and metrics, whose phase
-table, trace digest and exported artifacts land in the summary.  Runs on
+an ``observability`` section its own tracer and metrics, whose phase
+table, trace digest and exported artifacts land in the summary, and a
+``streaming`` section routes Ampere's upload through the activation ring.
+A socket transport prices its transfers here as the in-process one does
+(the reference's behaviour); its two processes are the roles of
+:mod:`repro_torch.transport.roles`.  Runs on
 CUDA unless ``device="cpu"``.  The command line is
 ``python -m repro_torch.launch.run_experiment``.
 """
@@ -216,7 +220,7 @@ def run_experiment(spec: ExperimentSpec, *, log_echo: bool = False,
             cuts=cuts, transport=transport,
             quorum_frac=(spec.transport.quorum_frac
                          if spec.transport is not None else 1.0),
-            obs=obs)
+            obs=obs, streaming=spec.streaming)
         system = sys_cls()
         system.on_start(ctx)
         try:

@@ -13,13 +13,13 @@ A spec may name a fleet (``fleet``, a
 trace): every system then replays one shared churn trace, as in the
 reference, and a ``cut`` (:class:`~repro_torch.fleet.cuts.CutPolicy`)
 may give each device class of that fleet its own cut layer.  A
-``transport`` (in process), ``faults``
-(:class:`~repro_torch.transport.FaultSpec`) and ``observability`` run as
-the reference's do.  ``streaming`` and the socket transport are kept as
-data (the reference's fields, defaults and checks); the port cannot run
-them yet, so :meth:`ExperimentSpec.validate` names their ROADMAP.md queue
-item (A6b), and :func:`repro_torch.experiments.run_experiment` refuses
-such a spec.
+``transport`` (in process, or ``socket``: the two-process roles of
+:mod:`repro_torch.transport.roles`), ``faults``
+(:class:`~repro_torch.transport.FaultSpec`), ``observability`` and
+``streaming`` (the activation ring) run as the reference's do.  MoE and
+hybrid archs are not ported yet: :meth:`ExperimentSpec.validate` names
+their ROADMAP.md queue item (A7), and
+:func:`repro_torch.experiments.run_experiment` refuses such a spec.
 """
 
 from __future__ import annotations
@@ -117,8 +117,9 @@ class DataSpec:
 @dataclass(frozen=True)
 class TransportSpec:
     """How bytes move between device and server blocks.  ``inprocess``
-    prices transfers through the simulated link; ``socket`` (two
-    processes) is queue A6b.  The retry knobs map onto one
+    prices transfers through the simulated link; ``socket`` is the
+    two-process mode of ``python -m repro_torch.launch.run_experiment
+    --role device|server``.  The retry knobs map onto one
     :class:`~repro_torch.transport.RetryPolicy` shared by every transfer,
     and ``quorum_frac`` is the fraction of a cohort whose uploads must
     verify before a round closes."""
@@ -152,8 +153,15 @@ class TransportSpec:
 
 @dataclass(frozen=True)
 class StreamingSpec:
-    """The activation ring between the upload and the server phase
-    (queue A6b)."""
+    """Actor/learner streaming: Ampere's upload goes through the activation
+    ring (:class:`~repro_torch.streaming.StreamingActivationStore`):
+    CRC'd segments (memmap-backed under a persisted workdir, else in
+    RAM), watermark backpressure at ``capacity_segments`` /
+    ``low_watermark``, and server epochs whose accounted ``sim_time``
+    overlaps the rest of the device round (``overlap_s`` in the phase
+    table).  The history is the serialized run's but for ``sim_time``,
+    which can only shrink.  ``drain_chunk`` / ``interleave_seed`` seed
+    the single-process producer/consumer interleaving."""
 
     enabled: bool = True
     backend: str = "memmap"          # falls back to "memory" w/o a workdir
@@ -257,9 +265,8 @@ class ExperimentSpec:
     # ------------------------------------------------------------------
     def validate(self) -> list:
         """Human-readable problems (empty = valid): every check of the
-        reference, plus one problem for each feature the port cannot run
-        yet (streaming, the socket transport, MoE and hybrid archs),
-        naming its ROADMAP.md queue item."""
+        reference, plus one for an arch the port cannot run yet (MoE and
+        hybrid), naming its ROADMAP.md queue item."""
         from repro_torch.configs import registry
         from repro_torch.configs.base import VisionConfig
         from repro_torch.experiments.systems import list_systems
@@ -361,13 +368,4 @@ class ExperimentSpec:
                     f"system(s) {async_systems} with a synchronous "
                     "trace_path need a fleet section too — their buffered "
                     "schedule is derived from the device population")
-        # features the port cannot run yet, one problem each
-        item = "A6b (streaming, socket transport)"
-        if self.streaming is not None:
-            problems.append("spec.streaming is set but the port cannot run "
-                            f"it yet (ROADMAP.md queue {item})")
-        if self.transport is not None and self.transport.kind == "socket":
-            problems.append("spec.transport.kind='socket' is set but the "
-                            "port cannot run it yet (ROADMAP.md queue "
-                            f"{item})")
         return problems

@@ -59,6 +59,7 @@ class SystemContext:
     transport: Any = None          # InProcessTransport (None = analytic)
     quorum_frac: float = 1.0       # verified-upload fraction closing a round
     obs: Any = None                # Observability bundle (None = NULL_OBS)
+    streaming: Any = None          # StreamingSpec (None = serialized store)
 
     @property
     def seq_len(self) -> int:
@@ -214,8 +215,30 @@ class AmpereSystem(System):
         return tr.run_device_phase(dev_state, ctx.max_rounds)
 
     def _make_store(self, tr, ctx: SystemContext):
-        """The consolidation store of the upload and the server phase;
-        with a workdir its shards are also persisted under ``acts/``."""
+        """The consolidation store of the upload and the server phase: the
+        streaming ring when the spec asks for it (a memmap ring under
+        ``<workdir>/ring``; without a workdir the in-RAM ring, whose
+        history is the same; the transport's fault plan tears its
+        writes), else the serialized store, whose shards a workdir also
+        persists under ``acts/``."""
+        sp = ctx.streaming
+        if sp is not None and sp.enabled:
+            from repro_torch.streaming import StreamingActivationStore
+
+            ring_dir = (os.path.join(tr.workdir, "ring") if tr.workdir
+                        else None)
+            return StreamingActivationStore(
+                directory=ring_dir,
+                quantize_int8=tr.run.split.quantize_activations,
+                seed=tr.run.seed, capacity_segments=sp.capacity_segments,
+                low_watermark=sp.low_watermark,
+                backend=(sp.backend if sp.backend != "memmap" or ring_dir
+                         else "memory"),
+                drain_chunk=sp.drain_chunk,
+                interleave_seed=sp.interleave_seed,
+                fault_plan=(ctx.transport.fault_plan
+                            if ctx.transport is not None else None),
+                obs=tr.obs)
         return ActivationStore(
             directory=(os.path.join(tr.workdir, "acts")
                        if tr.workdir else None),

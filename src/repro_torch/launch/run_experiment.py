@@ -15,8 +15,18 @@ registry, building nothing.  ``--profile`` forces observability on with
 :func:`repro_torch.observability.profiling.profile_run`: every tracer
 span and kernel entry point opens a ``torch.profiler`` range (and, on the
 card, an NVTX range), and the profiler's Chrome trace lands in
-``<results>/profile/profile_trace.json``.  ``--role`` (the two-process
-socket mode) is queue A6b of ROADMAP.md and is refused.
+``<results>/profile/profile_trace.json``.
+
+``--role device|server`` runs one side of Ampere's two-process socket
+mode (:mod:`repro_torch.transport.roles`) on a spec, on the card unless
+``--device cpu``; ``--host`` / ``--port`` override the spec's
+``transport`` address.  Start the server first: the device dials it,
+retrying while it comes up::
+
+    python -m repro_torch.launch.run_experiment SPEC --role server \
+        --port 7733 --results-dir out &
+    python -m repro_torch.launch.run_experiment SPEC --role device \
+        --port 7733
 """
 
 from __future__ import annotations
@@ -46,17 +56,17 @@ def make_parser() -> argparse.ArgumentParser:
                          "observability on); the trace lands under "
                          "<results>/profile")
     ap.add_argument("--role", choices=("device", "server"), default=None,
-                    help="two-process socket mode (not in the port yet: "
-                         "ROADMAP.md queue A6b)")
+                    help="two-process socket mode: run only this side of "
+                         "the Ampere pipeline (repro_torch.transport.roles)")
+    ap.add_argument("--host", default=None,
+                    help="socket mode: override spec.transport.host")
+    ap.add_argument("--port", type=int, default=None,
+                    help="socket mode: override spec.transport.port")
     return ap
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.role is not None:
-        print(f"--role {args.role}: the two-process socket mode is not "
-              "ported yet (ROADMAP.md queue A6b)", file=sys.stderr)
-        return 2
 
     from repro_torch.experiments import (ExperimentSpec, ObservabilitySpec,
                                          run_experiment)
@@ -75,6 +85,20 @@ def main(argv=None) -> int:
         for p in problems:
             print(f"  - {p}", file=sys.stderr)
         return 1
+
+    if args.role is not None:
+        from repro_torch.transport import roles
+
+        if args.role == "device":
+            out = roles.run_device_role(spec, host=args.host, port=args.port,
+                                        echo=args.echo, device=args.device)
+        else:
+            out = roles.run_server_role(spec, host=args.host, port=args.port,
+                                        echo=args.echo,
+                                        results_dir=args.results_dir,
+                                        device=args.device)
+        print(json.dumps(out.get("summary") or out.get("result"), indent=1))
+        return 0
 
     results_dir = spec.results_dir or os.path.join("results", spec.name)
     if args.dry_run:

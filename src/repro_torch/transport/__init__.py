@@ -1,16 +1,18 @@
 """Fault-injecting transport layer (checksummed framing, retry and
-backoff, quorum-degraded rounds), as ``repro.transport`` less its socket
-mode.  Its modules use the standard library only (no torch, no numpy).
+backoff, quorum-degraded rounds, a real TCP wire), as
+``repro.transport``.  Its modules use the standard library only at
+import time (the roles import torch and numpy inside their functions).
 
 * :mod:`~repro_torch.transport.framing` — the frame codec and ``crc32``;
 * :mod:`~repro_torch.transport.faults` — ``FaultSpec`` / ``FaultPlan``,
   every decision a pure function of (seed, key, attempt, device);
 * :mod:`~repro_torch.transport.retry` — ``RetryPolicy``;
 * :mod:`~repro_torch.transport.inprocess` — ``InProcessTransport`` and
-  :func:`cohort_exchange`.
-
-The socket transport and its two-process roles are queue A6b of
-ROADMAP.md.
+  :func:`cohort_exchange`;
+* :mod:`~repro_torch.transport.socket_transport` — ``SocketTransport``
+  and ``FrameReceiver``, the stop-and-wait protocol over TCP;
+* :mod:`~repro_torch.transport.roles` — ``run_device_role`` /
+  ``run_server_role``, Ampere as two processes.
 """
 
 from repro_torch.transport.faults import (FaultDecision, FaultPlan,
@@ -25,11 +27,17 @@ from repro_torch.transport.inprocess import (InProcessTransport,
                                              cohort_exchange,
                                              required_quorum)
 from repro_torch.transport.retry import RetryExhaustedError, RetryPolicy
+from repro_torch.transport.socket_transport import (CountingSocket,
+                                                    FrameReceiver,
+                                                    SocketTransport, connect,
+                                                    listen_one)
 
 __all__ = [
-    "CorruptFrame", "FaultDecision", "FaultPlan", "FaultSpec", "Frame",
-    "FrameError", "InProcessTransport", "QuorumError", "RetryExhaustedError",
-    "RetryPolicy", "TransferResult", "TruncatedFrame", "cohort_exchange",
-    "crc32", "decode_frame", "encode_frame", "flip_bit", "frame_overhead",
-    "read_frame", "required_quorum", "stable_hash",
+    "CorruptFrame", "CountingSocket", "FaultDecision", "FaultPlan",
+    "FaultSpec", "Frame", "FrameError", "FrameReceiver",
+    "InProcessTransport", "QuorumError", "RetryExhaustedError",
+    "RetryPolicy", "SocketTransport", "TransferResult", "TruncatedFrame",
+    "cohort_exchange", "connect", "crc32", "decode_frame", "encode_frame",
+    "flip_bit", "frame_overhead", "listen_one", "read_frame",
+    "required_quorum", "stable_hash",
 ]

@@ -498,18 +498,25 @@ def test_killed_chaos_run_resumes_to_the_uninterrupted_one(
 
 def test_run_experiment_cli(tmp_path, capsys, monkeypatch):
     """``python -m repro_torch.launch.run_experiment``: a dry run, the
-    socket roles refused (queue A6b), the default device the card, and
-    ``--profile`` on the CPU: observability forced on, the phase table
-    printed, the profiler's trace and the span artifacts written."""
+    socket roles' options accepted, a streaming spec's dry run, the
+    default device the card, and ``--profile`` on the CPU: observability
+    forced on, the phase table printed, the profiler's trace and the span
+    artifacts written."""
     assert cli.main([CHAOS_SMOKE, "--dry-run"]) == 0
     assert "dry-run OK" in capsys.readouterr().out
-    assert cli.main([CHAOS_SMOKE, "--role", "server"]) == 2
-    assert "A6b" in capsys.readouterr().err
+    args = cli.make_parser().parse_args(
+        [CHAOS_SMOKE, "--role", "server", "--host", "127.0.0.1", "--port",
+         "7734"])
+    assert (args.role, args.host, args.port) == ("server", "127.0.0.1",
+                                                 7734)
+    with pytest.raises(SystemExit):
+        cli.make_parser().parse_args([CHAOS_SMOKE, "--role", "client"])
+    capsys.readouterr()
     streaming = tmp_path / "streaming.json"
     streaming.write_text((ROOT / "examples/specs/streaming_smoke.json")
                          .read_text())
-    assert cli.main([str(streaming), "--dry-run"]) == 1
-    assert "A6b" in capsys.readouterr().err
+    assert cli.main([str(streaming), "--dry-run"]) == 0
+    assert "dry-run OK" in capsys.readouterr().out
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):

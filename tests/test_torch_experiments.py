@@ -568,8 +568,6 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
 
 
 @pytest.mark.parametrize("feature,value,item", [
-    ("streaming", StreamingSpec(), "A6b"),
-    ("transport", TransportSpec(kind="socket"), "A6b"),
     ("arch", "qwen2-moe-a2.7b", "A7"),
 ])
 def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
@@ -584,11 +582,14 @@ def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
     ("transport", TransportSpec()),
     ("faults", FaultSpec(seed=7, drop_prob=0.1, torn_write_prob=0.25)),
     ("observability", ObservabilitySpec()),
+    ("streaming", StreamingSpec()),
+    ("transport", TransportSpec(kind="socket")),
 ])
 def test_transport_faults_observability_specs_validate_clean(feature,
                                                              value):
     """An in-process transport, fault injection and observability (queue
-    A6a) run now: each section validates clean and passes a dry run."""
+    A6a), streaming and the socket transport (A6b) run now: each section
+    validates clean and passes a dry run."""
     spec = dataclasses.replace(_t_spec("results/t"), **{feature: value})
     assert spec.validate() == []
     assert run_experiment(spec, dry_run=True)["valid"]

@@ -59,12 +59,17 @@ import repro_torch.runtime.elastic
 import repro_torch.runtime.fault_tolerance
 import repro_torch.runtime.metrics
 import repro_torch.streaming
+import repro_torch.streaming.overlap
+import repro_torch.streaming.ring
+import repro_torch.streaming.store
 import repro_torch.streaming.versions
 import repro_torch.transport
 import repro_torch.transport.faults
 import repro_torch.transport.framing
 import repro_torch.transport.inprocess
 import repro_torch.transport.retry
+import repro_torch.transport.roles
+import repro_torch.transport.socket_transport
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
