@@ -253,6 +253,34 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    history's floats as JSON, each run's own digits).  Drive it alone with
    ``chip_smoke.streaming_phase(torch.device("cuda", 0))`` after
    ``build.build()`` and a CUDA context.
+16. MoE and the hybrid stack.  (a) granite-moe-3b-a800m joins the main
+   paths (phases 4, 5 and the profiled step): published widths (d 1536,
+   24 / 8 heads of 64, 40 experts top-8 of d 512, capacity factor 1.25,
+   V 49155, tied) with 16 of its 32 layers (``MAIN_PATHS``'s ``layers``:
+   the full-depth server epoch would not fit the card), seq 512, lr
+   ``MAIN_PATHS``'s; its ``comm_bytes`` must be ``MAIN_PATHS``'s
+   ``comm_bytes`` (2 rounds x 2K(s_d + s_aux) + the upload, analytic);
+   the attention and xent kernels at its shapes (G 3, hd 64; T 8 x 511,
+   D 1536, V 49155, tied) in phase 3.  (b) One MoE layer of granite and
+   one of qwen2-moe-a2.7b (60 experts top-4 of d 1408, 4 shared of
+   1408) at published widths in fp32, params from a seeded generator and
+   x (4, 512, D) from numpy, forward and backward of sum(y r) + aux on
+   the card and on the CPU: a token whose k-th and (k+1)-th gates lie
+   within 1e-6 is a near tie, printed, and its sequence left out; every
+   other token must pick the same experts and keep the same choices, and
+   y, aux and the grads of x and of every param (run again on the
+   sequences without a near tie, at least half of them) agree within
+   1e-4 of each leaf's scale.  Then the layer twice on the card in the
+   published bf16: y and every grad bit for bit (no slot of the
+   dispatch buffer takes more than one non-zero row).  (c) The
+   qwen2-moe and jamba-1.5-large-398b smoke configs through phase 4's
+   gate, card against CPU, each launching its kernels (jamba: the SSD
+   pair at chunk 16 and the attention pair).  (d) One granite MoE layer
+   forward and checkpointed backward at the server step's shape (8 x
+   512, bf16), timed and profiled: its time beside the step's, split
+   into the dispatch's index ops, its GEMMs, top-k and the rest.  Drive
+   (b)-(d) alone with ``chip_smoke.moe_phase(torch.device("cuda", 0))``
+   after ``build.build()`` and a CUDA context.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -266,15 +294,16 @@ accumulation in another order).
 Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
-runs too), 9, 10, 11, 12, 13, 14 and 15 (its (d) launches in processes
-of its own, uncounted),
+runs too), 9, 10, 11, 12, 13, 14, 15 (its (d) launches in processes
+of its own, uncounted) and 16(a) and (c),
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
 pass count and fp32-FMA bound); the xent rows are a bf16 h, ``*_fp32`` an fp32 h, both on the
 tensor cores, counted by h's dtype; the xent rows add their bf16 pass
 count, the fp32-FMA bound for comparison and their times at the mamba2
-shape), the card line and,
+shape; the attention and xent rows their times at granite's shape), the
+card line and,
 last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.
@@ -330,6 +359,7 @@ from repro_torch.kernels.ssd_chunk import ref as SR  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.observability import Observability  # noqa: E402
 from repro_torch.observability.export import (  # noqa: E402
     export_artifacts, read_span_log, validate_chrome_trace)
@@ -395,11 +425,19 @@ BY_DTYPE = {**{name: (name, "bfloat16")
 # it trains below ln V (PERF.md, Findings).  The mamba2 rate comes from
 # ``scripts/torch_lr_probe.py --arch mamba2-370m`` (PERF.md, Findings).
 MAMBA_LR = 0.05
+# granite-moe's rate comes from ``scripts/torch_lr_probe.py --arch
+# granite-moe-3b-a800m`` (PERF.md, Findings); its depth is cut to 16 of 32
+# layers (the full-depth server block is 12.8 GB fp32, and its epoch would
+# need about 80 GiB), and ``comm_bytes`` is its analytic count at that depth
+GRANITE_LR = 0.05
 MAIN_PATHS = {
     "qwen3-1.7b": dict(seq=512, lr=0.02, kernels=(
         "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
     "mamba2-370m": dict(seq=2048, lr=MAMBA_LR, kernels=(
         "ssd_intra", "ssd_intra_bwd", "xent_fwd", "xent_bwd")),
+    "granite-moe-3b-a800m": dict(seq=512, lr=GRANITE_LR, layers=16,
+                                 comm_bytes=6_697_582_592, kernels=(
+        "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
 }
 SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
 INT8_ARCH = "qwen3-1.7b"     # its main path runs again with int8 payloads
@@ -515,6 +553,20 @@ SOCKET_TRANSPORT = TransportSpec(kind="socket", attempt_timeout_s=300.0)
 # whose values differ in the last bits (17 significant digits at most)
 DONE_FRAME_SLACK = 8
 ROLE_JOIN_S = 900.0
+# phase 16: MoE.  (b) one full-width MoE layer of each arch, card vs CPU
+# in fp32 on x of MOE_X, a near tie a k-th and (k+1)-th gate within
+# MOE_TIE, the rest within MOE_TOL of each leaf's scale; (c) the smoke
+# configs card vs CPU and the kernel rows each must launch (fp32 configs:
+# the *_fp32 rows)
+MOE_LAYER_ARCHS = ("granite-moe-3b-a800m", "qwen2-moe-a2.7b")
+MOE_X = (4, 512)
+MOE_TIE = 1e-6
+MOE_TOL = 1e-4
+_FA_XENT_FP32 = ("flash_fwd_fp32", "flash_bwd_fused_fp32", "xent_fwd_fp32",
+                 "xent_bwd_fp32")
+MOE_SMOKE = {"qwen2-moe-a2.7b": _FA_XENT_FP32,
+             "jamba-1.5-large-398b": _FA_XENT_FP32 + ("ssd_intra",
+                                                      "ssd_intra_bwd")}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -1009,13 +1061,22 @@ def read_launches() -> dict:
     return out
 
 
+def main_config(arch):
+    """A main path's config: the published one, its depth cut to
+    ``MAIN_PATHS[arch]["layers"]`` where the entry has one."""
+    cfg = registry.get_config(arch)
+    layers = MAIN_PATHS[arch].get("layers")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
 def main_path(dev, arch, quantize=False):
     """One main path through the launcher; with ``quantize`` the store
     keeps and ships int8 activations (one fp32 scale a row).  Returns the
     launches and the history."""
     spec = MAIN_PATHS[arch]
     seq, lr = spec["seq"], spec["lr"]
-    cfg = registry.get_config(arch)
+    cfg = main_config(arch)
     argv = ["--arch", arch, "--clients", "4", "--cohort", "2",
             "--local-steps", "2", "--batch-size", "4", "--server-batch", "8",
             "--seq-len", str(seq), "--lr", str(lr), "--seed", "0"]
@@ -1048,6 +1109,9 @@ def main_path(dev, arch, quantize=False):
                   else seq * cfg.d_model * 4) + seq * 4
     check_accounting(cfg, run_cfg, seq, hist, out["store"],
                      TRAIN_SAMPLES * per_sample)
+    if "comm_bytes" in spec and hist["comm_bytes"] != spec["comm_bytes"]:
+        raise AssertionError(f"{arch}: comm_bytes {hist['comm_bytes']} != "
+                             f"{spec['comm_bytes']}")
     losses = [r[k] for ph in ("device", "server") for r in hist[ph]
               for k in ("loss", "val_loss")]
     if len(hist["device"]) != DEVICE_ROUNDS or \
@@ -2849,7 +2913,7 @@ def _max_rel(got, want):
 def server_step_inputs(dev, arch):
     """A server train step of ``arch`` at its main path's shape (8 x seq)
     from the seed: (model, run_cfg, server params, batch)."""
-    cfg = registry.get_config(arch)
+    cfg = main_config(arch)
     seq = MAIN_PATHS[arch]["seq"]
     run_cfg = launch_train.build_run_cfg(launch_train.make_parser().parse_args(
         ["--arch", arch, "--server-batch", "8", "--seq-len", str(seq),
@@ -2938,7 +3002,7 @@ def profile_server_step(dev, arch, step, state, inputs, **shape):
     ssd = {name: v for name, v in by_name.items() if "ssd_" in name}
     ssd_ms = sum(ms for ms, _ in ssd.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
-    log("profile", arch=arch, **shape,
+    log("profile", arch=arch, **shape, by_category=by_category(by_name),
         step_ms=step_ms_med, step_ms_range=[min(step_ms), max(step_ms)],
         wall_s=wall, loss=loss, peak_mem_gib=peak_gib, device_ms=device_ms,
         device_union_ms=union_ms,
@@ -3037,6 +3101,205 @@ def split_backward(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: MoE and the hybrid stack
+# ---------------------------------------------------------------------------
+
+
+def moe_layer_grads(cfg, params, x, r):
+    """{"y", "aux", "x", "params"}: one MoE layer's output and balance
+    loss, and the grads of sum(y r) + aux for x and every param, on the
+    tensors' device."""
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    x = x.detach().clone().requires_grad_(True)
+    y, aux = MOE.moe_mlp(cfg, p, x)
+    g = iter(torch.autograd.grad(torch.sum(y.float() * r) + aux,
+                                 tree_leaves(p) + [x]))
+    grads = tree_map(lambda _: next(g), p)
+    return {"y": y.detach(), "aux": aux.detach(), "x": next(g),
+            "params": grads}
+
+
+def moe_routing(cfg, params, x) -> dict:
+    """Each token's experts and kept choices as (B, S, E) masks (free of
+    the order within its top k), its near ties (a k-th and (k+1)-th gate
+    within MOE_TIE) and near ties inside its top k (which reorder the
+    choices but change no slot: a token's choices go to distinct
+    experts)."""
+    m = cfg.moe
+    B, S = x.shape[:2]
+    with torch.no_grad():
+        gates, _, topi = MOE.route(cfg, params, x)
+        _, _, keep = MOE.slots(topi, m.num_experts, MOE.capacity(cfg, S))
+        onehot = torch.nn.functional.one_hot(topi, m.num_experts)
+        top = torch.sort(gates, dim=-1, descending=True).values
+        gaps = top[..., :m.top_k] - top[..., 1:m.top_k + 1]
+    return {"sel": onehot.sum(-2).cpu(),
+            "kept": (onehot * keep.reshape(B, S, m.top_k, 1)).sum(-2).cpu(),
+            "tie": (gaps[..., -1] < MOE_TIE).cpu(),
+            "order_tie": (gaps[..., :-1] < MOE_TIE).any(-1).cpu()}
+
+
+def moe_layer_check(dev, arch) -> dict:
+    """16(b) for one arch: routing and keep ``==`` off near ties, y, aux
+    and grads within MOE_TOL on the sequences without one (fp32), then
+    the published bf16 layer twice on the card, bit for bit."""
+    cfg = registry.get_config(arch)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = torch.device("cpu")
+    params = MOE.init_moe(torch.Generator().manual_seed(0), cfg, cpu)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(0, 1, MOE_X + (cfg.d_model,)),
+                     dtype=torch.float32)
+    r = torch.tensor(rng.normal(0, 1, MOE_X + (cfg.d_model,)),
+                     dtype=torch.float32)
+    p_d, x_d, r_d = (tree_map(lambda t: t.to(dev), params), x.to(dev),
+                     r.to(dev))
+    card, host = moe_routing(f32, p_d, x_d), moe_routing(f32, params, x)
+    tie = card["tie"] | host["tie"]
+    clean = ~tie.any(1)
+    sel_ok = bool(torch.equal(card["sel"][~tie], host["sel"][~tie]))
+    kept_ok = bool(torch.equal(card["kept"][clean], host["kept"][clean]))
+    dropped = int(MOE_X[0] * MOE_X[1] * cfg.moe.top_k - host["kept"].sum())
+    idx = torch.nonzero(clean)[:, 0]
+    got = moe_layer_grads(f32, p_d, x_d[idx.to(dev)], r_d[idx.to(dev)])
+    want = moe_layer_grads(f32, params, x[idx], r[idx])
+    rel, leaf = _max_rel(tree_map(lambda t: t.cpu(), got), want)
+    # the published bf16 layer, twice on the card
+    xb = x_d.to(torch.bfloat16)
+    runs = [moe_layer_grads(cfg, p_d, xb, r_d) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(runs[0]), tree_leaves(runs[1])))
+    with torch.no_grad():
+        _, _, topi = MOE.route(cfg, p_d, xb)
+        C = MOE.capacity(cfg, MOE_X[1])
+        ch_e, pos_c, keep = MOE.slots(topi, cfg.moe.num_experts, C)
+        b_idx = torch.arange(MOE_X[0], device=dev)[:, None].expand_as(ch_e)
+        rows = torch.zeros((MOE_X[0], cfg.moe.num_experts, C),
+                           device=dev).index_put(
+            (b_idx, ch_e, pos_c), keep.float(), accumulate=True)
+    out = dict(arch=arch, x=list(MOE_X) + [cfg.d_model],
+               experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+               capacity=C, shared=cfg.moe.num_shared_experts,
+               near_ties=int(tie.sum()),
+               near_tie_sequences=int((~clean).sum()),
+               order_ties=int((card["order_tie"] | host["order_tie"]).sum()),
+               compared_sequences=int(clean.sum()), experts_equal=sel_ok,
+               keep_equal=kept_ok, dropped_fp32=dropped, max_rel=rel,
+               max_rel_leaf=leaf, tol=MOE_TOL,
+               aux_card=float(got["aux"]), aux_cpu=float(want["aux"]),
+               bf16_bit_identical=same,
+               bf16_dropped=int((~keep).sum()),
+               bf16_max_kept_rows_per_slot=float(rows.max()))
+    log("moe_layer", **out)
+    if not (sel_ok and kept_ok and 2 * int(clean.sum()) >= MOE_X[0]
+            and rel <= MOE_TOL and same and float(rows.max()) <= 1):
+        raise AssertionError(f"{arch} MoE layer card vs CPU: {out}")
+    return out
+
+
+def kernel_category(name: str) -> str:
+    """A kernel's share of a step: hand-written (attention, xent, SSD),
+    top-k, cumsum (the MoE slot positions), index (the MoE scatter,
+    gather and their backwards, the embedding's), GEMM (cuBLAS) or
+    other."""
+    n = name.lower()
+    if any(w.startswith(("fa_", "xent_", "ssd_")) and "kernel" in w
+           for w in n.replace("<", " ").replace("(", " ").split()):
+        return "hand-written"
+    if "topk" in n or "sort" in n:
+        return "topk"
+    if "scan" in n:
+        return "cumsum"
+    if "index" in n or "gather" in n or "scatter" in n:
+        return "index"
+    if any(p in n for p in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+        return "gemm"
+    return "other"
+
+
+def by_category(by_name: dict) -> dict:
+    """Device ms and kernel count by ``kernel_category`` of a profile's
+    {name: (ms, calls)}."""
+    cats = {}
+    for name, (t, n) in by_name.items():
+        c = cats.setdefault(kernel_category(name), {"ms": 0.0, "kernels": 0})
+        c["ms"] += t
+        c["kernels"] += n
+    return dict(sorted(cats.items()))
+
+
+def profile_moe_layer(dev):
+    """16(d): one granite MoE layer forward and checkpointed backward (the
+    server step's remat) at the main path's server shape (8 x seq),
+    timed (CUDA events, median of PROFILE_STEPS) and profiled, its
+    device time split by ``kernel_category``."""
+    arch, batch = MOE_LAYER_ARCHS[0], 8
+    cfg = main_config(arch)
+    seq = MAIN_PATHS[arch]["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = tree_map(lambda t: t.requires_grad_(True),
+                 MOE.init_moe(gen, cfg, dev))
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16).requires_grad_(True)
+
+    def layer():
+        y, aux = torch.utils.checkpoint.checkpoint(
+            MOE.moe_mlp, cfg, p, x, use_reentrant=False)
+        torch.autograd.grad(y.float().sum() + aux, tree_leaves(p) + [x])
+
+    layer()
+    ms = []
+    for _ in range(PROFILE_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        layer()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        layer()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    log("moe_profile", arch=arch, server_layers=cfg.num_layers - 1,
+        batch=batch, seq=seq, layer_ms=float(np.median(ms)),
+        layer_ms_range=[min(ms), max(ms)],
+        device_ms=sum(t for t, _ in by_name.values()),
+        by_category=by_category(by_name),
+        top=[{"name": name[:120], "ms": t, "calls": n}
+             for name, (t, n) in ranked])
+
+
+def moe_phase(dev) -> dict:
+    """16(b)-(d); returns the launches of (c) by path."""
+    t = time.perf_counter()
+    for arch in MOE_LAYER_ARCHS:
+        moe_layer_check(dev, arch)
+        torch.cuda.empty_cache()
+    by_path = {}
+    for arch, rows in MOE_SMOKE.items():
+        reset_launches()
+        smoke_reference(dev, arch)
+        by_path[f"moe_smoke:{arch}"] = launches = read_launches()
+        missing = [name for name in rows if launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"{arch} smoke never launched {missing}")
+    profile_moe_layer(dev)
+    torch.cuda.empty_cache()
+    log("moe_phase", seconds=time.perf_counter() - t,
+        launches={p: {k: v for k, v in n.items() if v}
+                  for p, n in by_path.items()})
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3084,6 +3347,20 @@ def main() -> int:
     for name, r in at_mamba2.items():
         bms, by = r.pop("bound")
         res[name]["at_mamba2_shape"] = dict(r, bound_ms=bms, bound_by=by)
+    # granite-moe's server shapes: attention G 3, hd 64; its tied head
+    gcfg = registry.get_config("granite-moe-3b-a800m")
+    gseq = MAIN_PATHS[gcfg.name]["seq"]
+    at_granite = fa_case(dev, 8, gseq, gcfg.num_kv_heads,
+                         gcfg.num_heads // gcfg.num_kv_heads, gcfg.head_dim,
+                         0, 0.0, torch.bfloat16, ITERS_ATTENTION,
+                         library=True)
+    at_granite.update(xent_case(dev, 8 * (gseq - 1), gcfg.d_model,
+                                gcfg.vocab_size, 0.0, True, ITERS_XENT,
+                                library=True))
+    for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
+        r = at_granite[name]
+        bms, by = r.pop("bound")
+        res[name]["at_granite_shape"] = dict(r, bound_ms=bms, bound_by=by)
     xent_case(dev, 4 * (SEQ_LEN - 1), cfg.d_model, cfg.vocab_size, 0.0,
               True, 1, library=False)
     g2 = registry.get_config("gemma2-2b")
@@ -3093,7 +3370,7 @@ def main() -> int:
                       library=True, hdt=torch.float32)
     for name in XENT_BY_DTYPE:
         res[f"{name}_fp32"] = res32[name]
-    del at_mamba2, res32
+    del at_mamba2, at_granite, res32
     m2 = registry.get_config("mamba2-370m").mamba
     res.update(ssd_case(dev, 8, 8, m2.chunk_size, 32, m2.head_dim,
                         m2.d_state, ITERS_SSD, library=True))
@@ -3131,6 +3408,7 @@ def main() -> int:
         profile_step(dev, arch)
         torch.cuda.empty_cache()
     by_path["split_backward"] = split_backward(dev)
+    by_path.update(moe_phase(dev))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3146,7 +3424,8 @@ def main() -> int:
                      "bound_by": by, "library_ms": r.get("library_ms"),
                      **{k: r[k] for k in ("ms_range", "library_ms_range",
                                           "bound_passes", "bound_fp32_fma_ms",
-                                          "replaced_ms", "at_mamba2_shape")
+                                          "replaced_ms", "at_mamba2_shape",
+                                          "at_granite_shape")
                         if k in r}})
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

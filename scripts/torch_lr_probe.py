@@ -2,16 +2,18 @@
 """Learning-rate probe of the PyTorch/CUDA port's main path on one NVIDIA
 GPU: does the merged model train at full width, and at which rate?
 
-Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b or
-mamba2-370m, random init from seed 0, the same corpus, sequence length,
-clients, batches and rounds, one server epoch) at lr 0.2 (the launcher's
-default), 0.05 and 0.02.  For each it prints one JSON line: the device history, the server phase's per-step losses, and the
+Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b, mamba2-370m
+or granite-moe-3b-a800m at the main path's depth, random init from seed
+0, the same corpus, sequence length, clients, batches and rounds, one
+server epoch) at lr 0.2 (the launcher's default), 0.05 and 0.02, or at
+the rates ``--lrs`` names.  For each it prints one JSON line: the device history, the server phase's per-step losses, and the
 merged model's loss and accuracy on the eval samples and on 8 of its own
 training samples.  First it prints the merged model at init and ln V.
 From the repository root:
 
   python3 scripts/torch_lr_probe.py
   python3 scripts/torch_lr_probe.py --arch mamba2-370m
+  python3 scripts/torch_lr_probe.py --arch granite-moe-3b-a800m --lrs 0.05 0.02
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import evaluate, splitting, steps  # noqa: E402
 from repro_torch.core.uit import AmpereTrainer  # noqa: E402
 from repro_torch.data import ActivationStore, Dataset, federate  # noqa: E402
@@ -43,6 +44,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-1.7b",
                     choices=sorted(cs.MAIN_PATHS))
+    ap.add_argument("--lrs", type=float, nargs="+", default=LRS)
     args = ap.parse_args(argv)
     seq = cs.MAIN_PATHS[args.arch]["seq"]
     if not torch.cuda.is_available():
@@ -51,7 +53,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
-    cfg = registry.get_config(args.arch)
+    cfg = cs.main_config(args.arch)
     model = build_model(cfg)
     merged_model = build_model(splitting.merged_config(model))
     train = cs.full_corpus(cs.TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
@@ -59,6 +61,7 @@ def main(argv=None) -> int:
     seen = Dataset({k: v[:8] for k, v in train.arrays.items()},
                    train.labels[:8])
     print(json.dumps({"card": cs.card_line(), "arch": args.arch, "seq": seq,
+                      "layers": cfg.num_layers,
                       "ln_V": math.log(cfg.vocab_size)}), flush=True)
 
     def merged_eval(trainer, dev_state, server_params):
@@ -66,7 +69,7 @@ def main(argv=None) -> int:
         return {"eval": evaluate.evaluate(merged_model, merged, evald, dev),
                 "train": evaluate.evaluate(merged_model, merged, seen, dev)}
 
-    for lr in LRS:
+    for lr in args.lrs:
         largv = ["--arch", args.arch, "--clients", "4", "--cohort", "2",
                  "--local-steps", "2", "--batch-size", "4",
                  "--server-batch", "8", "--seq-len", str(seq),
@@ -82,7 +85,7 @@ def main(argv=None) -> int:
         dp, sp, ap = tr._init_states(
             torch.Generator().manual_seed(run_cfg.seed))
         dev_state = {"device": dp, "aux": ap}
-        if lr == LRS[0]:
+        if lr == args.lrs[0]:
             print(json.dumps({"init": merged_eval(tr, dev_state, sp)}),
                   flush=True)
         dev_state = tr.run_device_phase(dev_state, cs.DEVICE_ROUNDS)

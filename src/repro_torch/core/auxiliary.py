@@ -26,10 +26,19 @@ from repro_torch.models.model_api import apply_vision_layer, is_vit
 
 def scaled_lm_cfg(cfg, ratio: float):
     """An LMConfig whose internal widths are scaled by ``ratio`` while the
-    residual width d_model stays fixed (dense and SSM families)."""
+    residual width d_model stays fixed (block in/out shape unchanged)."""
     def s(x, lo=1):
         return max(lo, int(round(x * ratio)))
 
+    moe = cfg.moe
+    if moe.enabled:
+        n_exp = s(moe.num_experts)
+        moe = dataclasses.replace(
+            moe, num_experts=n_exp, top_k=min(moe.top_k, n_exp),
+            d_expert=s(moe.d_expert, 8),
+            num_shared_experts=(s(moe.num_shared_experts)
+                                if moe.num_shared_experts else 0),
+            d_shared=s(moe.d_shared, 8) if moe.d_shared else 0)
     mamba = cfg.mamba
     if cfg.family in ("ssm", "hybrid"):
         mamba = dataclasses.replace(
@@ -41,7 +50,7 @@ def scaled_lm_cfg(cfg, ratio: float):
         n_q = max(n_kv, (n_q // n_kv) * n_kv)  # keep GQA divisibility
     return dataclasses.replace(cfg, num_heads=n_q, num_kv_heads=n_kv,
                                d_ff=s(cfg.d_ff, 8) if cfg.d_ff else 0,
-                               mamba=mamba)
+                               moe=moe, mamba=mamba)
 
 
 def resolve_aux_head(split_cfg) -> str:
@@ -106,8 +115,9 @@ def aux_hidden(model, aux_params, activations, split_cfg, *, positions=None,
         B, S = x.shape[:2]
         if positions is None:
             positions = T.default_positions(cfg, B, S, x.device)
-        x = T.block_apply(acfg, aux_params["block"], x, positions,
-                          split_cfg.split_point, impl=impl)
+        # the clone's MoE balance loss is dropped, as in the reference
+        x, _ = T.block_apply(acfg, aux_params["block"], x, positions,
+                             split_cfg.split_point, impl=impl)
     return L.rmsnorm(aux_params["norm"], x, cfg.norm_eps, cfg.dtype)
 
 

@@ -39,7 +39,7 @@ def make_fedavg_round_step(model, run_cfg):
             out = model.apply(params, batch["images"])
             loss, _ = losses.classification_loss(out["logits"],
                                                  batch["labels"])
-        return loss     # + the MoE balance loss: zero on every ported arch
+        return loss + out["aux"]
 
     def client_round(params, client_batches, lr):
         losses_h = []

@@ -54,9 +54,8 @@ from repro_torch.optim import make_schedule
 from repro_torch.transport import cohort_exchange
 
 def _e2e_split_loss(model, run_cfg, dev, srv, batch):
-    """Device forward, server forward and the task loss in one graph.  The
-    reference adds the model's MoE balance loss, zero on every arch the
-    port runs (MoE is ROADMAP.md queue A7)."""
+    """Device forward, server forward and the task loss plus the server
+    layers' MoE balance loss in one graph."""
     p = run_cfg.split.split_point
     acts = splitting.device_forward(model, dev, batch[model.input_key], p)
     out = splitting.server_forward(model, srv, acts, p, remat="none")
@@ -66,7 +65,7 @@ def _e2e_split_loss(model, run_cfg, dev, srv, batch):
             batch["tokens"], softcap=model.cfg.final_softcap)
     else:
         loss, _ = losses.classification_loss(out["logits"], batch["labels"])
-    return loss
+    return loss + out["aux"]
 
 
 def _client(batches: dict, c: int) -> dict:

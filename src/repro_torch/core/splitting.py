@@ -131,7 +131,9 @@ def device_forward(model, device_params, inputs, p: int, *, positions=None,
         positions = T.default_positions(cfg, B, S, x.device)
     fn = T.checkpointed_block_apply if remat == "block" else T.block_apply
     for i in range(p):
-        x = fn(cfg, device_params["layers"][i], x, positions, i, impl=impl)
+        # the device block's MoE balance loss is dropped, as in the reference
+        x, _ = fn(cfg, device_params["layers"][i], x, positions, i,
+                  impl=impl)
     return x
 
 
@@ -139,7 +141,8 @@ def server_forward(model, server_params, activations, p: int, *,
                    positions=None, impl="kernel", remat="block",
                    entry: Optional[int] = None):
     """Layers [p, L) + final norm, the head weight exposed separately; a
-    vision model's layers [p, L) and head, with its logits.
+    vision model's layers [p, L) and head, with its logits.  ``"aux"`` is
+    the server layers' summed MoE load-balancing loss (zero for vision).
 
     ``entry`` enters the stack at a cut deeper than the split: layers
     with global index below it are skipped (they get no gradient), so
@@ -154,7 +157,8 @@ def server_forward(model, server_params, activations, p: int, *,
             if p + k >= e:
                 x = M.apply_vision_layer(cfg, lp, x, p + k)
         return {"hidden": x,
-                "logits": apply_head(cfg, server_params["head"], x)}
+                "logits": apply_head(cfg, server_params["head"], x),
+                "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     lh_end = p + len(server_params["layers_head"])
     if e > lh_end:
         raise ValueError(
@@ -164,14 +168,18 @@ def server_forward(model, server_params, activations, p: int, *,
     if positions is None:
         positions = T.default_positions(cfg, B, S, x.device)
     fn = T.checkpointed_block_apply if remat == "block" else T.block_apply
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for k, lp in enumerate(server_params["layers_head"]):
         if p + k >= e:
-            x = fn(cfg, lp, x, positions, p + k, impl=impl)
+            x, aux = fn(cfg, lp, x, positions, p + k, impl=impl)
+            aux_total = aux_total + aux
     if server_params["blocks"] is not None:
-        x = T.run_blocks(cfg, server_params["blocks"], x, positions, lo=0,
-                         hi=cfg.num_layers - lh_end, impl=impl, remat=remat)
+        x, aux = T.run_blocks(cfg, server_params["blocks"], x, positions,
+                              lo=0, hi=cfg.num_layers - lh_end, impl=impl,
+                              remat=remat)
+        aux_total = aux_total + aux
     h = L.rmsnorm(server_params["final_norm"], x, cfg.norm_eps, cfg.dtype)
-    return {"hidden": h, "logits": None}
+    return {"hidden": h, "logits": None, "aux": aux_total}
 
 
 def server_head_weight(server_params):

@@ -171,16 +171,21 @@ def make_server_train_step(model, run_cfg, *, impl="kernel", entry=None):
         out = splitting.server_forward(model, server_params, acts, p,
                                        impl=impl, remat=remat, entry=entry)
         if model.kind != "lm":
-            return losses.classification_loss(out["logits"], batch["labels"])
-        return losses.lm_loss_from_hidden(
-            out["hidden"], splitting.server_head_weight(server_params),
-            batch["tokens"], softcap=cfg.final_softcap,
-            loss_mask=batch.get("loss_mask"))
+            loss, _ = losses.classification_loss(out["logits"],
+                                                 batch["labels"])
+        else:
+            loss, _ = losses.lm_loss_from_hidden(
+                out["hidden"], splitting.server_head_weight(server_params),
+                batch["tokens"], softcap=cfg.final_softcap,
+                loss_mask=batch.get("loss_mask"))
+        # the task loss is what the step records; the MoE balance loss
+        # only enters the gradient
+        return loss, out["aux"]
 
     def server_train_step(state, batch):
         params = _leaves_requiring_grad(state["server"])
-        loss, m = loss_fn(params, batch)
-        grads = _grads(loss, params)
+        loss, aux = loss_fn(params, batch)
+        grads = _grads(loss + aux, params)
         with torch.no_grad():
             if run_cfg.optim.grad_dtype:
                 gd = dt(run_cfg.optim.grad_dtype)

@@ -16,10 +16,7 @@ may give each device class of that fleet its own cut layer.  A
 ``transport`` (in process, or ``socket``: the two-process roles of
 :mod:`repro_torch.transport.roles`), ``faults``
 (:class:`~repro_torch.transport.FaultSpec`), ``observability`` and
-``streaming`` (the activation ring) run as the reference's do.  MoE and
-hybrid archs are not ported yet: :meth:`ExperimentSpec.validate` names
-their ROADMAP.md queue item (A7), and
-:func:`repro_torch.experiments.run_experiment` refuses such a spec.
+``streaming`` (the activation ring) run as the reference's do.
 """
 
 from __future__ import annotations
@@ -265,10 +262,8 @@ class ExperimentSpec:
     # ------------------------------------------------------------------
     def validate(self) -> list:
         """Human-readable problems (empty = valid): every check of the
-        reference, plus one for an arch the port cannot run yet (MoE and
-        hybrid), naming its ROADMAP.md queue item."""
+        reference."""
         from repro_torch.configs import registry
-        from repro_torch.configs.base import VisionConfig
         from repro_torch.experiments.systems import list_systems
 
         problems = []
@@ -296,11 +291,6 @@ class ExperimentSpec:
                     f"{num_layers - 1}] for arch {self.arch!r} "
                     f"({num_layers} layers: the device block needs at "
                     "least one layer and the server block keeps one)")
-            if not isinstance(cfg, VisionConfig) and (
-                    cfg.moe.enabled or cfg.attn_layer_period):
-                problems.append(
-                    f"arch {self.arch!r} ({cfg.family}) is not ported yet "
-                    "(ROADMAP.md queue A7)")
         if self.cut is not None:
             problems.extend(self.cut.validate(num_layers))
             if self.cut.mode == "per_profile" and self.fleet is None:

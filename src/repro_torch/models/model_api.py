@@ -1,14 +1,15 @@
-"""Unified model API over the LM families (all but MoE and hybrid) and
-the paper's vision classifiers, as ``repro.models.model_api``.
+"""Unified model API over the LM families (dense, SSM, MoE and hybrid)
+and the paper's vision classifiers, as ``repro.models.model_api``.
 
 A :class:`Model` exposes ``init(gen, device)`` and
 ``apply(params, inputs, lo=, hi=)``, which runs layers [lo, hi) and
 returns a dict with "hidden" (the activations Ampere ships at the split
-point) and "logits" when hi == num_layers; ``input_spec`` and
-``activation_spec`` give shapes and dtypes as tensors on the ``meta``
-device (nothing allocated), and ``split_params`` cuts a parameter tree at
-a split point: ``core.comm_model.split_sizes`` prices a split through
-these three.  A vision model's tree is ``{"layers": [per-layer trees],
+point), "logits" when hi == num_layers, and "aux" (the MoE
+load-balancing loss summed over those layers; zero for a vision model);
+``input_spec`` and ``activation_spec`` give shapes and dtypes as tensors
+on the ``meta`` device (nothing allocated), and ``split_params`` cuts a
+parameter tree at a split point: ``core.comm_model.split_sizes`` prices
+a split through these three.  A vision model's tree is ``{"layers": [per-layer trees],
 "head": ...}``, its inputs (B, s, s, C) fp32 images.
 """
 
@@ -81,7 +82,8 @@ class Model:
         x = inputs.to(L.dt(cfg.dtype)) if lo > 0 else inputs
         for i in range(lo, hi):
             x = apply_vision_layer(cfg, params["layers"][i], x, i)
-        out = {"hidden": x, "logits": None}
+        out = {"hidden": x, "logits": None,
+               "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
         if hi == self.num_layers and return_logits:
             out["logits"] = CNN.apply_head(cfg, params["head"], x)
         return out
@@ -120,10 +122,6 @@ class Model:
 
 def build_model(cfg) -> Model:
     if isinstance(cfg, LMConfig):
-        if cfg.moe.enabled or cfg.attn_layer_period:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): the MoE and hybrid LM "
-                "families are a later slice (ROADMAP.md queue A)")
         return Model(cfg=cfg, kind="lm")
     if isinstance(cfg, VisionConfig):
         return Model(cfg=cfg, kind="vision")

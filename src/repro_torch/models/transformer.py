@@ -1,5 +1,5 @@
-"""Decoder-LM composition (attention and Mamba-2 mixers) with
-period-stacked parameters and layer-range execution, as
+"""Decoder-LM composition (attention and Mamba-2 mixers, dense or MoE
+MLPs) with period-stacked parameters and layer-range execution, as
 ``repro.models.transformer``.
 
 Parameter layout::
@@ -12,10 +12,9 @@ Parameter layout::
 where P = cfg.pattern_period and R = num_layers // P; layer i = r*P + j
 lives at blocks[f"pos{j}"] leaf index [r].  The JAX ``lax.scan`` over
 period repetitions is a loop over slices here, and ``remat="block"``
-checkpoints each period body with ``torch.utils.checkpoint``.
-
-MoE layers raise ``NotImplementedError``: they are a later slice
-(ROADMAP.md queue A).
+checkpoints each period body with ``torch.utils.checkpoint``.  Every
+block also returns its MoE load-balancing loss (a 0-d fp32 zero for a
+layer without MoE), and ``run_blocks`` sums it over the layers it runs.
 """
 
 from __future__ import annotations
@@ -29,32 +28,30 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as MLP
+from repro_torch.models import moe as MOE
 
 
-def _layer_kind(cfg, layer_idx: int):
-    """(mixer, window) of a layer; MoE layers are not ported yet."""
-    mixer, window, is_moe = cfg.layer_kind(layer_idx)
-    if is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: layer {layer_idx} is {mixer}+moe; MoE is not "
-            "ported yet (ROADMAP.md queue A)")
-    return mixer, window
+def _has_mlp(cfg, is_moe: bool) -> bool:
+    return is_moe or cfg.d_ff > 0
 
 
 def init_block(gen, cfg, layer_idx: int, device="cpu", lead=()):
-    mixer, _ = _layer_kind(cfg, layer_idx)
+    mixer, _, is_moe = cfg.layer_kind(layer_idx)
     pd = cfg.param_dtype
     p = {"pre_norm": L.init_rmsnorm(cfg.d_model, pd, device, lead)}
     if mixer == "attn":
         p["attn"] = A.init_attention(gen, cfg, device, lead)
     else:
         p["mamba"] = M.init_mamba(gen, cfg, device, lead)
-    if cfg.d_ff > 0:
+    if _has_mlp(cfg, is_moe):
         p["pre_mlp_norm"] = L.init_rmsnorm(cfg.d_model, pd, device, lead)
-        p["mlp"] = MLP.init_mlp(gen, cfg, device=device, lead=lead)
+        if is_moe:
+            p["moe"] = MOE.init_moe(gen, cfg, device, lead)
+        else:
+            p["mlp"] = MLP.init_mlp(gen, cfg, device=device, lead=lead)
     if cfg.post_block_norm:
         p["post_mixer_norm"] = L.init_rmsnorm(cfg.d_model, pd, device, lead)
-        if cfg.d_ff > 0:
+        if _has_mlp(cfg, is_moe):
             p["post_mlp_norm"] = L.init_rmsnorm(cfg.d_model, pd, device, lead)
     return p
 
@@ -65,10 +62,11 @@ def _parse_impl(impl: str):
 
 
 def block_apply(cfg, p, x, positions, layer_idx: int, *, impl="kernel"):
-    """One decoder block.  Returns x.  ``impl`` may carry the flash
-    attention backward suffix (``"kernel:split"``); the base impl is what
-    mamba sees."""
-    mixer, window = _layer_kind(cfg, layer_idx)
+    """One decoder block.  Returns (x, aux): ``aux`` is the MoE
+    load-balancing loss, a 0-d fp32 tensor (zero without MoE).  ``impl``
+    may carry the flash attention backward suffix (``"kernel:split"``);
+    the base impl is what mamba sees."""
+    mixer, window, is_moe = cfg.layer_kind(layer_idx)
     impl, fa_bwd = _parse_impl(impl)
     h = L.rmsnorm(p["pre_norm"], x, cfg.norm_eps, cfg.dtype)
     if mixer == "attn":
@@ -79,13 +77,17 @@ def block_apply(cfg, p, x, positions, layer_idx: int, *, impl="kernel"):
     if cfg.post_block_norm:
         mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.norm_eps, cfg.dtype)
     x = x + mix
-    if cfg.d_ff > 0:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _has_mlp(cfg, is_moe):
         h = L.rmsnorm(p["pre_mlp_norm"], x, cfg.norm_eps, cfg.dtype)
-        y = MLP.mlp(cfg, p["mlp"], h)
+        if is_moe:
+            y, aux = MOE.moe_mlp(cfg, p["moe"], h)
+        else:
+            y = MLP.mlp(cfg, p["mlp"], h)
         if cfg.post_block_norm:
             y = L.rmsnorm(p["post_mlp_norm"], y, cfg.norm_eps, cfg.dtype)
         x = x + y
-    return x
+    return x, aux
 
 
 def checkpointed_block_apply(cfg, p, x, positions, layer_idx: int, *,
@@ -123,40 +125,45 @@ def run_blocks(cfg, blocks, x, positions, *, lo: int = 0,
 
     Full period repetitions run as one period body each (checkpointed as a
     unit under ``remat="block"``, as the JAX scan body); the partial periods
-    at either end run layer by layer (checkpointed per layer)."""
+    at either end run layer by layer (checkpointed per layer).  Returns
+    (x, the layers' summed MoE load-balancing loss)."""
     hi = cfg.num_layers if hi is None else hi
     P = cfg.pattern_period
     ck = remat in ("block", "nested")
     one = checkpointed_block_apply if ck else block_apply
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def layer(x, i):
+    def layer(x, aux_total, i):
         r, j = divmod(i, P)
-        return one(cfg, tree_index(blocks[f"pos{j}"], r), x, positions, i,
-                   impl=impl)
+        x, aux = one(cfg, tree_index(blocks[f"pos{j}"], r), x, positions, i,
+                     impl=impl)
+        return x, aux_total + aux
 
     if hi - lo < 2 * P:
         for i in range(lo, hi):
-            x = layer(x, i)
-        return x
+            x, aux_total = layer(x, aux_total, i)
+        return x, aux_total
 
     r_start, r_end = -(-lo // P), hi // P
     for i in range(lo, min(r_start * P, hi)):
-        x = layer(x, i)
+        x, aux_total = layer(x, aux_total, i)
 
     inner = checkpointed_block_apply if remat == "nested" else block_apply
 
-    def body(x, bl):
+    def body(x, aux_total, bl):
         for j in range(P):
-            x = inner(cfg, bl[f"pos{j}"], x, positions, j, impl=impl)
-        return x
+            x, aux = inner(cfg, bl[f"pos{j}"], x, positions, j, impl=impl)
+            aux_total = aux_total + aux
+        return x, aux_total
 
     for r in range(r_start, r_end):
         bl = {f"pos{j}": tree_index(blocks[f"pos{j}"], r) for j in range(P)}
-        x = (checkpoint(body, x, bl, use_reentrant=False) if ck
-             else body(x, bl))
+        x, aux_total = (
+            checkpoint(body, x, aux_total, bl, use_reentrant=False) if ck
+            else body(x, aux_total, bl))
     for i in range(max(r_end * P, lo), hi):
-        x = layer(x, i)
-    return x
+        x, aux_total = layer(x, aux_total, i)
+    return x, aux_total
 
 
 def default_positions(cfg, batch: int, seq: int, device="cpu", offset=0):
@@ -173,7 +180,7 @@ def forward(cfg, params, inputs, *, positions=None, lo: int = 0,
     """Run layers [lo, hi) of the LM.
 
     ``inputs``: int token ids (B, S) when lo == 0, else activations
-    (B, S, D).  Returns dict(hidden, logits)."""
+    (B, S, D).  Returns dict(hidden, logits, aux)."""
     hi = cfg.num_layers if hi is None else hi
     if lo == 0:
         B, S = inputs.shape
@@ -184,9 +191,9 @@ def forward(cfg, params, inputs, *, positions=None, lo: int = 0,
         x = inputs.to(L.dt(cfg.dtype))
     if positions is None:
         positions = default_positions(cfg, B, S, x.device)
-    x = run_blocks(cfg, params["blocks"], x, positions, lo=lo, hi=hi,
-                   impl=impl, remat=remat)
-    out = {"hidden": x, "logits": None}
+    x, aux = run_blocks(cfg, params["blocks"], x, positions, lo=lo, hi=hi,
+                        impl=impl, remat=remat)
+    out = {"hidden": x, "logits": None, "aux": aux}
     if hi == cfg.num_layers and return_logits:
         h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.dtype)
         if cfg.tie_embeddings:

@@ -25,7 +25,8 @@ from repro_torch.models import build_model as t_build
 
 # every registry LM arch the port builds
 ARCHS = ["qwen3-1.7b", "gemma2-2b", "qwen1.5-4b", "mistral-large-123b",
-         "mamba2-370m", "musicgen-large", "qwen2-vl-72b"]
+         "mamba2-370m", "musicgen-large", "qwen2-vl-72b",
+         "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "jamba-1.5-large-398b"]
 ALGOS = ["fedavg", "splitfed", "splitfed_mb", "splitfedv2", "pipar",
          "scaffold", "splitgp", "ampere"]
 SEQ = 64
@@ -133,7 +134,8 @@ def test_model_specs_are_meta():
 # twins of the LM cases of tests/test_comm_model.py
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = ["qwen3-1.7b", "gemma2-2b", "mamba2-370m"]
+LM_ARCHS = ["qwen3-1.7b", "gemma2-2b", "mamba2-370m", "jamba-1.5-large-398b",
+            "granite-moe-3b-a800m"]
 
 
 def _sizes(arch, p=1):

@@ -11,7 +11,8 @@
   gives the uninterrupted run's history and accounting exactly (``==``).
 * The runtime pieces (journal, checkpointer, runner, early stop) as the
   reference's ``tests/test_fault_tolerance.py`` checks them.
-* The spec's JSON codec against the reference's, and its refusals.
+* The spec's JSON codec against the reference's, its refusals, and the
+  MoE and hybrid archs it accepts.
 * The launcher's summary against the reference launcher's.
 """
 
@@ -567,15 +568,17 @@ def test_spec_save_load_and_partial_dicts(tmp_path):
         ExperimentSpec.from_dict({"run": {"fed": {"num_cilents": 9}}})
 
 
-@pytest.mark.parametrize("feature,value,item", [
-    ("arch", "qwen2-moe-a2.7b", "A7"),
-])
-def test_spec_refuses_what_the_port_cannot_run(feature, value, item):
-    spec = dataclasses.replace(_t_spec("results/t"), **{feature: value})
-    problems = "\n".join(spec.validate())
-    assert f"queue {item}" in problems, problems
-    with pytest.raises(ValueError, match=item):
-        run_experiment(spec, dry_run=True)
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_specs_validate_and_dry_run(arch):
+    """The MoE and hybrid archs (once refused by ``validate``) validate
+    clean in both packages and pass the port's dry run."""
+    spec = dataclasses.replace(_t_spec("results/t"), arch=arch)
+    assert spec.validate() == []
+    assert dataclasses.replace(_j_spec("results/t"),
+                               arch=arch).validate() == []
+    out = run_experiment(spec, dry_run=True)
+    assert out["valid"] and out["systems"] == list(spec.systems)
 
 
 @pytest.mark.parametrize("feature,value", [

@@ -47,6 +47,7 @@ import repro_torch.fleet.scheduler
 import repro_torch.launch.run_experiment
 import repro_torch.launch.train
 import repro_torch.models.cnn
+import repro_torch.models.moe
 import repro_torch.observability
 import repro_torch.observability.export
 import repro_torch.observability.metrics

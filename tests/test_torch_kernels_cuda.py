@@ -75,6 +75,9 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     (2, 2, 300, 300, 128, False, 0, 0.0, torch.float32),
     (2, 2, 100, 160, 64, True, 32, 30.0, torch.float32),  # kv_len, hd 64
     (1, 2, 400, 400, 256, True, 256, 50.0, torch.float32),
+    # granite-moe's attention: G 3, hd 64, a ragged last tile
+    (2, 3, 130, 130, 64, True, 0, 0.0, torch.bfloat16),
+    (2, 3, 130, 130, 64, True, 0, 0.0, torch.float32),
 ]
 
 

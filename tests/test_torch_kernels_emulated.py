@@ -59,6 +59,9 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     (1, 1, 80, 24, 32, True, 8, 0.0, torch.bfloat16),    # no valid key
     (1, 1, 40, 40, 256, True, 24, 50.0, torch.bfloat16),  # hd 256
     (1, 2, 160, 160, 32, True, 0, 0.0, torch.bfloat16),  # unmasked tiles
+    # granite-moe's attention: G 3, hd 64, a ragged last tile
+    (2, 3, 130, 130, 64, True, 0, 0.0, torch.bfloat16),
+    (2, 3, 130, 130, 64, True, 0, 0.0, torch.float32),
 ]
 
 

@@ -5,8 +5,12 @@ qk-norm + tied embeddings; sliding window + both softcaps + post-block
 norms + GeGLU; Mamba-2 SSD mixers with 2 chunks per sequence), and the
 ``musicgen-large`` (audio family), ``qwen2-vl-72b`` (vlm family, M-RoPE
 with random (3, B, S) positions made with numpy and handed to both
-packages), ``qwen1.5-4b`` and ``mistral-large-123b`` smoke configs start
-from the JAX package's own init, converted through numpy.  The JAX
+packages), ``qwen1.5-4b``, ``mistral-large-123b``, the MoE
+``granite-moe-3b-a800m`` and ``qwen2-moe-a2.7b`` (shared experts) and the
+hybrid ``jamba-1.5-large-398b`` (Mamba + attention, MoE on every other
+layer) smoke configs start from the JAX package's own init, converted
+through numpy; the loss is the LM loss plus the MoE balance loss, which
+is also compared.  The JAX
 ``impl="xla"`` path is held to the port's eager ``"xla"`` path, and JAX
 ``impl="pallas"`` (interpret mode) to the port's ``"kernel"`` path (plain
 versions on CPU).  Tolerance (fp32 smoke configs): 1e-4 on logits, hidden
@@ -31,7 +35,8 @@ from repro_torch.interop import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.models import transformer as TT
 
 ARCHS = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m", "musicgen-large",
-         "qwen2-vl-72b", "qwen1.5-4b", "mistral-large-123b")
+         "qwen2-vl-72b", "qwen1.5-4b", "mistral-large-123b",
+         "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "jamba-1.5-large-398b")
 CASES = [(arch, jimpl, timpl) for arch in ARCHS
          for jimpl, timpl in (("xla", "xla"), ("pallas", "kernel"))]
 B, S = 2, 24
@@ -68,12 +73,12 @@ def _jax_run(arch, impl):
                          impl=impl)
         loss, _ = j_losses.lm_loss_from_logits(out["logits"],
                                                jnp.asarray(tokens))
-        return loss, out
+        return loss + out["aux"], out
 
     (loss, out), grads = jax.value_and_grad(loss_fn, has_aux=True)(
         jax.tree.map(jnp.asarray, params))
     return (float(loss), np.asarray(out["logits"]), np.asarray(out["hidden"]),
-            jax.tree.map(np.asarray, grads))
+            jax.tree.map(np.asarray, grads), float(out["aux"]))
 
 
 def _torch_run(arch, impl):
@@ -87,21 +92,24 @@ def _torch_run(arch, impl):
     pos = None if pos is None else torch.tensor(pos)
     out = TT.forward(cfg, tp, torch.tensor(tokens), positions=pos, impl=impl)
     loss, _ = t_losses.lm_loss_from_logits(out["logits"], torch.tensor(tokens))
+    loss = loss + out["aux"]
     grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
     gtree = to_numpy_tree(jax.tree.map(lambda _: next(it), tp,
                                        is_leaf=torch.is_tensor))
     return (float(loss.detach()), out["logits"].detach().numpy(),
-            out["hidden"].detach().numpy(), gtree)
+            out["hidden"].detach().numpy(), gtree, float(out["aux"].detach()))
 
 
 @pytest.mark.parametrize("arch,jimpl,timpl", CASES)
 def test_forward_matches_jax(arch, jimpl, timpl):
-    j_loss, j_logits, j_hidden, _ = _jax_run(arch, jimpl)
-    t_loss, t_logits, t_hidden, _ = _torch_run(arch, timpl)
+    j_loss, j_logits, j_hidden, _, j_aux = _jax_run(arch, jimpl)
+    t_loss, t_logits, t_hidden, _, t_aux = _torch_run(arch, timpl)
     np.testing.assert_allclose(t_logits, j_logits, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(t_hidden, j_hidden, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(t_loss, j_loss, rtol=1e-5)
+    np.testing.assert_allclose(t_aux, j_aux, rtol=1e-5)
+    assert (t_aux > 0) == registry.get_smoke_config(arch).moe.enabled
 
 
 @pytest.mark.parametrize("arch,jimpl,timpl", CASES)

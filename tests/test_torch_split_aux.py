@@ -3,8 +3,11 @@
 
 The split and merged trees convert one to one (same paths, equal leaves);
 ``device_forward``, ``aux_loss`` (tied head, layer-1 clone) and
-``server_forward`` + ``lm_loss_from_hidden`` match the JAX ``"xla"`` path
-with the port's kernel path (plain versions on CPU), values and grads.
+``server_forward`` + ``lm_loss_from_hidden`` (plus the server layers' MoE
+balance loss, ``out["aux"]``) match the JAX ``"xla"`` path with the port's
+kernel path (plain versions on CPU), values and grads; also the hybrid
+jamba (cut inside and at the end of its first period) and the MoE
+qwen2-moe and granite-moe smoke configs.
 Tolerance (fp32 smoke configs): 1e-4, grads 1e-4 relative to each leaf's
 scale.
 """
@@ -31,7 +34,9 @@ from repro_torch.core import splitting as TS
 from repro_torch.interop import from_numpy_tree, to_numpy_tree, tree_leaves, tree_map
 from repro_torch.models import build_model as t_build
 
-ARCH_P = [("qwen3-1.7b", 1), ("qwen3-1.7b", 2), ("gemma2-2b", 1)]
+ARCH_P = [("qwen3-1.7b", 1), ("qwen3-1.7b", 2), ("gemma2-2b", 1),
+          ("jamba-1.5-large-398b", 1), ("jamba-1.5-large-398b", 3),
+          ("qwen2-moe-a2.7b", 1), ("granite-moe-3b-a800m", 1)]
 B, S = 2, 16
 
 
@@ -133,9 +138,10 @@ def test_server_block_and_loss_match(arch, p):
                                          JS.server_head_weight(srv),
                                          jnp.asarray(tokens),
                                          softcap=cfg.final_softcap)
-        return loss, out["hidden"]
+        return loss + out["aux"], (out["hidden"], out["aux"])
 
-    (j_l, j_h), j_g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(js)
+    (j_l, (j_h, j_aux)), j_g = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(js)
 
     tm, tparams, _, _ = _ports(arch, p)
     _, ts = TS.split_params(tm, tparams, p)
@@ -144,7 +150,11 @@ def test_server_block_and_loss_match(arch, p):
     t_l, _ = TL.lm_loss_from_hidden(out["hidden"], TS.server_head_weight(ts),
                                     torch.tensor(tokens),
                                     softcap=cfg.final_softcap)
+    t_l = t_l + out["aux"]
     np.testing.assert_allclose(out["hidden"].detach().numpy(), np.asarray(j_h),
                                rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(out["aux"].detach()), float(j_aux),
+                               rtol=1e-5)
+    assert (float(j_aux) > 0) == cfg.moe.enabled
     np.testing.assert_allclose(float(t_l.detach()), float(j_l), rtol=1e-5)
     _assert_trees(_grad_tree(t_l, ts), _np(j_g))
