@@ -281,6 +281,29 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    into the dispatch's index ops, its GEMMs, top-k and the rest.  Drive
    (b)-(d) alone with ``chip_smoke.moe_phase(torch.device("cuda", 0))``
    after ``build.build()`` and a CUDA context.
+17. Serving.  (a) Right after each main path of phase 5, its merged
+   params through ``repro_torch.launch.serve.LMServer`` (fp32 KV and
+   Mamba caches): ``SERVE_BATCH`` prompts of the path's seq from the
+   corpus (seed 2), ``SERVE_NEW`` greedy tokens, three times (untimed;
+   timed by the host clock: ``tokens_per_s`` as the reference's CLI
+   counts it; each prefill and decode call timed by CUDA events), the
+   three ``==``, the logits finite; then ``SERVE_PROFILE_NEW`` tokens
+   timed and again under ``torch.profiler`` (kernels, device time by
+   kernel category, the busy share over the unprofiled wall time); the prefill launches ``flash_fwd``
+   (qwen3-1.7b, granite) or ``ssd_intra`` (mamba2-370m); prefill ms,
+   decode ms a token, tokens/s and the peak beside the card's name and
+   power limit.  (b) The share of the greedy tokens among the corpus's
+   257 mapped ids: above ``SERVE_GATE`` for the trained model, below it
+   for a fresh init of the same config (seeded on the card).  (c)
+   qwen3-1.7b and mamba2-370m at dtype float32: the logits of the 32
+   tokens (the prefill's and each decode step's) equal one forward
+   without a cache over prompt + generated tokens within 1e-4 of their
+   scale (not granite: MoE capacity is per call).  (d) The qwen3, gemma2,
+   mamba2, jamba and qwen2-moe smoke configs' prefill and teacher-forced
+   decode logits, card vs CPU from one CPU-seeded init, within 1e-4, each
+   launching its fp32 attention or SSD kernel.  Drive it alone with
+   ``main_path`` then ``serve_path(dev, arch, merged)`` per arch and
+   ``serve_smoke(dev)`` after ``build.build()`` and a CUDA context.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -295,7 +318,8 @@ Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
 runs too), 9, 10, 11, 12, 13, 14, 15 (its (d) launches in processes
-of its own, uncounted) and 16(a) and (c),
+of its own, uncounted), 16(a) and (c) and 17 (``serve:<arch>``,
+``serve_init:<arch>``, ``serve_fp32:<arch>``, ``serve_smoke:<arch>``),
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -358,8 +382,10 @@ from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ref as SR  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.serve import LMServer  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import transformer as TR  # noqa: E402
 from repro_torch.observability import Observability  # noqa: E402
 from repro_torch.observability.export import (  # noqa: E402
     export_artifacts, read_span_log, validate_chrome_trace)
@@ -567,6 +593,31 @@ _FA_XENT_FP32 = ("flash_fwd_fp32", "flash_bwd_fused_fp32", "xent_fwd_fp32",
 MOE_SMOKE = {"qwen2-moe-a2.7b": _FA_XENT_FP32,
              "jamba-1.5-large-398b": _FA_XENT_FP32 + ("ssd_intra",
                                                       "ssd_intra_bwd")}
+# phase 17: serving.  (a) each main path's merged model right after the
+# path, through ``launch.serve.LMServer``: SERVE_BATCH prompts of the
+# path's seq from the corpus (seed 2), SERVE_NEW greedy tokens, the
+# kernels each prefill must launch; (b) the share of the greedy tokens
+# among the corpus's 257 mapped ids, above SERVE_GATE for the trained
+# model and below it for a fresh init of the same config; (c) SERVE_FP32
+# at dtype float32: every generated token's logits equal a no-cache
+# forward over prompt + tokens within SERVE_TOL of their scale (not
+# granite: MoE capacity is per call, so a decoded token is routed against
+# one token's capacity and a forward against S tokens'); (d) SERVE_SMOKE's
+# prefill and teacher-forced decode logits (SERVE_SMOKE_SHAPE: batch,
+# prompt, last position), card vs CPU within SERVE_TOL.  The gate sits
+# between the shares measured on the card (PERF.md, PR 32 run 1): trained
+# 1.0 (qwen3, granite) and 0.5 (mamba2), fresh init 0.0-0.0078; 0.25
+# leaves 0.25 below the lowest trained and 0.24 above the highest init
+SERVE_BATCH, SERVE_NEW = 4, 32
+SERVE_PROFILE_NEW = 4
+SERVE_KERNELS = {"qwen3-1.7b": ("flash_fwd",), "mamba2-370m": ("ssd_intra",),
+                 "granite-moe-3b-a800m": ("flash_fwd",)}
+SERVE_GATE = 0.25
+SERVE_FP32 = ("qwen3-1.7b", "mamba2-370m")
+SERVE_TOL = 1e-4
+SERVE_SMOKE = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m",
+               "jamba-1.5-large-398b", "qwen2-moe-a2.7b")
+SERVE_SMOKE_SHAPE = (2, 12, 20)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -1033,11 +1084,16 @@ def smoke_reference(dev, arch):
         rel_tol=1e-4)
 
 
+def corpus_ids(vocab) -> np.ndarray:
+    """The fixed injection of the corpus's 257 ids into [0, vocab)."""
+    return np.random.default_rng(1234).choice(vocab, size=257, replace=False)
+
+
 def full_corpus(n, seq, vocab, seed):
-    """The unchanged bigram generator at vocab 257, its ids mapped into
-    [0, vocab) by a fixed injection drawn from ``seed``."""
+    """The unchanged bigram generator at vocab 257 (samples drawn from
+    ``seed``), its ids mapped into [0, vocab) by ``corpus_ids``."""
     small = make_lm_dataset(n, seq_len=seq, vocab=257, seed=seed)
-    inj = np.random.default_rng(1234).choice(vocab, size=257, replace=False)
+    inj = corpus_ids(vocab)
     return Dataset({"tokens": inj[small.arrays["tokens"]].astype(np.int32)},
                    small.labels)
 
@@ -1073,7 +1129,7 @@ def main_config(arch):
 def main_path(dev, arch, quantize=False):
     """One main path through the launcher; with ``quantize`` the store
     keeps and ships int8 activations (one fp32 scale a row).  Returns the
-    launches and the history."""
+    launches, the history and the merged params."""
     spec = MAIN_PATHS[arch]
     seq, lr = spec["seq"], spec["lr"]
     cfg = main_config(arch)
@@ -1130,14 +1186,14 @@ def main_path(dev, arch, quantize=False):
               out["merged_params"]["embed"].items()}
     if shapes != {"table": (cfg.vocab_size, cfg.d_model)}:
         raise AssertionError(f"merged params: unexpected {shapes}")
-    return launches, hist
+    return launches, hist, out["merged_params"]
 
 
 def int8_main_path(dev, fp32_hist):
     """The int8 main path against the fp32 one from the same init: the
     upload shrinks to int8 payloads, and ``comm_bytes`` and ``sim_time``
     fall by exactly that upload's bytes and their time on the link."""
-    launches, hist = main_path(dev, INT8_ARCH, quantize=True)
+    launches, hist, _ = main_path(dev, INT8_ARCH, quantize=True)
     cfg = registry.get_config(INT8_ARCH)
     seq = MAIN_PATHS[INT8_ARCH]["seq"]
     fp32_bytes = TRAIN_SAMPLES * (seq * cfg.d_model * 4 + seq * 4)
@@ -3300,6 +3356,201 @@ def moe_phase(dev) -> dict:
     return by_path
 
 
+def _record_steps(server) -> dict:
+    """Wraps ``server``'s prefill and decode steps: each call's ms (CUDA
+    events, synchronized at its end) and a copy of the logits it
+    returns."""
+    rec = {"prefill_ms": [], "decode_ms": [], "logits": []}
+
+    def wrap(fn, key, at):
+        def step(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+            rec[key].append(start.elapsed_time(end))
+            rec["logits"].append(out[at].clone())
+            return out
+        return step
+
+    server._prefill = wrap(server._prefill, "prefill_ms", 0)
+    server._decode = wrap(server._decode, "decode_ms", 1)
+    return rec
+
+
+def profile_generate(server, prompts) -> dict:
+    """A short ``generate`` (SERVE_PROFILE_NEW tokens: the profiler's
+    bookkeeping of ~3,000 kernels a token is slow) timed by the host
+    clock, then again under torch.profiler: kernels, device ms, device
+    time by ``kernel_category`` and the busy share (the kernel intervals'
+    union over the unprofiled wall time), or "not measured" when the
+    trace holds no device time."""
+    t = time.perf_counter()
+    server.generate(prompts, SERVE_PROFILE_NEW)
+    wall_s = time.perf_counter() - t
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        server.generate(prompts, SERVE_PROFILE_NEW)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_busy_share": "not measured"}
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    union_ms = _union_us([(e.time_range.start, e.time_range.end)
+                          for e in kernels]) / 1e3
+    return {"new_tokens": SERVE_PROFILE_NEW, "kernels": len(kernels),
+            "wall_ms": wall_s * 1e3,
+            "device_ms": sum(ms for ms, _ in by_name.values()),
+            "device_busy_share": union_ms / (wall_s * 1e3),
+            "by_category": by_category(by_name)}
+
+
+def serve_fp32(dev, arch, merged, prompts, max_len) -> dict:
+    """17(c): the merged model at dtype float32 through ``LMServer``; the
+    logits of its SERVE_NEW tokens (the prefill's and every decode
+    step's) against one forward without a cache over the prompt and the
+    generated tokens.  Returns the launches."""
+    cfg = dataclasses.replace(main_config(arch), dtype="float32")
+    model = build_model(cfg)
+    reset_launches()
+    server = LMServer(model, merged, max_len=max_len, device=dev)
+    rec = _record_steps(server)
+    tokens = server.generate(prompts, SERVE_NEW)
+    got = torch.stack(rec["logits"], dim=1)
+    seq = torch.as_tensor(np.concatenate([prompts, tokens[:, :-1]], axis=1),
+                          device=dev)
+    with torch.inference_mode():
+        want = model.apply(server.params, seq, remat="none")["logits"]
+    check(f"serve_fp32:{arch}", got, want[:, prompts.shape[1] - 1:],
+          SERVE_TOL)
+    return read_launches()
+
+
+def serve_path(dev, arch, merged) -> dict:
+    """17(a)-(c) on one main path's merged params: an untimed generate, a
+    timed one (host clock), a short one profiled, one with each step timed
+    (CUDA events), the three full ones ``==``; the corpus-share gate
+    against a fresh init; the fp32 identity.  Returns the launches by path (17(a)'s under
+    ``serve:<arch>``)."""
+    t0 = time.perf_counter()
+    cfg = main_config(arch)
+    seq = MAIN_PATHS[arch]["seq"]
+    prompts = full_corpus(SERVE_BATCH, seq, cfg.vocab_size, 2
+                          ).arrays["tokens"]
+    max_len = seq + SERVE_NEW + 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    server = LMServer(build_model(cfg), merged, max_len=max_len, device=dev)
+    first = server.generate(prompts, SERVE_NEW)
+    t = time.perf_counter()
+    tokens = server.generate(prompts, SERVE_NEW)
+    wall = time.perf_counter() - t
+    profile = profile_generate(server, prompts)
+    rec = _record_steps(server)
+    again = server.generate(prompts, SERVE_NEW)
+    by_path = {f"serve:{arch}": read_launches()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not (np.array_equal(first, tokens) and np.array_equal(tokens, again)):
+        raise AssertionError(f"serve {arch}: three generates differ")
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not all(
+            bool(torch.isfinite(lg).all()) for lg in rec["logits"]):
+        raise AssertionError(f"serve {arch}: {tokens.shape} or non-finite "
+                             f"logits")
+    missing = [k for k in SERVE_KERNELS[arch]
+               if by_path[f"serve:{arch}"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve {arch} never launched {missing}")
+    prefill_ms, decode_ms = rec["prefill_ms"][0], rec["decode_ms"]
+    del server, rec
+    # (b) a fresh init of the same config, the same prompts
+    ids = corpus_ids(cfg.vocab_size)
+    reset_launches()
+    model = build_model(cfg)
+    fresh = LMServer(model, model.init(torch.Generator(dev).manual_seed(0),
+                                       dev),
+                     max_len=max_len, device=dev).generate(prompts,
+                                                           SERVE_NEW)
+    by_path[f"serve_init:{arch}"] = read_launches()
+    torch.cuda.empty_cache()
+    share, share_init = (float(np.isin(x, ids).mean())
+                         for x in (tokens, fresh))
+    per_token = float(np.median(decode_ms))
+    log("serve", arch=cfg.name, layers=cfg.num_layers, batch=SERVE_BATCH,
+        prompt=seq, new_tokens=SERVE_NEW, prefill_ms=prefill_ms,
+        decode_ms_per_token=per_token,
+        decode_ms_range=[min(decode_ms), max(decode_ms)],
+        decode_tokens_per_s=SERVE_BATCH * 1e3 / per_token, generate_s=wall, tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
+        peak_mem_gib=peak, profile=profile, corpus_share=share,
+        corpus_share_init=share_init,
+        gate=SERVE_GATE, sample=tokens[0][:8].tolist(),
+        launches={k: v for k, v in by_path[f"serve:{arch}"].items() if v},
+        card=card_line())
+    if not share_init < SERVE_GATE < share:
+        raise AssertionError(f"serve {arch}: corpus share {share} (trained) "
+                             f"vs {share_init} (init) across {SERVE_GATE}")
+    if arch in SERVE_FP32:
+        by_path[f"serve_fp32:{arch}"] = serve_fp32(dev, arch, merged,
+                                                   prompts, max_len)
+        torch.cuda.empty_cache()
+    log("serve_path", arch=cfg.name, seconds=time.perf_counter() - t0)
+    return by_path
+
+
+def serve_steps(model, params, tokens, prompt, dev) -> torch.Tensor:
+    """Prefill on tokens[:, :prompt], then one decode step a token on the
+    rest (teacher-forced): every call's logits, (B, 1 + S - prompt, V),
+    on the CPU."""
+    prefill = steps.make_prefill_step(model, RunConfig())
+    decode = steps.make_decode_step(model, RunConfig())
+    caches = TR.init_caches(model.cfg, tokens.shape[0], tokens.shape[1],
+                            kv_dtype="float32", device=dev)
+    toks = torch.as_tensor(tokens, device=dev)
+    with torch.inference_mode():
+        logits, caches = prefill(params, toks[:, :prompt], caches)
+        out = [logits.clone()]
+        for i in range(prompt, tokens.shape[1]):
+            _, logits, caches = decode(params, caches, toks[:, i:i + 1], i)
+            out.append(logits.clone())
+    return torch.stack(out, dim=1).cpu()
+
+
+def serve_smoke(dev) -> dict:
+    """17(d): the smoke configs' prefill and teacher-forced decode steps on
+    the card and on the CPU from one CPU-seeded init; the card's launches
+    by path."""
+    batch, prompt, last = SERVE_SMOKE_SHAPE
+    cpu = torch.device("cpu")
+    by_path = {}
+    for arch in SERVE_SMOKE:
+        cfg = registry.get_smoke_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (batch, last)).astype(np.int32)
+        reset_launches()
+        card = serve_steps(model, tree_map(lambda t: t.to(dev), params),
+                           tokens, prompt, dev)
+        by_path[f"serve_smoke:{arch}"] = launches = read_launches()
+        check(f"serve_smoke:{arch}", card,
+              serve_steps(model, params, tokens, prompt, cpu), SERVE_TOL)
+        kinds = {cfg.layer_kind(i)[0] for i in range(cfg.num_layers)}
+        rows = (("flash_fwd_fp32",) if "attn" in kinds else ()) + (
+            ("ssd_intra",) if "mamba" in kinds else ())
+        missing = [name for name in rows if launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"{arch} smoke serving never launched "
+                                 f"{missing}")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3381,9 +3632,17 @@ def main() -> int:
     for arch in MAIN_PATHS:
         smoke_reference(dev, arch)
     by_path, hists = {}, {}
+    t_serve = 0.0
     for arch in MAIN_PATHS:
-        by_path[arch], hists[arch] = main_path(dev, arch)
-    torch.cuda.empty_cache()
+        by_path[arch], hists[arch], merged = main_path(dev, arch)
+        t = time.perf_counter()
+        by_path.update(serve_path(dev, arch, merged))
+        t_serve += time.perf_counter() - t
+        del merged
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    by_path.update(serve_smoke(dev))
+    log("serve_phase", seconds=t_serve + time.perf_counter() - t)
     by_path[f"{INT8_ARCH}:int8"] = int8_main_path(dev, hists[INT8_ARCH])
     torch.cuda.empty_cache()
     by_path["experiment"], card_hist = experiment(dev)

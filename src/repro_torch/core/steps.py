@@ -11,6 +11,9 @@
   staleness-weighted deltas fold into the current global state.
 * :func:`make_server_train_step` / :func:`make_server_epoch_fn` — the
   centralized server phase over consolidated activations (Eq. 11+12).
+* :func:`make_prefill_step` / :func:`make_decode_step` — serving the
+  merged model: fill the caches for a prompt, then one greedy token a
+  call.
 
 Gradients come from ``torch.autograd.grad`` over detached leaf copies of
 the parameter trees; every update returns new tensors.
@@ -22,7 +25,8 @@ import torch
 
 from repro_torch.core import aggregation, auxiliary, losses, splitting
 from repro_torch.interop import tree_leaves, tree_map
-from repro_torch.models.layers import dt
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import dt, rmsnorm
 from repro_torch.optim import clip_by_global_norm, make_optimizer, make_schedule
 from repro_torch.runtime import compression
 
@@ -227,3 +231,39 @@ def make_server_epoch_fn(model, run_cfg, *, impl="kernel", entry=None):
         return state, losses_nb
 
     return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(model, run_cfg, *, impl="kernel"):
+    """``prefill_step(params, tokens, caches)`` -> (last-position logits
+    (B, V), caches): the prompt fills the caches from position 0.  Only
+    the last position goes through the head; (B, S, V) is never made."""
+    cfg = model.cfg
+
+    def prefill_step(params, tokens, caches):
+        out = T.forward(cfg, params, tokens, caches=caches, cache_index=0,
+                        impl=impl, remat="none", return_logits=False)
+        h = rmsnorm(params["final_norm"], out["hidden"][:, -1:],
+                    cfg.norm_eps, cfg.dtype)
+        return T.logits_from_hidden(cfg, params, h)[:, 0], out["caches"]
+
+    return prefill_step
+
+
+def make_decode_step(model, run_cfg, *, impl="kernel"):
+    """``decode_step(params, caches, token (B, 1), index)`` -> (greedy next
+    token (B,), its logits (B, V), caches): one token at position
+    ``index``."""
+    cfg = model.cfg
+
+    def decode_step(params, caches, token, index):
+        out = T.forward(cfg, params, token, caches=caches, cache_index=index,
+                        impl=impl, remat="none")
+        logits = out["logits"][:, -1]
+        return torch.argmax(logits, dim=-1), logits, out["caches"]
+
+    return decode_step

@@ -1,5 +1,5 @@
 """Attention: GQA/MQA with RoPE/M-RoPE, sliding windows, logit soft-capping,
-per-head qk-norm and QKV bias — the training mode of
+per-head qk-norm, QKV bias and a KV cache for prefill and decode, as
 ``repro.models.attention``.
 
 Two implementations sit behind one interface:
@@ -12,7 +12,11 @@ Two implementations sit behind one interface:
 
 ``":split"`` selects the two-sweep backward (``bwd_strategy="split"``);
 the default is the fused one.  Both repeat bit for bit on the card.
-The prefill and decode modes (KV cache) come with the serving slice.
+Cache layout: ``{"k": (B, Smax, Hkv, hd), "v": (B, Smax, Hkv, hd)}``, views
+into the caller's stacked caches that prefill and decode write in place,
+plus a position ``cache_index`` held by the caller (shared by the layers).
+Prefill attends over the prompt alone (through the same two impls);
+decode attends over the whole cache with :func:`dot_attention`.
 """
 
 from __future__ import annotations
@@ -113,14 +117,13 @@ def dot_attention(q, k, v, *, causal: bool, window: int, softcap: float,
 
 
 def attention(cfg, p, x, positions, window: int, *, cache=None,
-              impl: str = "kernel", kv_block: int = 1024,
+              cache_index=None, impl: str = "kernel", kv_block: int = 1024,
               fa_bwd_strategy: str = "fused"):
-    """Training-mode attention sublayer: projections, rope, core,
-    out-projection.  Returns (y, None)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "prefill/decode attention comes with the serving slice "
-            "(ROADMAP.md queue A)")
+    """Attention sublayer: projections, rope, core, out-projection.
+
+    Modes: no cache -> training (full-sequence causal); a cache and S > 1
+    -> prefill (writes cache[:, 0:S]); a cache and S == 1 -> one decode
+    token at ``cache_index`` (an int).  Returns (y, cache)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // Hkv
@@ -136,13 +139,32 @@ def attention(cfg, p, x, positions, window: int, *, cache=None,
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     qg = q.reshape(B, S, Hkv, G, hd)
-    kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
-              scale=_scale(cfg))
-    if impl == "kernel":
-        o = fa_ops.flash_attention(qg, k, v, bwd_strategy=fa_bwd_strategy, **kw)
-    elif impl == "xla":
-        o = chunked_attention(qg, k, v, kv_block=kv_block, **kw)
+    kw = dict(window=window, softcap=cfg.attn_softcap, scale=_scale(cfg))
+    if cache is not None and S == 1:
+        idx = cache_index
+        cache["k"][:, idx] = k[:, 0]
+        cache["v"][:, idx] = v[:, 0]
+        o = dot_attention(qg, cache["k"], cache["v"], causal=False,
+                          q_offset=idx, kv_valid_len=idx + 1, **kw)
     else:
-        raise ValueError(f"unknown attention impl {impl!r}")
+        if cache is not None:  # prefill: the prompt fills cache[:, :S]
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+        if impl == "kernel":
+            o = fa_ops.flash_attention(qg, k, v, causal=True,
+                                       bwd_strategy=fa_bwd_strategy, **kw)
+        elif impl == "xla":
+            o = chunked_attention(qg, k, v, causal=True, kv_block=kv_block,
+                                  **kw)
+        else:
+            raise ValueError(f"unknown attention impl {impl!r}")
     o = o.reshape(B, S, H * hd).to(L.dt(cd))
-    return L.dense(p["wo"], o, cd), None
+    return L.dense(p["wo"], o, cd), cache
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
+               device="cpu"):
+    """Zero K and V caches of one attention layer."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=L.dt(dtype), device=device),
+            "v": torch.zeros(shape, dtype=L.dt(dtype), device=device)}

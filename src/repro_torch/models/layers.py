@@ -231,7 +231,7 @@ def apply_rope(x, positions, theta: float = 10000.0, mrope_sections=()):
 
 
 # ---------------------------------------------------------------------------
-# Short causal conv1d (Mamba), training form
+# Short causal conv1d (Mamba)
 # ---------------------------------------------------------------------------
 
 
@@ -242,9 +242,12 @@ def init_conv1d(gen, channels: int, width: int, param_dtype="float32",
             "b": zeros_init(tuple(lead) + (channels,), param_dtype, device)}
 
 
-def causal_conv1d(p, x, compute_dtype="bfloat16"):
-    """Depthwise causal conv over (B, S, C), zero-padded on the left.
+def causal_conv1d(p, x, compute_dtype="bfloat16", state=None):
+    """Depthwise causal conv over (B, S, C).
 
+    Zero-padded on the left; with ``state`` (B, W-1, C), the streaming
+    form (decode): the state stands in for the padding, and the call
+    returns (y, new_state), the last W-1 inputs in the compute dtype.
     The sum of shifted slices runs in the compute dtype in the reference's
     order (``y = b``, then ``y += ctx[:, i:i+S] * w[i]``), SiLU in fp32."""
     w = cast(p["w"], compute_dtype)  # (W, C)
@@ -252,10 +255,15 @@ def causal_conv1d(p, x, compute_dtype="bfloat16"):
     width = w.shape[0]
     xc = cast(x, compute_dtype)
     S = xc.shape[1]
-    ctx = F.pad(xc, (0, 0, width - 1, 0))
+    if state is None:
+        ctx = F.pad(xc, (0, 0, width - 1, 0))
+    else:
+        ctx = torch.cat([cast(state, compute_dtype), xc], dim=1)
+        new_state = ctx[:, -(width - 1):] if width > 1 else state
     for i in range(width):
         y = y + ctx[:, i:i + S, :] * w[i]
-    return F.silu(y.float()).to(dt(compute_dtype))
+    y = F.silu(y.float()).to(dt(compute_dtype))
+    return y if state is None else (y, new_state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,4 @@
-"""Mamba-2 (state-space duality) token mixer, training path, as
-``repro.models.mamba``.
+"""Mamba-2 (state-space duality) token mixer, as ``repro.models.mamba``.
 
 The chunked SSD algorithm [arXiv:2405.21060]: the sequence is split into
 chunks of length Q; within a chunk the quadratic (dual) form computes the
@@ -10,8 +9,10 @@ routes the intra-chunk term through :mod:`repro_torch.kernels.ssd_chunk`
 ``impl="xla"`` computes it, and autograd its gradient, with the
 einsums of the oracle ``ssd_chunk.ref``, as the reference's default.
 
-Decode and prefill (``ssd_decode_step``, the conv streaming state, the
-cache) come with the serving slice (ROADMAP.md queue A).
+Serving keeps a cache a layer (:func:`init_mamba_cache`): the last W-1
+pre-conv inputs and the fp32 SSM state.  Prefill runs the chunked scan
+from the cached state (``h0``) and fills both; decode is the O(1)
+recurrence (:func:`ssd_decode_step`) and the conv's streaming form.
 """
 
 from __future__ import annotations
@@ -61,14 +62,16 @@ def init_mamba(gen, cfg, device="cpu", lead=()):
 # ---------------------------------------------------------------------------
 
 
-def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, impl: str = "kernel"):
-    """Chunked state-space-duality scan from a zero state.
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None,
+                impl: str = "kernel"):
+    """Chunked state-space-duality scan.
 
     xh: (B, S, H, P) per-head inputs; dt: (B, S, H) post-softplus timestep;
     A: (H,) negative decay rates; Bm, Cm: (B, S, N) input/output
-    projections (ngroups=1, shared by the heads).  Returns
-    (y (B, S, H, P) fp32, h_final (B, H, P, N) fp32).  The reference's
-    initial state ``h0`` serves prefill, which comes with serving.
+    projections (ngroups=1, shared by the heads); h0: the state entering
+    the sequence (B, H, P, N), zero when None (prefill passes the cached
+    one; it enters only the inter-chunk recurrence).  Returns
+    (y (B, S, H, P) fp32, h_final (B, H, P, N) fp32).
     """
     B_, S, H, P = xh.shape
     N = Bm.shape[-1]
@@ -97,7 +100,8 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, impl: str = "kernel"):
         raise ValueError(f"unknown ssd impl {impl!r}")
 
     # inter-chunk recurrence over nc (the reference's lax.scan)
-    h = torch.zeros((B_, H, P, N), dtype=torch.float32, device=xf.device)
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=xf.device)
+         if h0 is None else h0.float())
     h_in = []
     for c in range(nc):
         h_in.append(h)                                  # state entering c
@@ -111,24 +115,52 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, impl: str = "kernel"):
     return y, h
 
 
+def ssd_decode_step(xh, dt, A, Bm, Cm, h):
+    """One token of the SSM recurrence.  xh: (B, H, P), dt: (B, H), Bm, Cm:
+    (B, N), h: (B, H, P, N) fp32.  Returns (y (B, H, P), h_new), fp32."""
+    a = torch.exp(dt.float() * A.float())                       # (B, H)
+    dbx = torch.einsum("bh,bn,bhp->bhpn", dt.float(), Bm.float(), xh.float())
+    h_new = h * a[:, :, None, None] + dbx
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm.float())
+    return y, h_new
+
+
 # ---------------------------------------------------------------------------
 # Full Mamba-2 sublayer
 # ---------------------------------------------------------------------------
 
 
-def mamba(cfg, p, x, *, impl: str = "kernel"):
-    """x: (B, S, D) -> y (B, S, D); training form (no cache)."""
+def mamba(cfg, p, x, *, cache=None, impl: str = "kernel"):
+    """x: (B, S, D) -> (y, cache).
+
+    Without a cache, training (returns (y, None)).  With one
+    (``{"conv": (B, W-1, conv_dim), "ssm": (B, H, P, N)}``, views into the
+    caller's stacked caches), S > 1 is prefill and S == 1 decode; both
+    write the new state into it in place and return it.  As the
+    reference: prefill keeps the last W-1 *pre-conv* inputs, decode
+    casts the conv state to the compute dtype, the SSM state stays fp32.
+    """
     B, S, D = x.shape
     m = cfg.mamba
     d_in = m.d_inner(D)
     H, P, N = m.num_heads(D), m.head_dim, m.d_state
+    W = m.conv_width
     cd = cfg.dtype
 
     zxbcdt = L.dense(p["in_proj"], x, cd)
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:d_in + d_in + 2 * N]
     dt_raw = zxbcdt[..., -H:]
-    xbc = L.causal_conv1d(p["conv"], xbc, cd)
+    if cache is None:
+        xbc = L.causal_conv1d(p["conv"], xbc, cd)
+    elif S > 1:  # prefill
+        if W > 1:
+            cache["conv"].copy_(xbc[:, -(W - 1):])
+        xbc = L.causal_conv1d(p["conv"], xbc, cd)
+    else:  # decode
+        xbc, conv_state = L.causal_conv1d(p["conv"], xbc, cd,
+                                          state=cache["conv"])
+        cache["conv"].copy_(conv_state)
     xi = xbc[..., :d_in]
     Bm = xbc[..., d_in:d_in + N]
     Cm = xbc[..., d_in + N:]
@@ -136,8 +168,29 @@ def mamba(cfg, p, x, *, impl: str = "kernel"):
     dtv = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     xh = xi.reshape(B, S, H, P)
-    y, _ = ssd_chunked(xh, dtv, A, Bm, Cm, m.chunk_size, impl=impl)
+    if cache is None or S > 1:
+        h0 = None if cache is None else cache["ssm"]
+        y, h_final = ssd_chunked(xh, dtv, A, Bm, Cm, m.chunk_size, h0=h0,
+                                 impl=impl)
+        if cache is not None:
+            cache["ssm"].copy_(h_final)
+    else:
+        y1, h_new = ssd_decode_step(xh[:, 0], dtv[:, 0], A, Bm[:, 0],
+                                    Cm[:, 0], cache["ssm"].float())
+        y = y1[:, None]
+        cache["ssm"].copy_(h_new)
     y = y + xh.float() * p["D_skip"].float()[:, None]
     y = y.reshape(B, S, d_in)
     y = L.gated_rmsnorm(p["norm"], y, z, cfg.norm_eps, cd)
-    return L.dense(p["out_proj"], y, cd)
+    return L.dense(p["out_proj"], y, cd), cache
+
+
+def init_mamba_cache(cfg, batch: int, dtype="float32", device="cpu"):
+    """Zero conv and SSM state of one Mamba layer."""
+    D = cfg.d_model
+    m = cfg.mamba
+    conv_dim = m.d_inner(D) + 2 * m.d_state
+    return {"conv": torch.zeros((batch, m.conv_width - 1, conv_dim),
+                                dtype=L.dt(dtype), device=device),
+            "ssm": torch.zeros((batch, m.num_heads(D), m.head_dim,
+                                m.d_state), dtype=L.dt(dtype), device=device)}

@@ -4,8 +4,9 @@ and the paper's vision classifiers, as ``repro.models.model_api``.
 A :class:`Model` exposes ``init(gen, device)`` and
 ``apply(params, inputs, lo=, hi=)``, which runs layers [lo, hi) and
 returns a dict with "hidden" (the activations Ampere ships at the split
-point), "logits" when hi == num_layers, and "aux" (the MoE
-load-balancing loss summed over those layers; zero for a vision model);
+point), "logits" when hi == num_layers, "aux" (the MoE load-balancing
+loss summed over those layers; zero for a vision model) and "caches"
+(an LM's serving caches, updated in place; None for a vision model);
 ``input_spec`` and ``activation_spec`` give shapes and dtypes as tensors
 on the ``meta`` device (nothing allocated), and ``split_params`` cuts a
 parameter tree at a split point: ``core.comm_model.split_sizes`` prices
@@ -71,18 +72,19 @@ class Model:
                 "head": CNN.init_head(gen, cfg, head_in, device)}
 
     def apply(self, params, inputs, *, lo: int = 0, hi: Optional[int] = None,
-              positions=None, impl="kernel", remat: str = "block",
-              return_logits=True):
+              positions=None, caches=None, cache_index=None, impl="kernel",
+              remat: str = "block", return_logits=True):
         if self.kind == "lm":
             return T.forward(self.cfg, params, inputs, positions=positions,
-                             lo=lo, hi=hi, impl=impl, remat=remat,
+                             lo=lo, hi=hi, caches=caches,
+                             cache_index=cache_index, impl=impl, remat=remat,
                              return_logits=return_logits)
         cfg = self.cfg
         hi = self.num_layers if hi is None else hi
         x = inputs.to(L.dt(cfg.dtype)) if lo > 0 else inputs
         for i in range(lo, hi):
             x = apply_vision_layer(cfg, params["layers"][i], x, i)
-        out = {"hidden": x, "logits": None,
+        out = {"hidden": x, "logits": None, "caches": None,
                "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
         if hi == self.num_layers and return_logits:
             out["logits"] = CNN.apply_head(cfg, params["head"], x)

@@ -45,6 +45,7 @@ import repro_torch.fleet.engine
 import repro_torch.fleet.profiles
 import repro_torch.fleet.scheduler
 import repro_torch.launch.run_experiment
+import repro_torch.launch.serve
 import repro_torch.launch.train
 import repro_torch.models.cnn
 import repro_torch.models.moe

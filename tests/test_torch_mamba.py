@@ -259,7 +259,7 @@ def test_mamba_sublayer_matches_jax(jimpl, timpl):
     tx = torch.tensor(x, requires_grad=True)
     for t in leaves:
         t.requires_grad_(True)
-    ty = TM.mamba(tcfg, tp, tx, impl=timpl)
+    ty, _ = TM.mamba(tcfg, tp, tx, impl=timpl)
     tg = torch.autograd.grad(torch.sum(torch.sin(ty)), leaves + [tx])
     _close(ty, jy, 1e-4, "y")
     jl = jax.tree_util.tree_flatten_with_path(jgp)[0] + [(("x",), jgx)]
