@@ -304,6 +304,23 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    launching its fp32 attention or SSD kernel.  Drive it alone with
    ``main_path`` then ``serve_path(dev, arch, merged)`` per arch and
    ``serve_smoke(dev)`` after ``build.build()`` and a CUDA context.
+18. Dry-run (``repro_torch.launch.dryrun``, which runs a step on meta
+   tensors and counts each rank's FLOPs, bytes, collectives and live
+   bytes at dispatch).  (a) The ``--mesh debug`` row (one rank, the plain
+   step) of qwen3-1.7b's server step at the main path's shape (8 x 512):
+   the same step (``impl="xla"``, ``xent_impl="sharded"``, the dry-run's
+   run config: adamw, fp32 moments, block remat) then runs once on the
+   card from seeded params, each leaf on a storage of its own, under
+   ``FlopCounterMode``: its FLOPs must equal the row's, its
+   ``max_memory_allocated`` over what was allocated before its inputs
+   must fall within ``DRYRUN_MEM_TOL`` of the row's per-device peak, its
+   loss be finite and no hand-written kernel launch; a second step is
+   timed (CUDA events) beside the row's ``roofline_seconds``.  (b)
+   ``run_cell`` of qwen3-1.7b x decode_32k on the 512-rank multi-pod mesh
+   in a subprocess (its fake process group stays there): ``"ok"``, 512
+   chips, a per-device peak under 80 GiB.  Drive it alone with
+   ``chip_smoke.dryrun_phase(torch.device("cuda", 0))`` after a CUDA
+   context (it needs no kernel build).
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -318,8 +335,9 @@ Prints one line per phase (the last, "total", the script's wall
 seconds), then the kernels' JSON line (``launches`` the
 sum over the path runs of 5 (the int8 run too), 7, 8 (the streamed
 runs too), 9, 10, 11, 12, 13, 14, 15 (its (d) launches in processes
-of its own, uncounted), 16(a) and (c) and 17 (``serve:<arch>``,
-``serve_init:<arch>``, ``serve_fp32:<arch>``, ``serve_smoke:<arch>``),
+of its own, uncounted), 16(a) and (c), 17 (``serve:<arch>``,
+``serve_init:<arch>``, ``serve_fp32:<arch>``, ``serve_smoke:<arch>``)
+and 18(a) (``dryrun``: none, the xla route),
 ``launches_by_path`` each run's count; the attention rows are the bf16 tensor-core kernels,
 ``*_fp32`` the fp32 instantiations behind the same wrappers, counted by
 dtype (every one on the tensor cores over bf16 planes, with its bf16
@@ -618,6 +636,13 @@ SERVE_TOL = 1e-4
 SERVE_SMOKE = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m",
                "jamba-1.5-large-398b", "qwen2-moe-a2.7b")
 SERVE_SMOKE_SHAPE = (2, 12, 20)
+# phase 18: the dry-run.  (a) the measured step's peak against the --mesh
+# debug row's, relative; (b) the production cell, in a subprocess of at
+# most DRYRUN_CELL_S seconds
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_MEM_TOL = 0.10
+DRYRUN_CELL = ("decode_32k", "multi_pod", "decode_step")
+DRYRUN_CELL_S = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -3356,6 +3381,116 @@ def moe_phase(dev) -> dict:
     return by_path
 
 
+def dryrun_measured(dev) -> dict:
+    """18(a): the dry-run's one-rank row of qwen3-1.7b's server step at the
+    main path's shape against the same step run on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    arch = DRYRUN_ARCH
+    seq = MAIN_PATHS[arch]["seq"]
+    shape = InputShape(f"main_{seq}", seq, 8, "train")
+    t = time.perf_counter()
+    row = dryrun.run_cell(arch, "train_4k", "debug", "server_train_step",
+                          shape=shape, verbose=False)
+    row_s = time.perf_counter() - t
+    cfg = main_config(arch)
+    run_cfg = dryrun.make_run_cfg(arch, "train_4k")
+    model = build_model(cfg)
+    step = dryrun.make_step_fn(model, run_cfg, "server_train_step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # each leaf on a storage of its own, as the row's inputs (a split's
+    # leaves are views of the whole model's stacked tensors)
+    srv = tree_map(torch.clone, splitting.split_params(
+        model, model.init(gen, dev), run_cfg.split.split_point)[1])
+    state = steps.init_server_state(model, run_cfg, srv)
+    del srv
+    batch = {"acts": torch.randn((8, seq, cfg.d_model), generator=gen,
+                                 device=dev).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size, (8, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    fcm = FlopCounterMode(display=False)
+    with fcm:
+        new, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    launches = read_launches()
+    loss = float(m["loss"])
+    flops = fcm.get_total_flops()
+    del new, m
+    step_ms = time_runs(lambda: step(state, batch), 1, warmup=0,
+                        repeats=3)
+    del state, batch
+    torch.cuda.empty_cache()
+    want_peak = row["peak_mem_gb_per_device"] * 1e9
+    mem_rel = abs(peak - want_peak) / want_peak
+    out = {"row_flops": row["flops_per_device"], "card_flops": flops,
+           "row_peak_bytes": want_peak, "card_peak_bytes": peak,
+           "peak_rel_diff": mem_rel,
+           "row_peak_gib": want_peak / 2**30, "card_peak_gib": peak / 2**30,
+           "roofline_seconds": row["roofline_seconds"],
+           "bottleneck": row["bottleneck"],
+           "step_ms": float(np.median(step_ms)),
+           "step_ms_range": [min(step_ms), max(step_ms)], "loss": loss,
+           "row_trace_s": row["trace_s"], "row_s": row_s,
+           "row_mem": row["mem"], "hbm_gb": row["hbm_gb_total"]}
+    log("dryrun_measured", arch=arch, seq=seq, batch=8, card=card_line(),
+        **out)
+    if flops != int(row["flops_per_device"]):
+        raise AssertionError(f"18(a): the card's FLOPs {flops} != the "
+                             f"row's {row['flops_per_device']}")
+    if mem_rel > DRYRUN_MEM_TOL:
+        raise AssertionError(f"18(a): peak {peak} B vs the row's "
+                             f"{want_peak} B: {mem_rel:.3f} apart")
+    if not math.isfinite(loss):
+        raise AssertionError(f"18(a): loss {loss}")
+    if any(launches.values()):
+        raise AssertionError(f"18(a): the xla route launched {launches}")
+    return launches
+
+
+def dryrun_cell() -> dict:
+    """18(b): one production cell through ``run_cell`` in a subprocess."""
+    arch, (shape, mesh, step) = DRYRUN_ARCH, DRYRUN_CELL
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
+            "from repro_torch.launch import dryrun\n"
+            f"row = dryrun.run_cell({arch!r}, {shape!r}, {mesh!r}, "
+            f"{step!r}, verbose=False)\n"
+            "print(json.dumps(row, default=str))\n")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=DRYRUN_CELL_S, cwd=ROOT)
+    seconds = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"18(b): exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("dryrun_cell", seconds=seconds, **row)
+    if row["status"] != "ok" or row["chips"] != 512:
+        raise AssertionError(f"18(b): {row['status']}, {row['chips']} chips")
+    if not row["peak_mem_gb_per_device"] * 1e9 < 80 * 2**30:
+        raise AssertionError(f"18(b): peak {row['peak_mem_gb_per_device']}"
+                             " GB a device")
+    return row
+
+
+def dryrun_phase(dev) -> dict:
+    """18(a)-(b); returns 18(a)'s launches by path (none)."""
+    t = time.perf_counter()
+    launches = dryrun_measured(dev)
+    dryrun_cell()
+    log("dryrun_phase", seconds=time.perf_counter() - t)
+    return {"dryrun": launches}
+
+
 def _record_steps(server) -> dict:
     """Wraps ``server``'s prefill and decode steps: each call's ms (CUDA
     events, synchronized at its end) and a copy of the logits it
@@ -3668,6 +3803,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     by_path["split_backward"] = split_backward(dev)
     by_path.update(moe_phase(dev))
+    torch.cuda.empty_cache()
+    by_path.update(dryrun_phase(dev))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -336,7 +336,7 @@ class ShardingConfig:
 
     strategy: str = "fsdp_tp"       # tp_only | fsdp_tp
     remat: str = "block"            # none | block (remat each layer block)
-    sequence_sharding: bool = True  # shard residual-stream seq over "model"
+    sequence_sharding: bool = True  # shard attention queries' seq over "model"
     donate_params: bool = True
     scan_layers: bool = True        # lax.scan over layer repetitions
 

@@ -105,6 +105,17 @@ def prefix_fedavg(current, by_depth, weights):
     return out
 
 
+def tree_sub(a, b):
+    """Leaf-wise ``a - b`` in fp32."""
+    return tree_map(lambda x, y: x.float() - y.float(), a, b)
+
+
+def tree_add(a, b, scale=1.0):
+    """Leaf-wise ``a + scale * b`` in fp32, cast back to ``a``'s dtype."""
+    return tree_map(lambda x, y: (x.float() + scale * y.float()).to(x.dtype),
+                    a, b)
+
+
 def pad_cohort(client_ids, weights, pad_to: int):
     """Pad a partial cohort to ``pad_to`` slots by repeating the first
     survivor with weight 0 (zero-weight clients don't contribute)."""

@@ -122,7 +122,7 @@ def aux_hidden(model, aux_params, activations, split_cfg, *, positions=None,
 
 
 def aux_loss(model, aux_params, device_params, activations, batch, split_cfg,
-             *, positions=None, impl="kernel"):
+             *, positions=None, impl="kernel", xent_impl="kernel"):
     """Local loss F_k^(d) (Eq. 8): aux network over the device-block
     activations against the next tokens or the labels.  Returns (loss,
     metrics)."""
@@ -138,4 +138,5 @@ def aux_loss(model, aux_params, device_params, activations, batch, split_cfg,
         head_w = device_params["embed"]["table"].t()
     return losses.lm_loss_from_hidden(h, head_w, batch["tokens"],
                                       softcap=model.cfg.final_softcap,
+                                      impl=xent_impl,
                                       loss_mask=batch.get("loss_mask"))

@@ -19,12 +19,13 @@ def classification_loss(logits, labels):
 
 
 def lm_loss_from_hidden(hidden, head_w, tokens, *, softcap: float = 0.0,
-                        loss_mask=None):
+                        impl: str = "kernel", loss_mask=None):
     """Next-token CE computed from the final hidden states through the
     fused xent op (logits are never materialized on the kernel path).
 
     hidden: (B, S, D) post-final-norm; head_w: (D, V); tokens: (B, S).
     Position t predicts token t+1; the last position is masked out.
+    ``impl``: the xent route (``repro_torch.kernels.xent.ops``).
     """
     B, S, D = hidden.shape
     h = hidden[:, :-1].reshape(B * (S - 1), D)
@@ -34,7 +35,7 @@ def lm_loss_from_hidden(hidden, head_w, tokens, *, softcap: float = 0.0,
     else:
         mask = loss_mask[:, 1:].reshape(B * (S - 1)).float()
     loss, _ = xent_ops.cross_entropy(h, head_w, labels, mask,
-                                     softcap=softcap)
+                                     softcap=softcap, impl=impl)
     return loss, {"loss": loss}
 
 

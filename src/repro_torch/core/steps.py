@@ -11,12 +11,17 @@
   staleness-weighted deltas fold into the current global state.
 * :func:`make_server_train_step` / :func:`make_server_epoch_fn` — the
   centralized server phase over consolidated activations (Eq. 11+12).
+* :func:`make_e2e_train_step` — end-to-end, unsplit training (the
+  non-split reference; the dry-run's e2e cell).
 * :func:`make_prefill_step` / :func:`make_decode_step` — serving the
   merged model: fill the caches for a prompt, then one greedy token a
   call.
 
 Gradients come from ``torch.autograd.grad`` over detached leaf copies of
-the parameter trees; every update returns new tensors.
+the parameter trees; every update returns new tensors.  ``xent_impl``
+picks the LM loss's cross-entropy route
+(``repro_torch.kernels.xent.ops.cross_entropy``): the fused kernels by
+default, ``"sharded"`` for the dry-run's vocab-sharded logits.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ def sgd(par, grads, lr):
 # ---------------------------------------------------------------------------
 
 
-def make_client_round_fn(model, run_cfg, *, impl="kernel"):
+def make_client_round_fn(model, run_cfg, *, impl="kernel",
+                         xent_impl="kernel"):
     """``client_round(device_params, aux_params, client_batches, lr)`` with
     batch leaves shaped (H, b, ...); returns the trained trees and the mean
     loss over the H steps."""
@@ -78,7 +84,8 @@ def make_client_round_fn(model, run_cfg, *, impl="kernel"):
         acts = splitting.device_forward(model, device_params,
                                         batch[model.input_key], p, impl=impl)
         loss, _ = auxiliary.aux_loss(model, aux_params, device_params, acts,
-                                     batch, split_cfg, impl=impl)
+                                     batch, split_cfg, impl=impl,
+                                     xent_impl=xent_impl)
         return loss
 
     def client_round(device_params, aux_params, client_batches, lr):
@@ -95,8 +102,10 @@ def make_client_round_fn(model, run_cfg, *, impl="kernel"):
     return client_round
 
 
-def make_device_round_step(model, run_cfg, *, impl="kernel"):
-    client_round = make_client_round_fn(model, run_cfg, impl=impl)
+def make_device_round_step(model, run_cfg, *, impl="kernel",
+                           xent_impl="kernel"):
+    client_round = make_client_round_fn(model, run_cfg, impl=impl,
+                                        xent_impl=xent_impl)
 
     def device_round_step(state, batches, weights, lr):
         """state: {"device", "aux"}; batch leaves (K, H, b, ...);
@@ -118,7 +127,8 @@ def make_device_round_step(model, run_cfg, *, impl="kernel"):
     return device_round_step
 
 
-def make_buffered_round_step(model, run_cfg, *, impl="kernel"):
+def make_buffered_round_step(model, run_cfg, *, impl="kernel",
+                             xent_impl="kernel"):
     """``buffered_round_step(state, snapshots, batches, weights, lr)``:
     ``state`` the current global {"device", "aux"} (left intact: past
     versions stay live for still-in-flight clients), ``snapshots`` each
@@ -126,7 +136,8 @@ def make_buffered_round_step(model, run_cfg, *, impl="kernel"):
     JAX package's leading client axis), batch leaves (K, H, b, ...).  Each
     client's round runs from its own snapshot, then the FedBuff delta fold
     into ``state``."""
-    client_round = make_client_round_fn(model, run_cfg, impl=impl)
+    client_round = make_client_round_fn(model, run_cfg, impl=impl,
+                                        xent_impl=xent_impl)
 
     def buffered_round_step(state, snapshots, batches, weights, lr):
         dev_k, aux_k, loss_k = [], [], []
@@ -156,8 +167,30 @@ def make_buffered_round_step(model, run_cfg, *, impl="kernel"):
 # ---------------------------------------------------------------------------
 
 
-def make_server_train_step(model, run_cfg, *, impl="kernel", entry=None):
-    """``entry``: the cut depth this step's activations were made at (a
+def _redistribute_like(grads, placements):
+    """Each ``DTensor`` gradient moved to its placements (a list a leaf
+    of ``placements``, a tree over the same dict keys)."""
+    if isinstance(grads, dict):
+        return {k: _redistribute_like(v, placements[k])
+                for k, v in grads.items()}
+    if isinstance(grads, (list, tuple)):
+        return type(grads)(_redistribute_like(g, p)
+                           for g, p in zip(grads, placements))
+    if hasattr(grads, "redistribute"):
+        return grads.redistribute(grads.device_mesh, placements)
+    return grads
+
+
+def make_server_train_step(model, run_cfg, *, impl="kernel",
+                           xent_impl="kernel", grad_placements=None,
+                           entry=None):
+    """``grad_placements``: optional placements tree of the server params
+    (``repro_torch.sharding.rules.to_placements``); each ``DTensor``
+    gradient is redistributed to its param's placements right at the grad
+    boundary, before clipping and the optimizer (the JAX package's
+    ``grad_shardings``: a reduce-scatter in place of an all-reduce).
+
+    ``entry``: the cut depth this step's activations were made at (a
     heterogeneous-cut server phase trains one server block from several
     entry points; the layers below ``entry`` get zero gradients, as in
     JAX, and the optimizer still moves them); ``None`` = the split
@@ -180,7 +213,7 @@ def make_server_train_step(model, run_cfg, *, impl="kernel", entry=None):
         else:
             loss, _ = losses.lm_loss_from_hidden(
                 out["hidden"], splitting.server_head_weight(server_params),
-                batch["tokens"], softcap=cfg.final_softcap,
+                batch["tokens"], softcap=cfg.final_softcap, impl=xent_impl,
                 loss_mask=batch.get("loss_mask"))
         # the task loss is what the step records; the MoE balance loss
         # only enters the gradient
@@ -194,6 +227,8 @@ def make_server_train_step(model, run_cfg, *, impl="kernel", entry=None):
             if run_cfg.optim.grad_dtype:
                 gd = dt(run_cfg.optim.grad_dtype)
                 grads = tree_map(lambda g: g.to(gd), grads)
+            if grad_placements is not None:
+                grads = _redistribute_like(grads, grad_placements)
             if run_cfg.optim.grad_clip:
                 grads, _ = clip_by_global_norm(grads, run_cfg.optim.grad_clip)
             lr = sched(state["step"])
@@ -213,13 +248,18 @@ def init_server_state(model, run_cfg, server_params):
             "step": 0}
 
 
-def make_server_epoch_fn(model, run_cfg, *, impl="kernel", entry=None):
+def make_server_epoch_fn(model, run_cfg, *, impl="kernel",
+                         xent_impl="kernel", grad_placements=None,
+                         entry=None):
     """``epoch_fn(state, pool, idx)``: one server epoch over ``idx``, an
     (nb, batch) index matrix into the device-resident consolidated
     ``pool`` (an int8 payload stays quantized there; the step dequantizes
     each batch); returns the new state and the (nb,) per-batch losses.
-    ``entry`` as :func:`make_server_train_step`'s."""
-    step = make_server_train_step(model, run_cfg, impl=impl, entry=entry)
+    The keywords are :func:`make_server_train_step`'s."""
+    step = make_server_train_step(model, run_cfg, impl=impl,
+                                  xent_impl=xent_impl,
+                                  grad_placements=grad_placements,
+                                  entry=entry)
 
     def epoch_fn(state, pool, idx):
         out = []
@@ -231,6 +271,66 @@ def make_server_epoch_fn(model, run_cfg, *, impl="kernel", entry=None):
         return state, losses_nb
 
     return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# End-to-end baseline step (FL / SplitFed-V2-like)
+# ---------------------------------------------------------------------------
+
+
+def _lm_hidden_and_loss(cfg, params, tokens, *, impl, xent_impl, remat,
+                        loss_mask=None):
+    """(task loss, MoE balance loss) of the whole LM."""
+    out = T.forward(cfg, params, tokens, impl=impl, remat=remat,
+                    return_logits=False)
+    h = rmsnorm(params["final_norm"], out["hidden"], cfg.norm_eps, cfg.dtype)
+    loss, _ = losses.lm_loss_from_hidden(
+        h, T.head_weight(cfg, params), tokens, softcap=cfg.final_softcap,
+        impl=xent_impl, loss_mask=loss_mask)
+    return loss, out["aux"]
+
+
+def make_e2e_train_step(model, run_cfg, *, impl="kernel", xent_impl="kernel"):
+    """``e2e_train_step(state, batch)``: one step of the whole model (no
+    split): the LM or classifier loss, its gradient, optional global-norm
+    clipping and the scheduled optimizer update.  The recorded loss is the
+    task loss; the MoE balance loss only enters the gradient."""
+    cfg = model.cfg
+    opt = make_optimizer(run_cfg.optim)
+    sched = make_schedule(run_cfg.optim)
+    remat = run_cfg.sharding.remat
+
+    def loss_fn(params, batch):
+        if model.kind == "lm":
+            loss, aux = _lm_hidden_and_loss(
+                cfg, params, batch["tokens"], impl=impl, xent_impl=xent_impl,
+                remat=remat, loss_mask=batch.get("loss_mask"))
+            return loss, aux, {}
+        out = model.apply(params, batch["images"], remat=remat)
+        loss, m = losses.classification_loss(out["logits"], batch["labels"])
+        return loss, out["aux"], {"acc": m["acc"].detach()}
+
+    def e2e_train_step(state, batch):
+        params = _leaves_requiring_grad(state["params"])
+        loss, aux, m = loss_fn(params, batch)
+        grads = _grads(loss + aux, params)
+        with torch.no_grad():
+            if run_cfg.optim.grad_clip:
+                grads, _ = clip_by_global_norm(grads, run_cfg.optim.grad_clip)
+            lr = sched(state["step"])
+            new_params, new_opt = opt.update(
+                grads, state["opt"], tree_map(lambda t: t.detach(), params),
+                lr)
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1},
+                dict(m, loss=loss.detach(), lr=lr))
+
+    return e2e_train_step
+
+
+def init_e2e_state(model, run_cfg, params):
+    opt = make_optimizer(run_cfg.optim)
+    return {"params": params, "opt": opt.init(params), "step": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.annotations import shard, write_at
 
 NEG_INF = -1e30
 
@@ -129,9 +130,16 @@ def attention(cfg, p, x, positions, window: int, *, cache=None,
     G = H // Hkv
     cd = cfg.dtype
 
-    q = L.dense(p["wq"], x, cd).reshape(B, S, H, hd)
-    k = L.dense(p["wk"], x, cd).reshape(B, S, Hkv, hd)
-    v = L.dense(p["wv"], x, cd).reshape(B, S, Hkv, hd)
+    # under a mesh binding: heads whole on every rank (a DTensor cannot
+    # split a head dim sharded finer than a head), the queries sharded over
+    # the sequence ("seq": the one place the sequence shards) and the keys
+    # and values whole
+    q = shard(L.dense(p["wq"], x, cd), "batch", "seq", None).reshape(
+        B, S, H, hd)
+    k = shard(L.dense(p["wk"], x, cd), "batch", None, None).reshape(
+        B, S, Hkv, hd)
+    v = shard(L.dense(p["wv"], x, cd), "batch", None, None).reshape(
+        B, S, Hkv, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps, cd)
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps, cd)
@@ -142,8 +150,8 @@ def attention(cfg, p, x, positions, window: int, *, cache=None,
     kw = dict(window=window, softcap=cfg.attn_softcap, scale=_scale(cfg))
     if cache is not None and S == 1:
         idx = cache_index
-        cache["k"][:, idx] = k[:, 0]
-        cache["v"][:, idx] = v[:, 0]
+        write_at(cache["k"], 1, idx, k[:, 0])
+        write_at(cache["v"], 1, idx, v[:, 0])
         o = dot_attention(qg, cache["k"], cache["v"], causal=False,
                           q_offset=idx, kv_valid_len=idx + 1, **kw)
     else:
@@ -158,7 +166,7 @@ def attention(cfg, p, x, positions, window: int, *, cache=None,
                                   **kw)
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
-    o = o.reshape(B, S, H * hd).to(L.dt(cd))
+    o = shard(o.reshape(B, S, H * hd).to(L.dt(cd)), "batch", None, None)
     return L.dense(p["wo"], o, cd), cache
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard
 
 
 def init_mamba(gen, cfg, device="cpu", lead=()):
@@ -89,7 +90,13 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None,
     dtf = dt.float().reshape(B_, nc, Q, H)
     Bf = Bm.float().reshape(B_, nc, Q, N)
     Cf = Cm.float().reshape(B_, nc, Q, N)
+    # the SSD head axis is embarrassingly parallel — shard it over "model"
+    # or the (B, nc, Q, Q, H) decay tensor alone is tens of GB per layer
+    # (the oracle's decay tensor inherits a_cum's head sharding)
+    xf = shard(xf, "batch", None, None, "heads", None)
+    dtf = shard(dtf, "batch", None, None, "heads")
     a_cum = torch.cumsum(dtf * A.float(), dim=2)       # inclusive
+    a_cum = shard(a_cum, "batch", None, None, "heads")
     a_total = a_cum[:, :, -1, :]                        # (B, nc, H)
 
     if impl == "kernel":
@@ -182,6 +189,7 @@ def mamba(cfg, p, x, *, cache=None, impl: str = "kernel"):
     y = y + xh.float() * p["D_skip"].float()[:, None]
     y = y.reshape(B, S, d_in)
     y = L.gated_rmsnorm(p["norm"], y, z, cfg.norm_eps, cd)
+    y = shard(y, "batch", None, "ff")
     return L.dense(p["out_proj"], y, cd), cache
 
 

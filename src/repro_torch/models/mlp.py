@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard
 
 
 def init_mlp(gen, cfg, d_ff: int = 0, device="cpu", lead=()):
@@ -27,4 +28,5 @@ def mlp(cfg, p, x):
         h = h * L.dense(p["wi"], x, cd)
     else:
         h = act(L.dense(p["wi"], x, cd).to(torch.float32)).to(L.dt(cd))
+    h = shard(h, "batch", None, "ff")
     return L.dense(p["wo"], h, cd)

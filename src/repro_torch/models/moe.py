@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard
 
 
 def init_moe(gen, cfg, device="cpu", lead=()):
@@ -98,12 +99,15 @@ def moe_mlp(cfg, p, x):
     x_ch = x_ch * keep[..., None].to(cd)
     buf = torch.zeros((B, E, C, D), dtype=cd, device=x.device).index_put(
         (b_idx, ch_e, pos_c), x_ch, accumulate=True)
+    buf = shard(buf, "batch", "expert", None, None)
 
     act = L.activation_fn(cfg.mlp_activation)
     wg, wi, wo = (p[n].to(cd) for n in ("wg", "wi", "wo"))
     h = act(torch.einsum("becd,edf->becf", buf, wg).float()).to(cd)
     h = h * torch.einsum("becd,edf->becf", buf, wi)
+    h = shard(h, "batch", "expert", None, None)
     y_buf = torch.einsum("becf,efd->becd", h, wo)
+    y_buf = shard(y_buf, "batch", "expert", None, None)
 
     y_ch = y_buf[b_idx, ch_e, pos_c]                        # (B, S*k, D)
     w_ch = (topw.reshape(B, S * k) * keep).to(cd)

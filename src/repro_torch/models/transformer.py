@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
+from repro_torch.sharding import shard
 
 
 def _has_mlp(cfg, is_moe: bool) -> bool:
@@ -75,6 +76,11 @@ def block_apply(cfg, p, x, positions, layer_idx: int, *, cache=None,
     stacked caches, is written in place (prefill or decode)."""
     mixer, window, is_moe = cfg.layer_kind(layer_idx)
     impl, fa_bwd = _parse_impl(impl)
+    # the residual stream shards over the batch only: a (batch, seq) pair
+    # over two mesh dims flattens into matmul rows as a strided shard,
+    # which DTensor plans for exponentially in the mesh dims; the sequence
+    # shards inside attention (attention.py)
+    x = shard(x, "batch", None, None)
     h = L.rmsnorm(p["pre_norm"], x, cfg.norm_eps, cfg.dtype)
     if mixer == "attn":
         mix, _ = A.attention(cfg, p["attn"], h, positions, window,
@@ -87,6 +93,7 @@ def block_apply(cfg, p, x, positions, layer_idx: int, *, cache=None,
     x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_mlp(cfg, is_moe):
+        x = shard(x, "batch", None, None)
         h = L.rmsnorm(p["pre_mlp_norm"], x, cfg.norm_eps, cfg.dtype)
         if is_moe:
             y, aux = MOE.moe_mlp(cfg, p["moe"], h)
@@ -95,7 +102,7 @@ def block_apply(cfg, p, x, positions, layer_idx: int, *, cache=None,
         if cfg.post_block_norm:
             y = L.rmsnorm(p["post_mlp_norm"], y, cfg.norm_eps, cfg.dtype)
         x = x + y
-    return x, aux
+    return shard(x, "batch", None, None), aux
 
 
 def checkpointed_block_apply(cfg, p, x, positions, layer_idx: int, *,
@@ -231,13 +238,15 @@ def forward(cfg, params, inputs, *, positions=None, lo: int = 0,
     if positions is None:
         off = 0 if cache_index is None else cache_index
         positions = default_positions(cfg, B, S, x.device, offset=off)
+    x = shard(x, "batch", None, None)
     x, aux = run_blocks(cfg, params["blocks"], x, positions, lo=lo, hi=hi,
                         caches=caches, cache_index=cache_index, impl=impl,
                         remat=remat)
     out = {"hidden": x, "logits": None, "aux": aux, "caches": caches}
     if hi == cfg.num_layers and return_logits:
         h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.dtype)
-        out["logits"] = logits_from_hidden(cfg, params, h)
+        out["logits"] = shard(logits_from_hidden(cfg, params, h),
+                              "batch", None, "vocab")
         out["hidden"] = h
     return out
 

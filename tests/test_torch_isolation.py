@@ -44,6 +44,10 @@ import repro_torch.fleet.cuts
 import repro_torch.fleet.engine
 import repro_torch.fleet.profiles
 import repro_torch.fleet.scheduler
+import repro_torch.analysis
+import repro_torch.launch.dryrun
+import repro_torch.launch.mesh
+import repro_torch.launch.roofline
 import repro_torch.launch.run_experiment
 import repro_torch.launch.serve
 import repro_torch.launch.train
@@ -60,6 +64,9 @@ import repro_torch.runtime.compression
 import repro_torch.runtime.elastic
 import repro_torch.runtime.fault_tolerance
 import repro_torch.runtime.metrics
+import repro_torch.sharding
+import repro_torch.sharding.annotations
+import repro_torch.sharding.rules
 import repro_torch.streaming
 import repro_torch.streaming.overlap
 import repro_torch.streaming.ring
