@@ -321,6 +321,22 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    chips, a per-device peak under 80 GiB.  Drive it alone with
    ``chip_smoke.dryrun_phase(torch.device("cuda", 0))`` after a CUDA
    context (it needs no kernel build).
+19. Staticcheck (``repro_torch.staticcheck``).  The CUDA sources built for
+   the host with g++ (``staticcheck.host_build``, started beside the nvcc
+   build) run the kernel analyzer's record-only tier: every shape the port
+   launches (``staticcheck.kernel_configs``), each launch's kernel,
+   threads, dynamic shared memory and attribute recorded, no finding
+   allowed.  For each recorded (kernel, threads, smem) the card's own view
+   through the sources' kernel tables (``build.kernel_attrs``:
+   ``cudaFuncGetAttributes`` and the occupancy calculator, after the
+   launch site's ``cudaFuncSetAttribute``): at least one block an SM,
+   static plus dynamic shared memory within
+   ``cudaDevAttrMaxSharedMemoryPerBlockOptin``, and the analyzer's budget
+   verdict equal to the card's.  One ``staticcheck_kernel`` line each:
+   registers, spill bytes (reported, not asserted), static and dynamic
+   shared memory, blocks an SM.  Drive it alone with
+   ``chip_smoke.staticcheck_phase(host_build.build_library())`` after
+   ``build.build()`` and a CUDA context.
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -355,6 +371,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -408,6 +425,10 @@ from repro_torch.observability import Observability  # noqa: E402
 from repro_torch.observability.export import (  # noqa: E402
     export_artifacts, read_span_log, validate_chrome_trace)
 from repro_torch.observability.profiling import profile_run  # noqa: E402
+from repro_torch.staticcheck import host_build  # noqa: E402
+from repro_torch.staticcheck import kernel_configs  # noqa: E402
+from repro_torch.staticcheck.kernel_analyzer import (  # noqa: E402
+    AnalyzerSettings, analyze_config)
 from repro_torch.streaming import (StreamingActivationStore,  # noqa: E402
                                    VersionRing)
 from repro_torch.transport import (FaultPlan, FaultSpec,  # noqa: E402
@@ -643,6 +664,11 @@ DRYRUN_ARCH = "qwen3-1.7b"
 DRYRUN_MEM_TOL = 0.10
 DRYRUN_CELL = ("decode_32k", "multi_pod", "decode_step")
 DRYRUN_CELL_S = 300
+# phase 19: the budget rules of the analyzer the card can confirm, and the
+# most seconds the host build may take past the nvcc build
+BUDGET_RULES = ("smem-over-budget", "smem-attribute-missing", "block-shape",
+                "grid-too-large")
+HOST_BUILD_S = 600
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS_ATTENTION = 20     # timed calls per measurement
 REPEATS = 5              # attention: measurements per time, median kept
@@ -3686,6 +3712,52 @@ def serve_smoke(dev) -> dict:
     return by_path
 
 
+def staticcheck_phase(host_lib) -> None:
+    """Phase 19: the analyzer's record-only tier on the host build, and the
+    card's attributes of every (kernel, threads, smem) it recorded."""
+    t0 = time.perf_counter()
+    lib = build.load()
+    table = build.kernel_table(lib)
+    optin = ctypes.c_int()
+    build.check(lib, lib.rt_smem_optin(ctypes.byref(optin)), "smem optin")
+    settings = AnalyzerSettings()
+    launched = {}      # (kernel, threads, smem, attr) -> analyzer: in budget
+    for cfg in kernel_configs.KERNEL_CONFIGS:
+        if cfg.tier != "record":
+            continue
+        findings, launches, _ = analyze_config(host_lib, cfg, settings)
+        other = [f for f in findings if f.rule not in BUDGET_RULES]
+        if other:
+            raise AssertionError(f"staticcheck {cfg.name}: " + "; ".join(
+                f.format() for f in other))
+        over = {f.detail.split("/")[0] for f in findings}
+        for la in launches:
+            key = (la.kernel, math.prod(la.block), la.smem, la.attr)
+            launched[key] = la.kernel not in over
+    for (kernel, threads, smem, attr), in_budget in sorted(launched.items()):
+        if kernel not in table:
+            raise AssertionError(f"staticcheck: {kernel} is in no kernel "
+                                 "table of the sources")
+        a = build.kernel_attrs(lib, table[kernel], threads, smem, attr)
+        fits = a["static_smem"] + smem <= optin.value
+        card_ok = (a["blocks_per_sm"] >= 1 and fits
+                   and smem <= a["max_dyn_smem"]
+                   and threads <= a["max_threads"])
+        log("staticcheck_kernel", kernel=kernel, threads=threads,
+            dyn_smem=smem, attr=attr, **a, fits_optin=fits,
+            analyzer_in_budget=in_budget)
+        if a["blocks_per_sm"] < 1 or not fits:
+            raise AssertionError(f"staticcheck {kernel}: {a}, {smem} B "
+                                 f"dynamic, opt-in limit {optin.value}")
+        if card_ok != in_budget:
+            raise AssertionError(f"staticcheck {kernel}: the analyzer says "
+                                 f"{in_budget}, the card {card_ok} ({a})")
+    log("staticcheck", seconds=time.perf_counter() - t0,
+        launches=len(launched), kernels=len({k[0] for k in launched}),
+        configs=sum(c.tier == "record" for c in kernel_configs.KERNEL_CONFIGS),
+        smem_optin=optin.value, card=card_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3698,6 +3770,7 @@ def main() -> int:
         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
         **tf32_flags())
     t = time.perf_counter()
+    host_th, host_out = _in_thread(host_build.build_library)
     path = build_with_ptxas_report()
     log("build", seconds=time.perf_counter() - t, library=str(path))
 
@@ -3805,6 +3878,14 @@ def main() -> int:
     by_path.update(moe_phase(dev))
     torch.cuda.empty_cache()
     by_path.update(dryrun_phase(dev))
+    host_th.join(timeout=HOST_BUILD_S)
+    if host_th.is_alive():
+        raise AssertionError(f"host build: still running after "
+                             f"{HOST_BUILD_S} s")
+    if "error" in host_out:
+        raise AssertionError(f"host build failed: {host_out['error']!r}") \
+            from host_out["error"]
+    staticcheck_phase(host_out["result"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,8 +3,8 @@
 plane count of q and k and of v.
 
 Compiles ``src/repro_torch/csrc`` with g++ against the emulator headers
-(``tests/cuda_emu/harness.py``), for each pair of plane counts given as
-``QK:V`` (a copy of the source with ``kQkPlanes`` and ``kVPlanes`` set
+(``repro_torch.staticcheck.host_build``), for each pair of plane counts
+given as ``QK:V`` (a copy of the source with ``kQkPlanes`` and ``kVPlanes`` set
 to them: q and k in QK planes for the scores, the forward's P V over V
 planes; the backwards' other products keep two), and runs
 ``flash_fwd`` and ``flash_bwd_fused``'s kernels and the split backward's
@@ -35,7 +35,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
-from cuda_emu import harness  # noqa: E402
+from repro_torch.staticcheck import host_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 import test_torch_kernels_emulated as T  # noqa: E402
 import test_torch_kernels_emulated_fa32 as T32  # noqa: E402
@@ -89,7 +89,7 @@ def main(argv) -> int:
             return out
 
         with tempfile.TemporaryDirectory() as tmp:
-            lib = harness.build_library(pathlib.Path(tmp), patch)
+            lib = host_build.build_library(pathlib.Path(tmp), patch)
             for case, seed, q_scale in cases:
                 row = {"qk_planes": nqk, "v_planes": nv,
                        "case": str(case)[:-15] + ")",

@@ -2,9 +2,10 @@
 """The SSD forward kernel's error in the CPU emulator, per case.
 
 Compiles ``src/repro_torch/csrc/ssd_chunk.cu`` with g++ against the
-emulator headers of ``--emu`` (default ``tests/cuda_emu``; point it at an
-older checkout's copy to compare two emulators) exactly as
-``tests/cuda_emu/harness.py`` does, runs ``ssd_y_kernel`` and
+emulator headers of ``--emu`` (default
+``src/repro_torch/staticcheck/emu``; point it at an older checkout's copy
+to compare two emulators) exactly as
+``repro_torch.staticcheck.host_build`` does, runs ``ssd_y_kernel`` and
 ``ssd_state_kernel`` on the forward cases of
 ``tests/test_torch_kernels_emulated_ssd_xent.py`` (same seed), and prints,
 for y and for the chunk state, the max abs error relative to the output's
@@ -32,7 +33,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
-from cuda_emu import harness  # noqa: E402
+from repro_torch.staticcheck import host_build  # noqa: E402
 import test_torch_kernels_emulated_ssd_xent as T  # noqa: E402
 
 
@@ -43,17 +44,16 @@ def _rel(got, want) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--emu", default=str(ROOT / "tests" / "cuda_emu"))
+    ap.add_argument("--emu", default=str(host_build.EMU))
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
-        src = harness.LAUNCH.sub(r"emu_launch(\1, \2, ",
-                           (build.CSRC / "ssd_chunk.cu").read_text())
-        src = harness.SHARED.sub(r"\1* \2 = (\1*)emu_dyn;", src)
+        src = host_build.host_source(
+            "ssd_chunk.cu", (build.CSRC / "ssd_chunk.cu").read_text())
         cpp, so = pathlib.Path(tmp) / "ssd.cpp", pathlib.Path(tmp) / "ssd.so"
         cpp.write_text(src)
-        subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC",
-                        "-pthread", "-w", f"-I{args.emu}", f"-I{build.CSRC}",
-                        str(cpp), "-o", str(so)], check=True)
+        subprocess.run(["g++", *host_build.CXX_FLAGS, "-shared",
+                        f"-I{args.emu}", f"-I{build.CSRC}", str(cpp), "-o",
+                        str(so), "-ldl"], check=True)
         lib = ctypes.CDLL(str(so))
         lib.rt_ssd_intra.argtypes = build.SIGNATURES["rt_ssd_intra"]
         lib.rt_ssd_intra.restype = ctypes.c_int

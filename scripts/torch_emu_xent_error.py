@@ -2,8 +2,8 @@
 """The cross-entropy kernels' error in the CPU emulator, per case.
 
 Compiles ``src/repro_torch/csrc`` with g++ against the emulator headers
-(``tests/cuda_emu/harness.py``), runs ``xent_fwd`` and ``xent_bwd``'s
-kernels on the cases of ``tests/test_torch_kernels_emulated_xent.py``
+(``repro_torch.staticcheck.host_build``), runs ``xent_fwd`` and
+``xent_bwd``'s kernels on the cases of ``tests/test_torch_kernels_emulated_xent.py``
 (same seed and inputs) with an fp32 and a bf16 h, an fp32 and a bf16 w,
 tied and untied, and prints for each the max abs error of loss, lse, dh
 and dw relative to the output's scale (floor 1, as the tests' checks:
@@ -25,7 +25,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
-from cuda_emu import harness  # noqa: E402
+from repro_torch.staticcheck import host_build  # noqa: E402
 from repro_torch.kernels.xent import kernel as XK  # noqa: E402
 import test_torch_kernels_emulated_xent as T  # noqa: E402
 
@@ -40,7 +40,7 @@ def _rel(got, want) -> float:
 def main() -> int:
     worst = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib = harness.build_library(pathlib.Path(tmp))
+        lib = host_build.build_library(pathlib.Path(tmp))
         for hdt in (torch.float32, torch.bfloat16):
             for case in T.XENT + (T.ODD_D if hdt == torch.float32 else []):
                 for tied in (False, True):

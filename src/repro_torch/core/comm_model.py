@@ -37,6 +37,7 @@ def tree_bytes(tree) -> int:
 
 def abstract_params(model):
     """The model's parameter tree on ``meta``: shapes and dtypes only."""
+    # staticcheck: ok=unseeded-rng meta tensors: nothing is drawn
     return model.init(torch.Generator(), "meta")
 
 
@@ -63,6 +64,7 @@ def split_sizes(model, split_cfg, *, seq_len: int = 0,
     p = split_cfg.split_point
     params = abstract_params(model)
     dev, srv = model.split_params(params, p)
+    # staticcheck: ok=unseeded-rng meta tensors: nothing is drawn
     aux = auxiliary.init_aux(model, torch.Generator(), split_cfg, "meta")
     cfg = model.cfg
     # one sample's activations at the cut, shipped at ``ab`` bytes an

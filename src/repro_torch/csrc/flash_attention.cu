@@ -1361,7 +1361,46 @@ FaArgs bwd_args(const void* q, const void* k, const void* v, void* planes,
   return a;
 }
 
+// Every kernel instantiation launch() and fa_split() can reach: each head
+// dim with bf16 q, k, v (NP 1) and fp32 ones (kQkPlanes, 3 in the names: a
+// source with another count fails the tests' and phase 19's lookups of the
+// launched names); the fused backward reads dO in fp32, the dK/dV sweep in
+// q's dtype.
+#define RT_FA_KERNELS(HD)                                                    \
+  {"fa_fwd_tc_kernel<" #HD ", 1>", (const void*)fa_fwd_tc_kernel<HD, 1>},    \
+  {"fa_fwd_tc_kernel<" #HD ", 3>",                                           \
+   (const void*)fa_fwd_tc_kernel<HD, kQkPlanes>},                            \
+  {"fa_bwd_dq_tc_kernel<" #HD ", 1>",                                        \
+   (const void*)fa_bwd_dq_tc_kernel<HD, 1>},                                 \
+  {"fa_bwd_dq_tc_kernel<" #HD ", 3>",                                        \
+   (const void*)fa_bwd_dq_tc_kernel<HD, kQkPlanes>},                         \
+  {"fa_bwd_tc_kernel<" #HD ", float, true, 1>",                              \
+   (const void*)fa_bwd_tc_kernel<HD, float, true, 1>},                       \
+  {"fa_bwd_tc_kernel<" #HD ", float, true, 3>",                              \
+   (const void*)fa_bwd_tc_kernel<HD, float, true, kQkPlanes>},               \
+  {"fa_bwd_tc_kernel<" #HD ", __nv_bfloat16, false, 1>",                     \
+   (const void*)fa_bwd_tc_kernel<HD, bf16, false, 1>},                       \
+  {"fa_bwd_tc_kernel<" #HD ", float, false, 3>",                             \
+   (const void*)fa_bwd_tc_kernel<HD, float, false, kQkPlanes>},
+const rt::KernelEntry kKernels[] = {
+    {"fa_split_kernel", (const void*)fa_split_kernel},
+    RT_FA_KERNELS(16) RT_FA_KERNELS(32) RT_FA_KERNELS(64) RT_FA_KERNELS(128)
+    RT_FA_KERNELS(256)};
+#undef RT_FA_KERNELS
+
 }  // namespace
+
+RT_KERNEL_TABLE(flash, kKernels)
+
+// the most shared memory a block may opt into (cudaFuncSetAttribute), in
+// bytes, on the current device
+extern "C" int rt_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
 
 // bf16 elements of the plane scratch that rt_flash_fwd and the backwards
 // take for q (nq elements) and k, v (nkv elements each) of a dtype: none

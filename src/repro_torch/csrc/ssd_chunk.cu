@@ -1071,7 +1071,16 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+const rt::KernelEntry kKernels[] = {
+    {"ssd_y_kernel", (const void*)ssd_y_kernel},
+    {"ssd_state_kernel", (const void*)ssd_state_kernel},
+    {"ssd_bwd_dx_kernel", (const void*)ssd_bwd_dx_kernel},
+    {"ssd_bwd_dcb_sum_kernel", (const void*)ssd_bwd_dcb_sum_kernel},
+    {"ssd_bwd_dbc_kernel", (const void*)ssd_bwd_dbc_kernel}};
+
 }  // namespace
+
+RT_KERNEL_TABLE(ssd, kKernels)
 
 extern "C" int rt_ssd_intra(const void* x, const void* dt, const void* acum,
                             const void* Bm, const void* Cm, void* y, void* S,

@@ -2,8 +2,9 @@
 // run here on sm_90a): mma.sync m16n8k16 bf16 -> fp32, ldmatrix (plain and
 // transposed), cp.async with commit/wait, the hi/lo bf16 split of fp32
 // operands, and the turn counters that order a sum across CTAs.  Each PTX instruction sits in one small helper so that the
-// CPU harness (tests/cuda_emu) can stand in for it: it defines
-// RT_HOST_EMULATION and its own host versions of the helpers below.
+// CPU emulator (repro_torch/staticcheck/emu) can stand in for it: it
+// defines RT_HOST_EMULATION and its own host versions of the helpers
+// below.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:

@@ -653,7 +653,47 @@ cudaError_t split_operands(const void* h, const void* w, void* h_hi,
                     p.Dp, V, p.Vp, st);
 }
 
+// Every kernel instantiation the entry points can reach: the split
+// pre-passes, the logits / dlogits kernel for each (h lo, w lo) pair, the
+// GEMMs of dH (w lo or not) and of dW (tied or not, h lo or not), and the
+// combine.
+const rt::KernelEntry kKernels[] = {
+    {"xent_split_kernel<__nv_bfloat16, false>",
+     (const void*)xent_split_kernel<bf16, false>},
+    {"xent_split_kernel<float, true>",
+     (const void*)xent_split_kernel<float, true>},
+    {"xent_split_h_kernel", (const void*)xent_split_h_kernel},
+    {"xent_tc_logits_kernel<false, false, false>",
+     (const void*)xent_tc_logits_kernel<false, false, false>},
+    {"xent_tc_logits_kernel<false, true, false>",
+     (const void*)xent_tc_logits_kernel<false, true, false>},
+    {"xent_tc_logits_kernel<true, false, false>",
+     (const void*)xent_tc_logits_kernel<true, false, false>},
+    {"xent_tc_logits_kernel<true, true, false>",
+     (const void*)xent_tc_logits_kernel<true, true, false>},
+    {"xent_tc_logits_kernel<false, false, true>",
+     (const void*)xent_tc_logits_kernel<false, false, true>},
+    {"xent_tc_logits_kernel<false, true, true>",
+     (const void*)xent_tc_logits_kernel<false, true, true>},
+    {"xent_tc_logits_kernel<true, false, true>",
+     (const void*)xent_tc_logits_kernel<true, false, true>},
+    {"xent_tc_logits_kernel<true, true, true>",
+     (const void*)xent_tc_logits_kernel<true, true, true>},
+    {"xent_tc_gemm_kernel<false, true, true>",
+     (const void*)xent_tc_gemm_kernel<false, true, true>},
+    {"xent_tc_gemm_kernel<false, true, false>",
+     (const void*)xent_tc_gemm_kernel<false, true, false>},
+    {"xent_tc_gemm_kernel<true, true, true>",
+     (const void*)xent_tc_gemm_kernel<true, true, true>},
+    {"xent_tc_gemm_kernel<true, true, false>",
+     (const void*)xent_tc_gemm_kernel<true, true, false>},
+    {"xent_tc_gemm_kernel<true, false, true>",
+     (const void*)xent_tc_gemm_kernel<true, false, true>},
+    {"xent_combine_kernel", (const void*)xent_combine_kernel}};
+
 }  // namespace
+
+RT_KERNEL_TABLE(xent, kKernels)
 
 extern "C" int rt_xent_tc_nsplit(int T, int V, int sms) {
   return xent_tc_nsplit_impl(T, V, sms);

@@ -47,9 +47,18 @@ SIGNATURES = {
     "rt_ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
     "rt_ssd_intra_bwd_scratch_floats": [_I] * 3,
     "rt_ssd_intra_bwd": [_P] * 13 + [_LL] + [_I] * 5 + [_P],
+    "rt_smem_optin": [_P],
 }
+# each source's table of kernel instantiations (common.cuh::
+# RT_KERNEL_TABLE)
+TABLES = ("flash", "xent", "ssd")
+for _t in TABLES:
+    SIGNATURES[f"rt_{_t}_kernel_count"] = []
+    SIGNATURES[f"rt_{_t}_kernel_name"] = [_I]
+    SIGNATURES[f"rt_{_t}_kernel_attrs"] = [_I, _I, _LL, _LL, _P]
 RESTYPES = {"rt_flash_plane_elems": _LL,   # others return int
-            "rt_ssd_intra_bwd_scratch_floats": _LL}
+            "rt_ssd_intra_bwd_scratch_floats": _LL,
+            **{f"rt_{t}_kernel_name": ctypes.c_char_p for t in TABLES}}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,6 +151,33 @@ def load():
         if _lib is None:
             _lib = bind(ctypes.CDLL(str(build())))
         return _lib
+
+
+ATTR_KEYS = ("regs", "spill_bytes", "static_smem", "max_dyn_smem",
+             "max_threads", "blocks_per_sm")
+
+
+def kernel_table(lib) -> dict:
+    """Every kernel instantiation of the sources: name -> (table, index)."""
+    out = {}
+    for t in TABLES:
+        name = getattr(lib, f"rt_{t}_kernel_name")
+        for i in range(getattr(lib, f"rt_{t}_kernel_count")()):
+            out[name(i).decode()] = (t, i)
+    return out
+
+
+def kernel_attrs(lib, where, threads: int, smem: int, attr: int) -> dict:
+    """The card's attributes of one table entry (``kernel_table``'s value)
+    launched with ``threads`` and ``smem`` bytes of dynamic shared memory
+    after its launch site set the attribute to ``attr`` (none if < 0):
+    registers, spill bytes, static shared memory, the dynamic limit, the
+    thread limit and blocks an SM (common.cuh::kernel_attrs)."""
+    table, i = where
+    out = (ctypes.c_longlong * len(ATTR_KEYS))()
+    fn = getattr(lib, f"rt_{table}_kernel_attrs")
+    check(lib, fn(i, threads, smem, attr, out), f"kernel_attrs {table}[{i}]")
+    return dict(zip(ATTR_KEYS, out))
 
 
 def check(lib, err: int, what: str):

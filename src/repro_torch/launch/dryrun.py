@@ -145,6 +145,7 @@ def input_specs(arch: str, shape_name: str, step: str, run_cfg=None,
         params = comm_model.abstract_params(model)
         dev = _fresh(splitting.split_params(model, params, p)[0])
         del params
+        # staticcheck: ok=unseeded-rng meta tensors: nothing is drawn
         aux = auxiliary.init_aux(model, torch.Generator(), run_cfg.split,
                                  META)
         K = run_cfg.fed.clients_per_round

@@ -78,6 +78,7 @@ def build_run_cfg(args) -> RunConfig:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    # staticcheck: ok=wall-clock the reported phase walls, never sim state
     return time.perf_counter()
 
 

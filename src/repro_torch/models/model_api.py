@@ -110,6 +110,7 @@ class Model:
         if self.kind == "lm":
             return torch.empty((batch, seq_len, self.cfg.d_model),
                                dtype=L.dt(dtype), device="meta")
+        # staticcheck: ok=unseeded-rng meta tensors: nothing is drawn
         params = self.init(torch.Generator(), "meta")
         out = self.apply(params, self.input_spec(batch), lo=0,
                          hi=split_point, return_logits=False)["hidden"]

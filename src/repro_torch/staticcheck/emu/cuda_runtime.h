@@ -1,6 +1,8 @@
 // Host stand-in for the subset of the CUDA runtime that the port's kernels
-// use, so tests can compile src/repro_torch/csrc/*.cu with a C++20 host
-// compiler and run the kernels on the CPU: each block runs as blockDim.x
+// use, so that src/repro_torch/csrc/*.cu compile with a C++20 host compiler
+// (repro_torch/staticcheck/host_build.py) and the kernels run on the CPU,
+// for the emulated kernel tests and the kernel analyzer: each block runs as
+// blockDim.x
 // fibers on the calling thread, which switch only where a lane waits at a
 // barrier (emu_next), so no lane waits on the OS scheduler however busy
 // the machine is; blocks run one after another.
@@ -15,6 +17,8 @@
 // only two calls later, after every lane of its warp has passed the
 // barrier of the call between, so no lane still reads it.
 #pragma once
+#include <cxxabi.h>
+#include <dlfcn.h>
 #include <sys/mman.h>
 
 #include <algorithm>
@@ -30,6 +34,11 @@
 #endif
 using std::max;
 using std::min;
+// The emulator's state and helpers stay inside the library that includes
+// them: exported, an inline variable is one object for every library of
+// the process (a GNU unique symbol), so a second library loaded beside a
+// first would share its mode and records.
+#pragma GCC visibility push(hidden)
 #define __global__
 #define __device__
 #define __host__
@@ -68,6 +77,65 @@ inline void emu_wait(EmuBarrier* b, bool in_warp) {
   }
   while (b->gen == gen) emu_yield(in_warp);
 }
+
+// What the kernel analyzer reads (the extern "C" functions at the end of
+// this file): every launch's kernel, launch site, grid, block, dynamic
+// shared memory and the kernel's last cudaFuncSetAttribute(
+// MaxDynamicSharedMemorySize) value (-1: never set); every turn awaited or
+// handed on (tensor_core.cuh's wait_turn / pass_turn); every misaligned
+// cp.async or ldmatrix address.  In record-only mode kernel bodies and
+// copies do not run, so the entry points can be called at full shapes with
+// fake pointers.  One OS thread runs a launch (its lanes are fibers), so
+// the records need no lock.
+struct EmuLaunchRec {
+  const void* fn;
+  const char* site;
+  long long dims[6];  // grid x, y, z, block x, y, z
+  long long smem, attr;
+};
+struct EmuTurnRec {
+  long long launch, block, pass;  // pass: 1 pass_turn, 0 wait_turn
+  const void* ctr;
+  long long value, ok;            // ok: the counter read `value` (waits)
+};
+struct EmuFaultRec {
+  long long launch, block, lane, kind;  // kind: EmuFault
+  const void* addr;
+};
+enum EmuFault { kCpAsync16Dst, kCpAsync16Src, kCpAsync4Dst, kCpAsync4Src,
+                kLdmatrixRow };
+inline std::vector<EmuLaunchRec> emu_launches;
+inline std::vector<std::pair<const void*, long long>> emu_attr_set;
+inline std::vector<EmuTurnRec> emu_turns;
+inline std::vector<EmuFaultRec> emu_faults;  // the first kEmuFaultsKept
+inline long long emu_fault_total = 0;
+inline int emu_record_only = 0;
+inline int emu_turn_abort = 1;  // a wrong turn aborts (else it is logged)
+constexpr size_t kEmuFaultsKept = 256;
+
+inline long long emu_attr_of(const void* fn) {
+  for (auto it = emu_attr_set.rbegin(); it != emu_attr_set.rend(); ++it)
+    if (it->first == fn) return it->second;
+  return -1;
+}
+inline long long emu_block_linear() {
+  return (long long)blockIdx.y * gridDim.x + blockIdx.x;
+}
+inline void emu_fault(int kind, const void* addr) {
+  ++emu_fault_total;
+  if (emu_faults.size() < kEmuFaultsKept)
+    emu_faults.push_back({(long long)emu_launches.size() - 1,
+                          emu_block_linear(), (long long)threadIdx.x, kind,
+                          addr});
+}
+inline void emu_check_align(int kind, const void* p, uintptr_t n) {
+  if (reinterpret_cast<uintptr_t>(p) % n) emu_fault(kind, p);
+}
+inline void emu_turn(int pass, const void* ctr, int value, bool ok) {
+  emu_turns.push_back({(long long)emu_launches.size() - 1,
+                       emu_block_linear(), pass, ctr, value, ok});
+}
+
 typedef int cudaError_t;
 const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
@@ -75,7 +143,50 @@ const int cudaErrorMisalignedAddress = 716;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int value) {
+  emu_attr_set.push_back({reinterpret_cast<const void*>(f), value});
+  return 0;
+}
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes, constSizeBytes, localSizeBytes;
+  int maxThreadsPerBlock, numRegs, ptxVersion, binaryVersion, cacheModeCA,
+      maxDynamicSharedSizeBytes, preferredShmemCarveout;
+};
+// the card's compiler output has no host counterpart: zeros, the attribute
+// as set, one block an SM
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a,
+                                         const void* fn) {
+  *a = {};
+  a->maxThreadsPerBlock = 1024;
+  a->maxDynamicSharedSizeBytes = (int)std::max(emu_attr_of(fn), 0LL);
+  return 0;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, const void*, int, size_t) {
+  *n = 1;
+  return 0;
+}
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+// the H100's opt-in limit (232,448 B): the analyzer's budget
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;
+  return 0;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n,
+                                   cudaStream_t = nullptr) {
+  if (!emu_record_only) std::memset(p, v, n);
+  return 0;
+}
+enum cudaMemcpyKind { cudaMemcpyDefault = 4 };
+inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n,
+                                   cudaMemcpyKind, cudaStream_t = nullptr) {
+  if (!emu_record_only) std::memcpy(d, s, n);
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline void __syncthreads() { emu_wait(emu_bar, false); }
@@ -239,9 +350,16 @@ inline void emu_start(EmuContext* c, char* stack) {
 #endif
 }
 
+// host_build.py rewrites `kern<<<grid, block, smem, stream>>>(args)` into
+// emu_launch("file.cu:line", kern, grid, block, smem, stream, args)
 template <class F, class... Args>
-void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
-                Args... args) {
+void emu_launch(const char* site, F kern, dim3 grid, dim3 block, size_t smem,
+                cudaStream_t, Args... args) {
+  const void* fn = reinterpret_cast<const void*>(kern);
+  emu_launches.push_back({fn, site,
+                          {grid.x, grid.y, grid.z, block.x, block.y, block.z},
+                          (long long)smem, emu_attr_of(fn)});
+  if (emu_record_only) return;
   auto call = [&] { kern(args...); };
   EmuBlock b;
   b.run = [](void* c) { (*static_cast<decltype(call)*>(c))(); };
@@ -282,4 +400,64 @@ void emu_launch(F kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
     }
   emu_blk = nullptr;
 }
+
+#pragma GCC visibility pop
+
+// The analyzer's view of the records (host_build.py binds these)
+extern "C" {
+[[gnu::used]] inline void emu_reset(int record_only, int turn_abort) {
+  emu_launches.clear();
+  emu_attr_set.clear();
+  emu_turns.clear();
+  emu_faults.clear();
+  emu_fault_total = 0;
+  emu_record_only = record_only;
+  emu_turn_abort = turn_abort;
+}
+[[gnu::used]] inline long long emu_launch_count() {
+  return (long long)emu_launches.size();
+}
+// dims[6], smem, attr
+[[gnu::used]] inline void emu_launch_get(long long i, long long* out) {
+  const EmuLaunchRec& r = emu_launches[i];
+  for (int d = 0; d < 6; ++d) out[d] = r.dims[d];
+  out[6] = r.smem;
+  out[7] = r.attr;
+}
+[[gnu::used]] inline const char* emu_launch_site(long long i) {
+  return emu_launches[i].site;
+}
+// the kernel's demangled symbol into buf (n bytes); 0, or -1 if unknown
+[[gnu::used]] inline int emu_launch_name(long long i, char* buf, int n) {
+  Dl_info info;
+  if (!dladdr(emu_launches[i].fn, &info) || !info.dli_sname ||
+      info.dli_saddr != emu_launches[i].fn)
+    return -1;
+  int status = 0;
+  char* d = abi::__cxa_demangle(info.dli_sname, nullptr, nullptr, &status);
+  std::snprintf(buf, n, "%s", status == 0 && d ? d : info.dli_sname);
+  std::free(d);
+  return 0;
+}
+[[gnu::used]] inline long long emu_turn_count() {
+  return (long long)emu_turns.size();
+}
+// launch, block, pass, counter address, value, ok
+[[gnu::used]] inline void emu_turn_get(long long i, long long* out) {
+  const EmuTurnRec& r = emu_turns[i];
+  long long v[6] = {r.launch, r.block, r.pass, (long long)r.ctr, r.value,
+                    r.ok};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+}
+[[gnu::used]] inline long long emu_fault_count() { return emu_fault_total; }
+// launch, block, lane, kind, address (of the first kEmuFaultsKept)
+[[gnu::used]] inline long long emu_fault_get(long long i, long long* out) {
+  if (i >= (long long)emu_faults.size()) return -1;
+  const EmuFaultRec& r = emu_faults[i];
+  long long v[5] = {r.launch, r.block, r.lane, r.kind, (long long)r.addr};
+  for (int k = 0; k < 5; ++k) out[k] = v[k];
+  return 0;
+}
+}
+
 #include "ptx_emu.h"

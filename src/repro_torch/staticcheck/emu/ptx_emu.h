@@ -1,5 +1,5 @@
 // Host versions of the PTX helpers in src/repro_torch/csrc/tensor_core.cuh
-// (test scaffolding: nvcc never sees this file).  A warp-level instruction
+// (the emulator's: nvcc never sees this file).  A warp-level instruction
 // becomes a warp-wide slot exchange: every lane posts its operands into
 // this call's slot set, waits at its warp's barrier and reads its warp's
 // operands back in the PTX ISA's fragment layout (two sets alternate, so
@@ -7,7 +7,10 @@
 // every kernel calls these helpers with all lanes of the warp, the same
 // number of times.  cp.async copies at once, so its
 // commit and wait are no-ops; a turn counter is read and written plainly
-// (one block runs at a time).
+// (one block runs at a time).  Each helper also records what the card
+// would fault on or the analyzer checks (cuda_runtime.h): a cp.async
+// address off its 16 (or 4) bytes on either side, an ldmatrix row address
+// off 16 bytes, and every turn awaited or handed on.
 #pragma once
 #define RT_HOST_EMULATION 1
 
@@ -77,6 +80,7 @@ inline void mma_bf16_zc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
 }
 
 inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
+  emu_check_align(kLdmatrixRow, p, 16);
   const void** set = emu_pslots + emu_set();
   set[threadIdx.x] = p;
   emu_syncwarp();
@@ -106,10 +110,14 @@ inline void emu_cp(void* dst, const void* src, int n, int src_bytes) {
 }
 
 inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  emu_check_align(kCpAsync16Dst, dst, 16);
+  emu_check_align(kCpAsync16Src, src, 16);
   emu_cp(dst, src, 16, src_bytes);
 }
 
 inline void cp_async4(void* dst, const void* src, int src_bytes) {
+  emu_check_align(kCpAsync4Dst, dst, 4);
+  emu_check_align(kCpAsync4Src, src, 4);
   emu_cp(dst, src, 4, src_bytes);
 }
 
@@ -120,15 +128,20 @@ inline void cp_async_wait() {}
 
 // Blocks run one after another in linear order (cuda_runtime.h), so a
 // turn that has not come when its CTA asks for it never will: that is a
-// wrong turn, and it aborts at once rather than hanging.
+// wrong turn, and it aborts at once rather than hanging (or, for the
+// analyzer, is logged and passed over).
 inline void wait_turn(const int* ctr, int turn) {
-  if (*ctr != turn) {
+  emu_turn(0, ctr, turn, *ctr == turn);
+  if (*ctr != turn && emu_turn_abort) {
     std::fprintf(stderr, "wait_turn: counter %d, turn %d (block %u, %u)\n",
                  *ctr, turn, blockIdx.x, blockIdx.y);
     std::abort();
   }
 }
 
-inline void pass_turn(int* ctr, int next) { *ctr = next; }
+inline void pass_turn(int* ctr, int next) {
+  emu_turn(1, ctr, next, true);
+  *ctr = next;
+}
 
 }  // namespace rt

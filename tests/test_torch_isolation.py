@@ -79,6 +79,15 @@ import repro_torch.transport.inprocess
 import repro_torch.transport.retry
 import repro_torch.transport.roles
 import repro_torch.transport.socket_transport
+import repro_torch.benchmarks_epochs
+import repro_torch.launch.trace_report
+import repro_torch.staticcheck
+import repro_torch.staticcheck.__main__
+import repro_torch.staticcheck.findings
+import repro_torch.staticcheck.host_build
+import repro_torch.staticcheck.kernel_analyzer
+import repro_torch.staticcheck.kernel_configs
+import repro_torch.staticcheck.lint
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
