@@ -283,7 +283,7 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    after ``build.build()`` and a CUDA context.
 17. Serving.  (a) Right after each main path of phase 5, its merged
    params through ``repro_torch.launch.serve.LMServer`` (fp32 KV and
-   Mamba caches): ``SERVE_BATCH`` prompts of the path's seq from the
+   Mamba caches): the path's ``serve_batch`` prompts of its seq from the
    corpus (seed 2), ``SERVE_NEW`` greedy tokens, three times (untimed;
    timed by the host clock: ``tokens_per_s`` as the reference's CLI
    counts it; each prefill and decode call timed by CUDA events), the
@@ -295,7 +295,7 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    power limit.  (b) The share of the greedy tokens among the corpus's
    257 mapped ids: above ``SERVE_GATE`` for the trained model, below it
    for a fresh init of the same config (seeded on the card).  (c)
-   qwen3-1.7b and mamba2-370m at dtype float32: the logits of the 32
+   qwen3-1.7b, mamba2-370m and gemma2-2b at dtype float32: the logits of the 32
    tokens (the prefill's and each decode step's) equal one forward
    without a cache over prompt + generated tokens within 1e-4 of their
    scale (not granite: MoE capacity is per call).  (d) The qwen3, gemma2,
@@ -337,6 +337,30 @@ NVIDIA GPU.  ``python3 chip_smoke.py`` from the repository root:
    shared memory, blocks an SM.  Drive it alone with
    ``chip_smoke.staticcheck_phase(host_build.build_library())`` after
    ``build.build()`` and a CUDA context.
+20. gemma2-2b joins the main paths (phases 4, 5, 6 and 17): published
+   widths (26 layers, d 2304, 8 / 4 heads of 256, GeGLU of 9216,
+   post-block norms, V 256000, tied; a sliding window of 4096 on the
+   even layers, attention softcap 50, final softcap 30) at its published
+   context, seq 8192, so the local layers mask; device batch 1, server
+   batch 2 (16,384 tokens a server step), 16 training and 4 eval samples,
+   lr ``GEMMA_LR``.  Besides phase 5's checks the path must launch
+   ``flash_fwd`` and ``flash_bwd_fused`` with a window and with a
+   softcap, and both xent kernels with a softcap (``MAIN_PATHS``'s
+   ``options``; each wrapper's ``launches_by_option``, logged on the
+   "options" line); its merged model serves 2 prompts of 8192 tokens
+   (the prefill through ``flash_fwd`` with the window, the greedy decode
+   past the window in the cache) under phase 17's checks, the fp32
+   identity included, but for the gate against a fresh init, which reads
+   the teacher-forced loss of 32 corpus tokens past the prompt through the
+   serving steps (trained below ln V, init above: a fresh init echoes its
+   input token, so its greedy tokens are corpus ids as often as the
+   trained model's; ``serve_gate``); its server step is timed and
+   profiled at 2 x 8192.
+   Phase 3 times its server shapes (rows 1w, 2w, 5w, 6w of PERF.md):
+   attention B 2, S 8192, Hkv 4, G 2, hd 256, causal, bf16, softcap 50,
+   once with the window and once global (no library time: SDPA has no
+   logit softcap), and xent T 2 x 8191, D 2304, V 256000, tied, softcap
+   30 (its library time the fp32-logits composite with the tanh cap).
 
 The corpus: ``make_lm_dataset`` builds an O(vocab^2) bigram table, which
 cannot exist at V = 151936 or 50280, so the main paths sample the
@@ -421,6 +445,7 @@ from repro_torch.launch.serve import LMServer  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TR  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.observability import Observability  # noqa: E402
 from repro_torch.observability.export import (  # noqa: E402
     export_artifacts, read_span_log, validate_chrome_trace)
@@ -495,14 +520,35 @@ MAMBA_LR = 0.05
 # layers (the full-depth server block is 12.8 GB fp32, and its epoch would
 # need about 80 GiB), and ``comm_bytes`` is its analytic count at that depth
 GRANITE_LR = 0.05
+# gemma2-2b's rate comes from ``scripts/torch_lr_probe.py --arch gemma2-2b``
+# (PERF.md, Findings); it runs at full depth (the server step's peak is
+# under 70 GiB), and ``comm_bytes`` is its analytic count
+GEMMA_LR = 0.05
+# Each path's device batch, server batch, serving batch, training and eval
+# samples; ``options``: the kernels that must launch with a sliding window
+# or a logit softcap (``launches_by_option``).  gemma2-2b runs at its
+# published context, 8192 tokens (past its 4096 window), at 1 and 2
+# sequences a batch: a server step is 16,384 tokens, as mamba2's 8 x 2048
+TRAIN_SAMPLES = 64
+EVAL_SAMPLES = 8
+_BATCHES = dict(batch=4, server_batch=8, serve_batch=4,
+                samples=TRAIN_SAMPLES, eval_samples=EVAL_SAMPLES)
+_ATTN_XENT = ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")
 MAIN_PATHS = {
-    "qwen3-1.7b": dict(seq=512, lr=0.02, kernels=(
-        "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
+    "qwen3-1.7b": dict(seq=512, lr=0.02, kernels=_ATTN_XENT, **_BATCHES),
     "mamba2-370m": dict(seq=2048, lr=MAMBA_LR, kernels=(
-        "ssd_intra", "ssd_intra_bwd", "xent_fwd", "xent_bwd")),
+        "ssd_intra", "ssd_intra_bwd", "xent_fwd", "xent_bwd"), **_BATCHES),
     "granite-moe-3b-a800m": dict(seq=512, lr=GRANITE_LR, layers=16,
-                                 comm_bytes=6_697_582_592, kernels=(
-        "flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd")),
+                                 comm_bytes=6_697_582_592,
+                                 kernels=_ATTN_XENT, **_BATCHES),
+    "gemma2-2b": dict(seq=8192, lr=GEMMA_LR, kernels=_ATTN_XENT, batch=1,
+                      server_batch=2, serve_batch=2, samples=16,
+                      eval_samples=4, serve_gate="loss",
+                      comm_bytes=23_820_640_256, options={
+                          "flash_fwd": ("window", "softcap"),
+                          "flash_bwd_fused": ("window", "softcap"),
+                          "xent_fwd": ("softcap",),
+                          "xent_bwd": ("softcap",)}),
 }
 SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
 INT8_ARCH = "qwen3-1.7b"     # its main path runs again with int8 payloads
@@ -528,8 +574,6 @@ VISION_MIN_ACC, VISION_LOSS_MARGIN = 0.5, 0.5
 # phase 10: the smoke configs through run_experiment, card against CPU, at
 # one rate at which all four train at this size (ViT/Swin diverge at 0.2)
 VISION_EXPERIMENT_LR = 0.05
-TRAIN_SAMPLES = 64
-EVAL_SAMPLES = 8
 DEVICE_ROUNDS = 2
 SERVER_EPOCHS = 1
 # phase 11: the synchronous baselines.  (a) SplitFed and FedAvg on the
@@ -633,7 +677,7 @@ MOE_SMOKE = {"qwen2-moe-a2.7b": _FA_XENT_FP32,
              "jamba-1.5-large-398b": _FA_XENT_FP32 + ("ssd_intra",
                                                       "ssd_intra_bwd")}
 # phase 17: serving.  (a) each main path's merged model right after the
-# path, through ``launch.serve.LMServer``: SERVE_BATCH prompts of the
+# path, through ``launch.serve.LMServer``: its ``serve_batch`` prompts of the
 # path's seq from the corpus (seed 2), SERVE_NEW greedy tokens, the
 # kernels each prefill must launch; (b) the share of the greedy tokens
 # among the corpus's 257 mapped ids, above SERVE_GATE for the trained
@@ -647,12 +691,21 @@ MOE_SMOKE = {"qwen2-moe-a2.7b": _FA_XENT_FP32,
 # between the shares measured on the card (PERF.md, PR 32 run 1): trained
 # 1.0 (qwen3, granite) and 0.5 (mamba2), fresh init 0.0-0.0078; 0.25
 # leaves 0.25 below the lowest trained and 0.24 above the highest init
-SERVE_BATCH, SERVE_NEW = 4, 32
+SERVE_NEW = 32
 SERVE_PROFILE_NEW = 4
 SERVE_KERNELS = {"qwen3-1.7b": ("flash_fwd",), "mamba2-370m": ("ssd_intra",),
+                 "gemma2-2b": ("flash_fwd",),
                  "granite-moe-3b-a800m": ("flash_fwd",)}
 SERVE_GATE = 0.25
-SERVE_FP32 = ("qwen3-1.7b", "mamba2-370m")
+# A main path whose ``serve_gate`` is "loss" (gemma2-2b) is gated instead
+# on the teacher-forced next-token loss over SERVE_NEW corpus tokens past
+# the prompt (seed 3), through the serving steps: the trained model's
+# below ln V, a fresh init's above it.  Its tied embedding scaled by
+# sqrt(d_model) makes a fresh init echo its input token (the serve line's
+# ``init_echo_share``: its greedy tokens that repeat the token before),
+# so the init's greedy tokens repeat the prompt's last, a corpus id, and
+# its share is 1.0 as the trained model's (PERF.md, Findings)
+SERVE_FP32 = ("qwen3-1.7b", "mamba2-370m", "gemma2-2b")
 SERVE_TOL = 1e-4
 SERVE_SMOKE = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m",
                "jamba-1.5-large-398b", "qwen2-moe-a2.7b")
@@ -697,6 +750,10 @@ PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
 # split backward against fused, relative to each gradient leaf's scale
 SPLIT_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+# the kernels line's keys of gemma2-2b's rows (PERF.md: 1w and 2w local
+# and global, 5w and 6w the head)
+GEMMA2_ROWS = {"local": "at_gemma2_local", "global": "at_gemma2_global",
+               "head": "at_gemma2_shape"}
 
 
 def log(phase: str, **kv):
@@ -867,27 +924,13 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
                              bound_fp32_fma_ms=fma_ms)
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
-    # yardstick only: one PyTorch call computing the same function
-    q4 = q.reshape(B, Hkv * G, S, hd).requires_grad_(True)
-    k4 = k.reshape(B, Hkv, S, hd).requires_grad_(True)
-    v4 = v.reshape(B, Hkv, S, hd).requires_grad_(True)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def lib_fwd():
-        return sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"],
-                    enable_gqa=True)
-
-    with torch.no_grad():
-        (res["flash_fwd"]["library_ms"],
-         res["flash_fwd"]["library_ms_range"]) = time_median(lib_fwd, iters)
-    out = lib_fwd()
-    do4 = do.reshape(B, Hkv * G, S, hd).to(dtype)
-    lib_bwd, lib_bwd_range = time_median(
-        lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
-        iters)
-    for name in bwd:
-        res[name]["library_ms"] = lib_bwd
-        res[name]["library_ms_range"] = lib_bwd_range
+    if cap or window:
+        # no PyTorch call computes this function: SDPA takes no logit
+        # softcap and no window but as a dense mask
+        for r in res.values():
+            r["library_ms"] = None
+    else:
+        sdpa_times(res, q, k, v, do, B, Hkv, G, S, hd, kw["scale"], iters)
     log("timing", case=tag, dtype=str(dtype).removeprefix("torch."),
         iters=iters, warmup=WARMUP, repeats=REPEATS,
         **{name: {k: r[k] for k in ("ms", "ms_range", "library_ms",
@@ -896,6 +939,31 @@ def fa_case(dev, B, S, Hkv, G, hd, window, cap, dtype, iters, library,
                   if k in r}
            for name, r in res.items()})
     return res
+
+
+def sdpa_times(res, q, k, v, do, B, Hkv, G, S, hd, scale, iters):
+    """Yardstick only: one PyTorch call computing the same function (causal
+    SDPA, and its autograd for the backward rows)."""
+    q4 = q.reshape(B, Hkv * G, S, hd).requires_grad_(True)
+    k4 = k.reshape(B, Hkv, S, hd).requires_grad_(True)
+    v4 = v.reshape(B, Hkv, S, hd).requires_grad_(True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_fwd():
+        return sdpa(q4, k4, v4, is_causal=True, scale=scale, enable_gqa=True)
+
+    with torch.no_grad():
+        (res["flash_fwd"]["library_ms"],
+         res["flash_fwd"]["library_ms_range"]) = time_median(lib_fwd, iters)
+    out = lib_fwd()
+    do4 = do.reshape(B, Hkv * G, S, hd).to(q.dtype)
+    lib_bwd, lib_bwd_range = time_median(
+        lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
+        iters)
+    for name in res:
+        if name != "flash_fwd":
+            res[name]["library_ms"] = lib_bwd
+            res[name]["library_ms_range"] = lib_bwd_range
 
 
 def xent_bound(T, D, V, hdt, backward):
@@ -946,26 +1014,39 @@ def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
     del got, again
     if not library:
         return None
-    # yardstick only: fp32 logits + F.cross_entropy, and its autograd
+    # yardstick only: fp32 logits (tanh-capped where cap) + F.cross_entropy,
+    # and its autograd; the graph is built at the first (untimed) call, so
+    # it is not held while the kernels and plain versions run
     ce = torch.nn.functional.cross_entropy
     hl = h.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
     labl = lab.long()
 
+    def logits():
+        z = hl.float() @ wl
+        return torch.tanh(z / cap) * cap if cap else z
+
     def lib_fwd():
         with torch.no_grad():
-            return ce(hl.float() @ wl, labl, reduction="none")
+            return ce(logits(), labl, reduction="none")
 
-    out = ce(hl.float() @ wl, labl)
+    graph = []
+
+    def lib_bwd():
+        if not graph:
+            # cached blocks of the plain versions' sizes would fragment the
+            # graph's (T, V) buffers (16.8 GB each at gemma2-2b's head)
+            torch.cuda.empty_cache()
+            graph.append(ce(logits(), labl))
+        return torch.autograd.grad(graph[0], (hl, wl), retain_graph=True)
+
     fns = {"xent_fwd": (lambda: XK.xent_fwd(h, w, lab, softcap=cap),
                         lambda: XK.xent_fwd_plain(h, w, lab, softcap=cap),
                         lib_fwd, fwd_err),
            "xent_bwd": (lambda: XK.xent_bwd(h, w, lab, lse_p, g, softcap=cap),
                         lambda: XK.xent_bwd_plain(h, w, lab, lse_p, g,
                                                   softcap=cap),
-                        lambda: torch.autograd.grad(out, (hl, wl),
-                                                    retain_graph=True),
-                        bwd_err)}
+                        lib_bwd, bwd_err)}
     res, bounds = {}, {}
     for name, (fn, plain, library_fn, err) in fns.items():
         ms, ms_range = time_median(fn, iters)
@@ -978,6 +1059,7 @@ def xent_case(dev, T, D, V, cap, tied, iters, library, hdt=torch.bfloat16):
                          library_ms_range=lib_range, bound=(bms, by))
         bounds[name] = dict(bound_ms=bms, passes=passes,
                             bound_fp32_fma_ms=fma_ms)
+    graph.clear()
     log("timing", case=tag, iters=iters, warmup=WARMUP, repeats=REPEATS,
         **{name: {**{k: r[k] for k in ("ms", "ms_range", "plain_ms",
                                        "library_ms", "library_ms_range")},
@@ -1101,6 +1183,33 @@ def ssd_case(dev, B, nc, Q, H, P, N, iters, library):
 # ---------------------------------------------------------------------------
 
 
+def gemma2_rows(dev, res) -> None:
+    """Rows 1w, 2w, 5w and 6w: gemma2-2b's server shapes (its main path's
+    server batch x seq), attention with the softcap over the window and
+    global, the tied softcapped head; one call a timing (they take up to
+    a second each).  Each lands in ``res`` under ``GEMMA2_ROWS``' key."""
+    t = time.perf_counter()
+    cfg = registry.get_config("gemma2-2b")
+    spec = MAIN_PATHS[cfg.name]
+    B, S = spec["server_batch"], spec["seq"]
+    out = {}
+    for key, window in (("local", cfg.sliding_window), ("global", 0)):
+        r = fa_case(dev, B, S, cfg.num_kv_heads,
+                    cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, window,
+                    cfg.attn_softcap, torch.bfloat16, 1, library=True)
+        out[key] = {n: r[n] for n in ("flash_fwd", "flash_bwd_fused")}
+        del r
+        torch.cuda.empty_cache()
+    out["head"] = xent_case(dev, B * (S - 1), cfg.d_model, cfg.vocab_size,
+                            cfg.final_softcap, True, 1, library=True)
+    torch.cuda.empty_cache()
+    for kind, rows in out.items():
+        for name, r in rows.items():
+            bms, by = r.pop("bound")
+            res[name][GEMMA2_ROWS[kind]] = dict(r, bound_ms=bms, bound_by=by)
+    log("gemma2_rows", seconds=time.perf_counter() - t)
+
+
 def smoke_reference(dev, arch):
     """The launcher's path on ``arch``'s smoke config from the same initial
     states, on the card and on the CPU: histories agree."""
@@ -1154,6 +1263,29 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "launches_by_dtype"):
             fn.launches_by_dtype = {}
+            fn.launches_by_option = {}
+
+
+def read_options() -> dict:
+    """Each attention and xent wrapper's launches with a sliding window
+    and with a logit softcap."""
+    return {name: dict(WRAPPERS[name].launches_by_option)
+            for name in FA_BY_DTYPE + XENT_BY_DTYPE}
+
+
+def check_options(what, spec, options, kernels=None) -> None:
+    """Logs a run's launches by option ("options" line) and fails unless
+    each option that ``spec["options"]`` names for a kernel (of
+    ``kernels``, default all) was launched."""
+    want = {k: v for k, v in spec.get("options", {}).items()
+            if kernels is None or k in kernels}
+    if not want:
+        return
+    log("options", run=what, launches_by_option=options)
+    missing = [f"{k}:{o}" for k, opts in want.items() for o in opts
+               if options[k].get(o, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
 
 
 def read_launches() -> dict:
@@ -1185,13 +1317,14 @@ def main_path(dev, arch, quantize=False):
     seq, lr = spec["seq"], spec["lr"]
     cfg = main_config(arch)
     argv = ["--arch", arch, "--clients", "4", "--cohort", "2",
-            "--local-steps", "2", "--batch-size", "4", "--server-batch", "8",
+            "--local-steps", "2", "--batch-size", str(spec["batch"]),
+            "--server-batch", str(spec["server_batch"]),
             "--seq-len", str(seq), "--lr", str(lr), "--seed", "0"]
     if quantize:
         argv.append("--quantize-acts")
     largs = launch_train.make_parser().parse_args(argv)
-    train = full_corpus(TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
-    evald = full_corpus(EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    train = full_corpus(spec["samples"], seq, cfg.vocab_size, 0)
+    evald = full_corpus(spec["eval_samples"], seq, cfg.vocab_size, 1)
     run_cfg = launch_train.build_run_cfg(largs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1200,10 +1333,12 @@ def main_path(dev, arch, quantize=False):
         cfg, run_cfg, train, evald, device=dev,
         device_rounds=DEVICE_ROUNDS, server_epochs=SERVER_EPOCHS)
     launches = read_launches()
+    options = read_options()
     hist = out["history"]
     nbytes = out["store"].bytes_received
     log("main_path_int8" if quantize else "main_path", arch=cfg.name,
-        layers=cfg.num_layers,
+        layers=cfg.num_layers, batch=spec["batch"],
+        server_batch=spec["server_batch"], samples=spec["samples"],
         d_model=cfg.d_model, vocab=cfg.vocab_size, seq=seq, lr=lr,
         seconds=out["seconds"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
@@ -1215,7 +1350,7 @@ def main_path(dev, arch, quantize=False):
     per_sample = (seq * cfg.d_model + seq * 4 if quantize
                   else seq * cfg.d_model * 4) + seq * 4
     check_accounting(cfg, run_cfg, seq, hist, out["store"],
-                     TRAIN_SAMPLES * per_sample)
+                     spec["samples"] * per_sample)
     if "comm_bytes" in spec and hist["comm_bytes"] != spec["comm_bytes"]:
         raise AssertionError(f"{arch}: comm_bytes {hist['comm_bytes']} != "
                              f"{spec['comm_bytes']}")
@@ -1233,6 +1368,7 @@ def main_path(dev, arch, quantize=False):
     for name in spec["kernels"]:
         if launches[name] <= 0:
             raise AssertionError(f"{arch} main path never launched {name}")
+    check_options(f"{arch} main path", spec, options)
     shapes = {k: tuple(v.shape) for k, v in
               out["merged_params"]["embed"].items()}
     if shapes != {"table": (cfg.vocab_size, cfg.d_model)}:
@@ -1246,9 +1382,9 @@ def int8_main_path(dev, fp32_hist):
     fall by exactly that upload's bytes and their time on the link."""
     launches, hist, _ = main_path(dev, INT8_ARCH, quantize=True)
     cfg = registry.get_config(INT8_ARCH)
-    seq = MAIN_PATHS[INT8_ARCH]["seq"]
-    fp32_bytes = TRAIN_SAMPLES * (seq * cfg.d_model * 4 + seq * 4)
-    int8_bytes = TRAIN_SAMPLES * (seq * cfg.d_model + seq * 4 + seq * 4)
+    seq, n = MAIN_PATHS[INT8_ARCH]["seq"], MAIN_PATHS[INT8_ARCH]["samples"]
+    fp32_bytes = n * (seq * cfg.d_model * 4 + seq * 4)
+    int8_bytes = n * (seq * cfg.d_model + seq * 4 + seq * 4)
     saved = fp32_bytes - int8_bytes
     comm_ok = hist["comm_bytes"] == fp32_hist["comm_bytes"] - saved
     time_moved = fp32_hist["sim_time"] - hist["sim_time"]
@@ -3018,20 +3154,21 @@ def _max_rel(got, want):
 
 
 def server_step_inputs(dev, arch):
-    """A server train step of ``arch`` at its main path's shape (8 x seq)
-    from the seed: (model, run_cfg, server params, batch)."""
+    """A server train step of ``arch`` at its main path's shape (server
+    batch x seq) from the seed: (model, run_cfg, server params, batch)."""
     cfg = main_config(arch)
-    seq = MAIN_PATHS[arch]["seq"]
+    spec = MAIN_PATHS[arch]
+    seq, b = spec["seq"], spec["server_batch"]
     run_cfg = launch_train.build_run_cfg(launch_train.make_parser().parse_args(
-        ["--arch", arch, "--server-batch", "8", "--seq-len", str(seq),
-         "--lr", str(MAIN_PATHS[arch]["lr"]), "--seed", "0"]))
+        ["--arch", arch, "--server-batch", str(b), "--seq-len", str(seq),
+         "--lr", str(spec["lr"]), "--seed", "0"]))
     gen = torch.Generator(device=dev).manual_seed(0)
     model = build_model(cfg)
     _, srv = splitting.split_params(model, model.init(gen, dev),
                                     run_cfg.split.split_point)
-    batch = {"acts": torch.randn((8, seq, cfg.d_model), generator=gen,
+    batch = {"acts": torch.randn((b, seq, cfg.d_model), generator=gen,
                                  device=dev).to(torch.bfloat16),
-             "tokens": torch.randint(0, cfg.vocab_size, (8, seq),
+             "tokens": torch.randint(0, cfg.vocab_size, (b, seq),
                                      generator=gen, device=dev,
                                      dtype=torch.int32)}
     return model, run_cfg, srv, batch
@@ -3047,14 +3184,17 @@ def _union_us(intervals):
 
 
 def profile_step(dev, arch):
-    """One server train step of an LM main path at its shape (8 x seq),
-    profiled by :func:`profile_server_step`."""
+    """One server train step of an LM main path at its shape (server batch
+    x seq), profiled by :func:`profile_server_step`."""
     model, run_cfg, srv, batch = server_step_inputs(dev, arch)
     step = steps.make_server_train_step(model, run_cfg, impl="kernel")
     state = steps.init_server_state(model, run_cfg, srv)
     del srv
+    t = time.perf_counter()
     profile_server_step(dev, arch, step, state, batch,
-                        seq=MAIN_PATHS[arch]["seq"], batch=8)
+                        seq=MAIN_PATHS[arch]["seq"],
+                        batch=MAIN_PATHS[arch]["server_batch"])
+    log("profile_step", arch=arch, seconds=time.perf_counter() - t)
 
 
 def profile_server_step(dev, arch, step, state, inputs, **shape):
@@ -3587,24 +3727,31 @@ def serve_fp32(dev, arch, merged, prompts, max_len) -> dict:
     got = torch.stack(rec["logits"], dim=1)
     seq = torch.as_tensor(np.concatenate([prompts, tokens[:, :-1]], axis=1),
                           device=dev)
+    # the forward's logits at the compared positions: its hidden states
+    # through the final norm and the head there ((B, S, V) at gemma2's
+    # S 8224 and V 256000 would be 16.8 GB, and its softcap twice that)
     with torch.inference_mode():
-        want = model.apply(server.params, seq, remat="none")["logits"]
-    check(f"serve_fp32:{arch}", got, want[:, prompts.shape[1] - 1:],
-          SERVE_TOL)
+        x = model.apply(server.params, seq, remat="none",
+                        return_logits=False)["hidden"]
+        h = rmsnorm(server.params["final_norm"],
+                    x[:, prompts.shape[1] - 1:], cfg.norm_eps, cfg.dtype)
+        want = TR.logits_from_hidden(cfg, server.params, h)
+    check(f"serve_fp32:{arch}", got, want, SERVE_TOL)
     return read_launches()
 
 
 def serve_path(dev, arch, merged) -> dict:
     """17(a)-(c) on one main path's merged params: an untimed generate, a
     timed one (host clock), a short one profiled, one with each step timed
-    (CUDA events), the three full ones ``==``; the corpus-share gate
-    against a fresh init; the fp32 identity.  Returns the launches by path (17(a)'s under
+    (CUDA events), the three full ones ``==``; the gate against a fresh
+    init (the corpus share, or the path's ``serve_gate``); the fp32
+    identity.  Returns the launches by path (17(a)'s under
     ``serve:<arch>``)."""
     t0 = time.perf_counter()
     cfg = main_config(arch)
-    seq = MAIN_PATHS[arch]["seq"]
-    prompts = full_corpus(SERVE_BATCH, seq, cfg.vocab_size, 2
-                          ).arrays["tokens"]
+    spec = MAIN_PATHS[arch]
+    seq, batch = spec["seq"], spec["serve_batch"]
+    prompts = full_corpus(batch, seq, cfg.vocab_size, 2).arrays["tokens"]
     max_len = seq + SERVE_NEW + 1
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3621,7 +3768,7 @@ def serve_path(dev, arch, merged) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if not (np.array_equal(first, tokens) and np.array_equal(tokens, again)):
         raise AssertionError(f"serve {arch}: three generates differ")
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not all(
+    if tokens.shape != (batch, SERVE_NEW) or not all(
             bool(torch.isfinite(lg).all()) for lg in rec["logits"]):
         raise AssertionError(f"serve {arch}: {tokens.shape} or non-finite "
                              f"logits")
@@ -3629,34 +3776,49 @@ def serve_path(dev, arch, merged) -> dict:
                if by_path[f"serve:{arch}"][k] <= 0]
     if missing:
         raise AssertionError(f"serve {arch} never launched {missing}")
+    check_options(f"serve {arch}", spec, read_options(), SERVE_KERNELS[arch])
     prefill_ms, decode_ms = rec["prefill_ms"][0], rec["decode_ms"]
     del server, rec
     # (b) a fresh init of the same config, the same prompts
     ids = corpus_ids(cfg.vocab_size)
     reset_launches()
     model = build_model(cfg)
-    fresh = LMServer(model, model.init(torch.Generator(dev).manual_seed(0),
-                                       dev),
-                     max_len=max_len, device=dev).generate(prompts,
-                                                           SERVE_NEW)
+    fresh_params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    fresh = LMServer(model, fresh_params, max_len=max_len,
+                     device=dev).generate(prompts, SERVE_NEW)
     by_path[f"serve_init:{arch}"] = read_launches()
-    torch.cuda.empty_cache()
     share, share_init = (float(np.isin(x, ids).mean())
                          for x in (tokens, fresh))
+    echo = float((fresh == np.concatenate([prompts[:, -1:], fresh[:, :-1]],
+                                          axis=1)).mean())
+    gate = {"corpus_share": [share_init, SERVE_GATE, share]}
+    if spec.get("serve_gate") == "loss":
+        reset_launches()
+        cont = full_corpus(batch, seq + SERVE_NEW, cfg.vocab_size,
+                           3).arrays["tokens"]
+        losses = [serve_loss(model, p, cont, seq, dev)
+                  for p in (fresh_params, merged)]
+        by_path[f"serve_gate:{arch}"] = read_launches()
+        gate = {"loss": [losses[1], math.log(cfg.vocab_size), losses[0]]}
+    del fresh_params
+    torch.cuda.empty_cache()
     per_token = float(np.median(decode_ms))
-    log("serve", arch=cfg.name, layers=cfg.num_layers, batch=SERVE_BATCH,
+    log("serve", arch=cfg.name, layers=cfg.num_layers, batch=batch,
         prompt=seq, new_tokens=SERVE_NEW, prefill_ms=prefill_ms,
         decode_ms_per_token=per_token,
         decode_ms_range=[min(decode_ms), max(decode_ms)],
-        decode_tokens_per_s=SERVE_BATCH * 1e3 / per_token, generate_s=wall, tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
+        decode_tokens_per_s=batch * 1e3 / per_token, generate_s=wall,
+        tokens_per_s=batch * SERVE_NEW / wall,
         peak_mem_gib=peak, profile=profile, corpus_share=share,
-        corpus_share_init=share_init,
-        gate=SERVE_GATE, sample=tokens[0][:8].tolist(),
+        corpus_share_init=share_init, init_echo_share=echo, gate=gate,
+        sample=tokens[0][:8].tolist(),
         launches={k: v for k, v in by_path[f"serve:{arch}"].items() if v},
         card=card_line())
-    if not share_init < SERVE_GATE < share:
-        raise AssertionError(f"serve {arch}: corpus share {share} (trained) "
-                             f"vs {share_init} (init) across {SERVE_GATE}")
+    # the gate's threshold must lie strictly between its two sides
+    (name, (low, mid, high)), = gate.items()
+    if not low < mid < high:
+        raise AssertionError(f"serve {arch}: {name} {gate[name]} out of "
+                             f"order")
     if arch in SERVE_FP32:
         by_path[f"serve_fp32:{arch}"] = serve_fp32(dev, arch, merged,
                                                    prompts, max_len)
@@ -3681,6 +3843,15 @@ def serve_steps(model, params, tokens, prompt, dev) -> torch.Tensor:
             _, logits, caches = decode(params, caches, toks[:, i:i + 1], i)
             out.append(logits.clone())
     return torch.stack(out, dim=1).cpu()
+
+
+def serve_loss(model, params, tokens, prompt, dev) -> float:
+    """Mean teacher-forced next-token loss of ``tokens[:, prompt:]`` through
+    the serving steps (prefill on the prompt, one decode step a token)."""
+    logits = serve_steps(model, params, tokens, prompt, dev)[:, :-1].float()
+    labels = torch.as_tensor(tokens[:, prompt:], dtype=torch.long)
+    return float((torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels[..., None])[..., 0]).mean())
 
 
 def serve_smoke(dev) -> dict:
@@ -3820,6 +3991,9 @@ def main() -> int:
         r = at_granite[name]
         bms, by = r.pop("bound")
         res[name]["at_granite_shape"] = dict(r, bound_ms=bms, bound_by=by)
+    del at_granite
+    torch.cuda.empty_cache()
+    gemma2_rows(dev, res)
     xent_case(dev, 4 * (SEQ_LEN - 1), cfg.d_model, cfg.vocab_size, 0.0,
               True, 1, library=False)
     g2 = registry.get_config("gemma2-2b")
@@ -3829,7 +4003,7 @@ def main() -> int:
                       library=True, hdt=torch.float32)
     for name in XENT_BY_DTYPE:
         res[f"{name}_fp32"] = res32[name]
-    del at_mamba2, at_granite, res32
+    del at_mamba2, res32
     m2 = registry.get_config("mamba2-370m").mamba
     res.update(ssd_case(dev, 8, 8, m2.chunk_size, 32, m2.head_dim,
                         m2.d_state, ITERS_SSD, library=True))
@@ -3902,7 +4076,8 @@ def main() -> int:
                      **{k: r[k] for k in ("ms_range", "library_ms_range",
                                           "bound_passes", "bound_fp32_fma_ms",
                                           "replaced_ms", "at_mamba2_shape",
-                                          "at_granite_shape")
+                                          "at_granite_shape",
+                                          *GEMMA2_ROWS.values())
                         if k in r}})
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

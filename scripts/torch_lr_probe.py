@@ -2,17 +2,20 @@
 """Learning-rate probe of the PyTorch/CUDA port's main path on one NVIDIA
 GPU: does the merged model train at full width, and at which rate?
 
-Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b, mamba2-370m
-or granite-moe-3b-a800m at the main path's depth, random init from seed
-0, the same corpus, sequence length, clients, batches and rounds, one
-server epoch) at lr 0.2 (the launcher's default), 0.05 and 0.02, or at
-the rates ``--lrs`` names.  For each it prints one JSON line: the device history, the server phase's per-step losses, and the
-merged model's loss and accuracy on the eval samples and on 8 of its own
-training samples.  First it prints the merged model at init and ln V.
+Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b, mamba2-370m,
+gemma2-2b or granite-moe-3b-a800m at the main path's depth, random init
+from seed 0, the same corpus, sequence length, samples, clients, batches
+and rounds, one server epoch) at lr 0.2 (the launcher's default), 0.05
+and 0.02, or at the rates ``--lrs`` names.  For each it prints one JSON
+line: the device history, the server phase's per-step losses, the
+merged model's loss and accuracy on the eval samples and on (at most) 8
+of its own training samples, and the card's peak memory over the run.
+First it prints the merged model at init and ln V.
 From the repository root:
 
   python3 scripts/torch_lr_probe.py
   python3 scripts/torch_lr_probe.py --arch mamba2-370m
+  python3 scripts/torch_lr_probe.py --arch gemma2-2b
   python3 scripts/torch_lr_probe.py --arch granite-moe-3b-a800m --lrs 0.05 0.02
 """
 
@@ -46,18 +49,20 @@ def main(argv=None) -> int:
                     choices=sorted(cs.MAIN_PATHS))
     ap.add_argument("--lrs", type=float, nargs="+", default=LRS)
     args = ap.parse_args(argv)
-    seq = cs.MAIN_PATHS[args.arch]["seq"]
+    spec = cs.MAIN_PATHS[args.arch]
+    seq = spec["seq"]
     if not torch.cuda.is_available():
         print("torch_lr_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    torch.zeros((), device=dev)        # a CUDA context for the peak stats
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
     cfg = cs.main_config(args.arch)
     model = build_model(cfg)
     merged_model = build_model(splitting.merged_config(model))
-    train = cs.full_corpus(cs.TRAIN_SAMPLES, seq, cfg.vocab_size, 0)
-    evald = cs.full_corpus(cs.EVAL_SAMPLES, seq, cfg.vocab_size, 1)
+    train = cs.full_corpus(spec["samples"], seq, cfg.vocab_size, 0)
+    evald = cs.full_corpus(spec["eval_samples"], seq, cfg.vocab_size, 1)
     seen = Dataset({k: v[:8] for k, v in train.arrays.items()},
                    train.labels[:8])
     print(json.dumps({"card": cs.card_line(), "arch": args.arch, "seq": seq,
@@ -71,9 +76,10 @@ def main(argv=None) -> int:
 
     for lr in args.lrs:
         largv = ["--arch", args.arch, "--clients", "4", "--cohort", "2",
-                 "--local-steps", "2", "--batch-size", "4",
-                 "--server-batch", "8", "--seq-len", str(seq),
-                 "--lr", str(lr), "--seed", "0"]
+                 "--local-steps", "2", "--batch-size", str(spec["batch"]),
+                 "--server-batch", str(spec["server_batch"]),
+                 "--seq-len", str(seq), "--lr", str(lr), "--seed", "0"]
+        torch.cuda.reset_peak_memory_stats(dev)
         run_cfg = launch_train.build_run_cfg(
             launch_train.make_parser().parse_args(largv))
         fed = run_cfg.fed
@@ -85,6 +91,7 @@ def main(argv=None) -> int:
         dp, sp, ap = tr._init_states(
             torch.Generator().manual_seed(run_cfg.seed))
         dev_state = {"device": dp, "aux": ap}
+        del dp, ap
         if lr == args.lrs[0]:
             print(json.dumps({"init": merged_eval(tr, dev_state, sp)}),
                   flush=True)
@@ -92,17 +99,22 @@ def main(argv=None) -> int:
         store = tr.generate_activations(dev_state,
                                         ActivationStore(seed=run_cfg.seed))
         # the body of run_server_phase for one epoch, keeping each step's loss
-        state = steps.init_server_state(model, run_cfg, sp)
+        # (the state handed over as run_server_phase hands it: no frame here
+        # holds the initial state while the epoch makes new ones)
+        held = [steps.init_server_state(model, run_cfg, sp)]
+        del sp
         pool = tr._tensors(store.pool())
         idx = torch.as_tensor(store.epoch_indices(fed.server_batch_size),
                               dtype=torch.long, device=dev)
-        state, step_losses = tr._server_epoch(state, pool, idx)
+        state, step_losses = tr._server_epoch(held.pop(), pool, idx)
         print(json.dumps({"lr": lr, "device": tr.history["device"],
                           "server_step_losses": step_losses.tolist(),
                           "merged": merged_eval(tr, dev_state,
-                                                state["server"])}),
+                                                state["server"]),
+                          "peak_mem_gib":
+                              torch.cuda.max_memory_allocated(dev) / 2 ** 30}),
               flush=True)
-        del tr, dp, sp, ap, dev_state, store, state, pool
+        del tr, dev_state, store, state, pool
         torch.cuda.empty_cache()
     return 0
 

@@ -1,7 +1,7 @@
 """Evaluation of the merged model (validation metrics of the server
-phase), as ``repro.core.evaluate``: for an LM full (B, S, V) logits,
-next-token loss and accuracy, for a classifier the cross-entropy and
-accuracy over the labels; and :class:`EarlyStopper`, the paper's patience
+phase), as ``repro.core.evaluate``: for an LM the next-token loss and
+accuracy of its (B, S, V) logits (made a chunk of positions at a time),
+for a classifier the cross-entropy and accuracy over the labels; and :class:`EarlyStopper`, the paper's patience
 rule on those metrics."""
 
 from __future__ import annotations
@@ -10,19 +10,42 @@ import numpy as np
 import torch
 
 from repro_torch.core import losses
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import rmsnorm
+
+# the most logits the head makes at once: past it the loss runs over
+# chunks of positions (gemma2-2b's 4 x 8192 x 256000 would be 16.8 GB in
+# bf16, and the loss's fp32 copies twice that each)
+MAX_EVAL_LOGITS = 2 ** 30
 
 
 @torch.no_grad()
 def eval_step(model, params, batch):
+    """Loss and accuracy of one batch.  For an LM: next-token loss and
+    accuracy over every position but the last, as the reference's full
+    (B, S, V) logits give them, the head run over at most MAX_EVAL_LOGITS
+    logits at a time."""
     if model.kind != "lm":
         out = model.apply(params, batch["images"])
         loss, m = losses.classification_loss(out["logits"], batch["labels"])
         return loss, m["acc"]
-    out = model.apply(params, batch["tokens"], remat="none")
-    loss, _ = losses.lm_loss_from_logits(out["logits"], batch["tokens"])
-    pred = torch.argmax(out["logits"][:, :-1], dim=-1)
-    acc = torch.mean((pred == batch["tokens"][:, 1:].long()).float())
-    return loss, acc
+    cfg, tokens = model.cfg, batch["tokens"]
+    x = model.apply(params, tokens, remat="none",
+                    return_logits=False)["hidden"]
+    h = x[:, :-1].reshape(-1, x.shape[-1])
+    labels = tokens[:, 1:].reshape(-1).long()
+    n = max(1, MAX_EVAL_LOGITS // cfg.vocab_size)
+    per, hit = [], []
+    for i in range(0, h.shape[0], n):
+        hn = rmsnorm(params["final_norm"], h[i:i + n], cfg.norm_eps,
+                     cfg.dtype)
+        logf = T.logits_from_hidden(cfg, params, hn).float()
+        lab = labels[i:i + n]
+        per.append(torch.logsumexp(logf, dim=-1)
+                   - torch.gather(logf, -1, lab[:, None])[:, 0])
+        hit.append(torch.argmax(logf, dim=-1) == lab)
+        del logf
+    return torch.cat(per).mean(), torch.cat(hit).float().mean()
 
 
 def evaluate(model, params, dataset, device, batch_size: int = 64,

@@ -16,8 +16,10 @@ BH = B * Hkv * G kv-major (``bh // G`` is the kv head); k, v, dk, dv
 (BKV, Skv, hd).  Outputs are fp32.  The fused backward reads dO in fp32;
 the two sweeps read it in q's dtype and raise ``TypeError`` on another
 (the plain versions take either).  Each wrapper carries ``launches``, the
-number of kernel launches it made, and ``launches_by_dtype``, the same
-count split by q's dtype (``"bfloat16"``, ``"float32"``).  Every kernel
+number of kernel launches it made, ``launches_by_dtype``, the same
+count split by q's dtype (``"bfloat16"``, ``"float32"``), and
+``launches_by_option``, the launches with a sliding window
+(``"window"``) and with a logit softcap (``"softcap"``).  Every kernel
 runs on the tensor cores for both dtypes: for fp32 each one runs the same
 tensor-core kernel as for bf16 over bf16 planes of q, k and v, which its
 split pre-pass writes into scratch taken here (``_planes``; q's dtype sets
@@ -257,18 +259,23 @@ def flash_fwd(q, k, v, *, group, causal, window, softcap, scale, kv_len):
     out = _launch_fwd(build.load(), build.stream_ptr(q), q, k, v,
                       group=group, causal=causal, window=window,
                       softcap=softcap, scale=scale, kv_len=kv_len)
-    _count(flash_fwd, q)
+    _count(flash_fwd, q, window, softcap)
     return out
 
 
-def _count(fn, q):
+def _count(fn, q, window, softcap):
     fn.launches += 1
     key = str(q.dtype).removeprefix("torch.")
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+    for option, on in (("window", window), ("softcap", softcap)):
+        if on:
+            fn.launches_by_option[option] = (
+                fn.launches_by_option.get(option, 0) + 1)
 
 
 flash_fwd.launches = 0
 flash_fwd.launches_by_dtype = {}
+flash_fwd.launches_by_option = {}
 
 
 def _bwd_wrapper(name, plain, launch, doc):
@@ -281,13 +288,14 @@ def _bwd_wrapper(name, plain, launch, doc):
         _check_inputs(q, k, v, group)
         out = launch(build.load(), build.stream_ptr(q), q, k, v, do, lse,
                      delta, **kw)
-        _count(fn, q)
+        _count(fn, q, window, softcap)
         return out
 
     fn.__name__ = fn.__qualname__ = name
     fn.__doc__ = doc
     fn.launches = 0
     fn.launches_by_dtype = {}
+    fn.launches_by_option = {}
     return fn
 
 

@@ -20,7 +20,8 @@ the kernels read it in place; labels (T,).  Outputs are fp32; ``dw`` comes
 back with ``w``'s layout (a transposed view of a (V, D) buffer for the
 tied head), so it reaches the embedding gradient without a copy.  Each
 wrapper carries ``launches``, the number of calls that launched kernels,
-and ``launches_by_dtype``, the same by h's dtype (so by pass count).
+``launches_by_dtype``, the same by h's dtype (so by pass count), and
+``launches_by_option``, the calls with a logit softcap (``"softcap"``).
 """
 
 from __future__ import annotations
@@ -41,32 +42,38 @@ H100_SMS = 132                  # split count of the emulated (CPU) launches
 # ---------------------------------------------------------------------------
 
 
-def _logits(h, w, softcap):
+# The (T, V) work is done in place on tensors made here, so a call holds at
+# most three (T, V) fp32 buffers (at gemma2-2b's T 16382, V 256000 each is
+# 16.8 GB); in place or not, every value is the same.
+
+
+def _logits(h, w, softcap, chain=False):
     z = h.float() @ w.float()
     dchain = None
     if softcap:
-        z = torch.tanh(z / softcap) * softcap
-        dchain = 1.0 - torch.square(z / softcap)
+        z = torch.tanh_(z.div_(softcap)).mul_(softcap)
+        if chain:     # d softcap / d z_raw = 1 - (z / softcap)^2
+            dchain = torch.square_(z / softcap).neg_().add_(1.0)
     return z, dchain
 
 
 def xent_fwd_plain(h, w, labels, *, softcap=0.0):
     s, _ = _logits(h, w, softcap)
     m = s.amax(dim=-1)
-    l = torch.exp(s - m[:, None]).sum(dim=-1)
+    l = (s - m[:, None]).exp_().sum(dim=-1)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     correct = torch.gather(s, 1, labels.long()[:, None])[:, 0]
     return lse - correct, lse
 
 
 def xent_bwd_plain(h, w, labels, lse, g, *, softcap=0.0):
-    s, dchain = _logits(h, w, softcap)
-    p = torch.exp(s - lse.float()[:, None])
-    dlog = p.scatter_add(1, labels.long()[:, None],
-                         torch.full_like(p[:, :1], -1.0))
-    dlog = dlog * g.float()[:, None]
+    s, dchain = _logits(h, w, softcap, chain=True)
+    dlog = s.sub_(lse.float()[:, None]).exp_()          # p
+    dlog.scatter_add_(1, labels.long()[:, None],
+                      torch.full_like(dlog[:, :1], -1.0))
+    dlog.mul_(g.float()[:, None])
     if dchain is not None:
-        dlog = dlog * dchain
+        dlog.mul_(dchain)
     return dlog @ w.float().t(), h.float().t() @ dlog
 
 
@@ -209,10 +216,13 @@ def _launch_bwd(lib, stream, h, w, labels, lse, g, *, softcap):
 # ---------------------------------------------------------------------------
 
 
-def _count(fn, h):
+def _count(fn, h, softcap):
     fn.launches += 1
     key = str(h.dtype).removeprefix("torch.")
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+    if softcap:
+        fn.launches_by_option["softcap"] = (
+            fn.launches_by_option.get("softcap", 0) + 1)
 
 
 def xent_fwd(h, w, labels, *, softcap=0.0):
@@ -222,12 +232,13 @@ def xent_fwd(h, w, labels, *, softcap=0.0):
     _check_inputs(h, w, labels)
     out = _launch_fwd(build.load(), build.stream_ptr(h), h, w, labels,
                       softcap=softcap)
-    _count(xent_fwd, h)
+    _count(xent_fwd, h, softcap)
     return out
 
 
 xent_fwd.launches = 0
 xent_fwd.launches_by_dtype = {}
+xent_fwd.launches_by_option = {}
 
 
 def xent_bwd(h, w, labels, lse, g, *, softcap=0.0):
@@ -237,9 +248,10 @@ def xent_bwd(h, w, labels, lse, g, *, softcap=0.0):
     _check_inputs(h, w, labels)
     out = _launch_bwd(build.load(), build.stream_ptr(h), h, w, labels, lse,
                       g, softcap=softcap)
-    _count(xent_bwd, h)
+    _count(xent_bwd, h, softcap)
     return out
 
 
 xent_bwd.launches = 0
 xent_bwd.launches_by_dtype = {}
+xent_bwd.launches_by_option = {}

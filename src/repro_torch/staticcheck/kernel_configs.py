@@ -426,6 +426,18 @@ def _record_configs():
     for kind in FA_KINDS:
         out.append(flash(f"granite_attn_{kind}_bfloat16", "record", kind, 8,
                          8, 3, 512, 64, "bfloat16"))
+    # gemma2-2b's own main path at its published context (chip_smoke phase
+    # 20): the server step's attention at batch 2 x seq 8192, bf16, softcap
+    # 50, on the local (window 4096) and the global layers, and the fp32
+    # serving check's no-cache forward over prompt + 31 tokens
+    for tag, window in (("local", 4096), ("global", 0)):
+        for kind in ("fwd", "fused"):
+            out.append(flash(f"gemma2_path_attn_{kind}_{tag}", "record",
+                             kind, 2, 4, 2, 8192, 256, "bfloat16",
+                             window=window, softcap=50.0))
+        out.append(flash(f"gemma2_serve_fp32_fwd_{tag}", "record", "fwd", 2,
+                         4, 2, 8223, 256, "float32", window=window,
+                         softcap=50.0))
     # the serving prefill (chip_smoke phase 17: batch 4, the path's seq as
     # prompt); mamba2-370m's prefill runs the SSD forward over 8 chunks
     out.append(flash("qwen3_prefill_bfloat16", "record", "fwd", 4, 8, 2,
@@ -452,7 +464,10 @@ def _record_configs():
             xent(f"granite_xent_{d}", "record", bwd, 4088, 1536, 49155,
                  tied=True),
             xent(f"gemma2_xent_{d}", "record", bwd, 1024, 2304, 256000,
-                 tied=True, softcap=30.0)]
+                 tied=True, softcap=30.0),
+            # gemma2-2b's server head on its own path: T 2 x 8191
+            xent(f"gemma2_path_xent_{d}", "record", bwd, 16382, 2304,
+                 256000, tied=True, softcap=30.0)]
     # mamba2-370m's SSD at the server shape (B 8 x 8 chunks, Q 256, H 32,
     # P 64, N 128: every kMax at once) and a ragged head group at the same
     # maxima
