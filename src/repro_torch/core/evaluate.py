@@ -1,8 +1,8 @@
 """Evaluation of the merged model (validation metrics of the server
 phase), as ``repro.core.evaluate``: for an LM the next-token loss and
 accuracy of its (B, S, V) logits (made a chunk of positions at a time),
-for a classifier the cross-entropy and accuracy over the labels; and :class:`EarlyStopper`, the paper's patience
-rule on those metrics."""
+for a classifier the cross-entropy and accuracy over the labels; and
+:class:`EarlyStopper`, the paper's patience rule on those metrics."""
 
 from __future__ import annotations
 
@@ -11,7 +11,6 @@ import torch
 
 from repro_torch.core import losses
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import rmsnorm
 
 # the most logits the head makes at once: past it the loss runs over
 # chunks of positions (gemma2-2b's 4 x 8192 x 256000 would be 16.8 GB in
@@ -20,16 +19,12 @@ MAX_EVAL_LOGITS = 2 ** 30
 
 
 @torch.no_grad()
-def eval_step(model, params, batch):
-    """Loss and accuracy of one batch.  For an LM: next-token loss and
-    accuracy over every position but the last, as the reference's full
-    (B, S, V) logits give them, the head run over at most MAX_EVAL_LOGITS
-    logits at a time."""
-    if model.kind != "lm":
-        out = model.apply(params, batch["images"])
-        loss, m = losses.classification_loss(out["logits"], batch["labels"])
-        return loss, m["acc"]
-    cfg, tokens = model.cfg, batch["tokens"]
+def token_losses(model, params, tokens):
+    """An LM's next-token loss and hit (argmax == label) at every position
+    but the last, (B, S - 1) each, as the reference's full (B, S, V)
+    logits give them, the head run over at most MAX_EVAL_LOGITS logits at
+    a time."""
+    cfg = model.cfg
     x = model.apply(params, tokens, remat="none",
                     return_logits=False)["hidden"]
     h = x[:, :-1].reshape(-1, x.shape[-1])
@@ -37,15 +32,26 @@ def eval_step(model, params, batch):
     n = max(1, MAX_EVAL_LOGITS // cfg.vocab_size)
     per, hit = [], []
     for i in range(0, h.shape[0], n):
-        hn = rmsnorm(params["final_norm"], h[i:i + n], cfg.norm_eps,
-                     cfg.dtype)
-        logf = T.logits_from_hidden(cfg, params, hn).float()
+        logf = T.head(cfg, params, h[i:i + n])[1].float()
         lab = labels[i:i + n]
         per.append(torch.logsumexp(logf, dim=-1)
                    - torch.gather(logf, -1, lab[:, None])[:, 0])
         hit.append(torch.argmax(logf, dim=-1) == lab)
         del logf
-    return torch.cat(per).mean(), torch.cat(hit).float().mean()
+    shape = (tokens.shape[0], tokens.shape[1] - 1)
+    return torch.cat(per).reshape(shape), torch.cat(hit).reshape(shape)
+
+
+@torch.no_grad()
+def eval_step(model, params, batch):
+    """Loss and accuracy of one batch.  For an LM: the mean of
+    :func:`token_losses`."""
+    if model.kind != "lm":
+        out = model.apply(params, batch["images"])
+        loss, m = losses.classification_loss(out["logits"], batch["labels"])
+        return loss, m["acc"]
+    per, hit = token_losses(model, params, batch["tokens"])
+    return per.mean(), hit.float().mean()
 
 
 def evaluate(model, params, dataset, device, batch_size: int = 64,

@@ -347,9 +347,8 @@ def make_prefill_step(model, run_cfg, *, impl="kernel"):
     def prefill_step(params, tokens, caches):
         out = T.forward(cfg, params, tokens, caches=caches, cache_index=0,
                         impl=impl, remat="none", return_logits=False)
-        h = rmsnorm(params["final_norm"], out["hidden"][:, -1:],
-                    cfg.norm_eps, cfg.dtype)
-        return T.logits_from_hidden(cfg, params, h)[:, 0], out["caches"]
+        _, logits = T.head(cfg, params, out["hidden"][:, -1:])
+        return logits[:, 0], out["caches"]
 
     return prefill_step
 

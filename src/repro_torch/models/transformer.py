@@ -244,11 +244,16 @@ def forward(cfg, params, inputs, *, positions=None, lo: int = 0,
                         remat=remat)
     out = {"hidden": x, "logits": None, "aux": aux, "caches": caches}
     if hi == cfg.num_layers and return_logits:
-        h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.dtype)
-        out["logits"] = shard(logits_from_hidden(cfg, params, h),
-                              "batch", None, "vocab")
-        out["hidden"] = h
+        out["hidden"], logits = head(cfg, params, x)
+        out["logits"] = shard(logits, "batch", None, "vocab")
     return out
+
+
+def head(cfg, params, x):
+    """The final norm and the head over rows ``x`` of the last layer's
+    hidden states (any positions of them): (normed hidden, logits)."""
+    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.dtype)
+    return h, logits_from_hidden(cfg, params, h)
 
 
 def logits_from_hidden(cfg, params, h):

@@ -15,17 +15,23 @@ next-token accuracy within 1e-2 absolute.
 """
 
 import dataclasses
+import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import test_torch_ampere as A
+from repro.configs import registry
+from repro.core import evaluate as j_evaluate
+from repro.models import build_model as j_build
 from repro_torch.configs import registry as t_registry
 from repro_torch.configs.base import FedConfig, OptimConfig, RunConfig
 from repro_torch.core import evaluate, losses
 from repro_torch.core.uit import AmpereTrainer
 from repro_torch.data import ActivationStore, federate, make_dataset_for_model
+from repro_torch.interop import from_numpy_tree
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
@@ -51,6 +57,19 @@ def _run_cfg():
                      optim=OptimConfig(**A.OPTIM))
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher_run():
+    """``launch.train.run_training`` on the smoke config on the CPU."""
+    cfg = t_registry.get_smoke_config(ARCH)
+    model = build_model(cfg)
+    train = make_dataset_for_model(model, A.N_TRAIN, seq_len=A.SEQ, seed=0)
+    evald = make_dataset_for_model(model, A.N_EVAL, seq_len=A.SEQ, seed=1)
+    out = launch_train.run_training(cfg, _run_cfg(), train, evald,
+                                    device="cpu", device_rounds=A.ROUNDS,
+                                    server_epochs=A.EPOCHS)
+    return out, train, evald
+
+
 def test_launcher_run_training_matches_trainer():
     """``launch.train.run_training`` on the smoke config on the CPU: the
     history of the trainer driven phase by phase from the launcher's own
@@ -58,11 +77,7 @@ def test_launcher_run_training_matches_trainer():
     cfg = t_registry.get_smoke_config(ARCH)
     run = _run_cfg()
     model = build_model(cfg)
-    train = make_dataset_for_model(model, A.N_TRAIN, seq_len=A.SEQ, seed=0)
-    evald = make_dataset_for_model(model, A.N_EVAL, seq_len=A.SEQ, seed=1)
-    out = launch_train.run_training(cfg, run, train, evald, device="cpu",
-                                    device_rounds=A.ROUNDS,
-                                    server_epochs=A.EPOCHS)
+    out, train, evald = _launcher_run()
     tr = AmpereTrainer(model, run, federate(train, run.fed.num_clients,
                                             run.fed.dirichlet_alpha,
                                             seed=run.seed),
@@ -83,27 +98,61 @@ def test_launcher_run_training_matches_trainer():
     assert got["sim_time"] == want["sim_time"]
 
 
+def test_served_merged_params_match_merged_eval():
+    """The launcher's merged params served as ``chip_smoke.py`` serves
+    them (``served_model``: the merged config, its tied head untied, as
+    the trainer evaluates it): the serving steps' teacher-forced loss over
+    the eval set's last 8 positions equals the forward's there, and the
+    forward's mean the last epoch's val loss.  Under the published tied
+    config the output head is the device's embedding, not the server's
+    trained head, and the loss differs."""
+    import chip_smoke as C
+    cfg = t_registry.get_smoke_config(ARCH)
+    out, _, evald = _launcher_run()
+    merged, val = out["merged_params"], out["history"]["server"][-1]
+    served = C.served_model(cfg)
+    tokens = evald.arrays["tokens"]
+    per, _ = evaluate.token_losses(served, merged, torch.as_tensor(tokens))
+    np.testing.assert_allclose(float(per.mean()), val["val_loss"],
+                               rtol=1e-6)
+    serve = C.serve_loss(served, merged, tokens, A.SEQ - 8,
+                         torch.device("cpu"))
+    np.testing.assert_allclose(serve, float(per[:, -8:].mean()), rtol=1e-5)
+    tied = evaluate.evaluate(build_model(cfg), merged, evald, "cpu")["loss"]
+    assert abs(tied - val["val_loss"]) > 1e-3
+
+
 @pytest.mark.parametrize("arch", [ARCH, "qwen3-1.7b"])
 @pytest.mark.parametrize("chunk", [7, None])
 def test_eval_step_matches_full_logits(arch, chunk, monkeypatch):
     """``evaluate.eval_step`` runs the head over at most
     ``MAX_EVAL_LOGITS`` logits at a time (gemma2-2b's 4 x 8192 x 256000
-    would not fit the card): the loss and accuracy of the full (B, S, V)
-    logits, in one chunk and in chunks of 7 positions (ragged at the
-    end)."""
+    would not fit the card): the loss and accuracy of the port's full
+    (B, S, V) logits and of ``repro.core.evaluate``'s eval step on the
+    same params (the JAX init converted through numpy), in one chunk and
+    in chunks of 7 positions (ragged at the end)."""
+    j_cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                                dtype="float32")
+    j_model = j_build(j_cfg)
+    j_params = j_model.init(jax.random.PRNGKey(0))
     cfg = dataclasses.replace(t_registry.get_smoke_config(arch),
                               dtype="float32")
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (3, A.SEQ)), dtype=torch.int32)
+    params = from_numpy_tree(jax.tree.map(np.asarray, j_params))
+    np_tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, A.SEQ)).astype(np.int32)
+    tokens = torch.as_tensor(np_tokens)
     logits = model.apply(params, tokens, remat="none")["logits"]
     want_loss, _ = losses.lm_loss_from_logits(logits, tokens)
     want_acc = torch.mean((torch.argmax(logits[:, :-1], dim=-1)
                            == tokens[:, 1:].long()).float())
+    ref_loss, ref_acc = j_evaluate.make_eval_step(j_model)(
+        j_params, {"tokens": np_tokens})
     if chunk:
         monkeypatch.setattr(evaluate, "MAX_EVAL_LOGITS",
                             chunk * cfg.vocab_size)
     loss, acc = evaluate.eval_step(model, params, {"tokens": tokens})
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
     assert float(acc) == float(want_acc)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    np.testing.assert_allclose(float(acc), float(ref_acc), atol=1e-2)
