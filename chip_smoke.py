@@ -528,6 +528,12 @@ GRANITE_LR = 0.05
 # (PERF.md, Findings); it runs at full depth (the server step's peak is
 # under 70 GiB), and ``comm_bytes`` is its analytic count
 GEMMA_LR = 0.05
+# musicgen-large's rate comes from ``scripts/torch_lr_probe.py --arch
+# musicgen-large`` (PERF.md, Findings: 0.2 diverges, 0.02 ends below
+# 0.05); it runs at published widths and full depth (48 layers, the
+# server step's peak 65 GiB) at its published decoder context, 2048,
+# with the default batches, and ``comm_bytes`` is its analytic count
+MUSICGEN_LR = 0.02
 # Each path's device batch, server batch, serving batch, training and eval
 # samples; ``options``: the kernels that must launch with a sliding window
 # or a logit softcap (``launches_by_option``).  gemma2-2b runs at its
@@ -553,6 +559,8 @@ MAIN_PATHS = {
                           "flash_bwd_fused": ("window", "softcap"),
                           "xent_fwd": ("softcap",),
                           "xent_bwd": ("softcap",)}),
+    "musicgen-large": dict(seq=2048, lr=MUSICGEN_LR, kernels=_ATTN_XENT,
+                           comm_bytes=3_624_730_624, **_BATCHES),
 }
 SEQ_LEN = MAIN_PATHS["qwen3-1.7b"]["seq"]
 INT8_ARCH = "qwen3-1.7b"     # its main path runs again with int8 payloads
@@ -694,12 +702,15 @@ MOE_SMOKE = {"qwen2-moe-a2.7b": _FA_XENT_FP32,
 # prompt, last position), card vs CPU within SERVE_TOL.  The gate sits
 # between the shares measured on the card (PERF.md, PR 32 run 1): trained
 # 1.0 (qwen3, granite) and 0.5 (mamba2), fresh init 0.0-0.0078; 0.25
-# leaves 0.25 below the lowest trained and 0.24 above the highest init
+# leaves 0.25 below the lowest trained and 0.24 above the highest init.
+# At musicgen-large's V 2048 the corpus holds 12.5% of the ids, and its
+# fresh init read 0.0547, its trained model 1.0 (PERF.md, Findings)
 SERVE_NEW = 32
 SERVE_PROFILE_NEW = 4
 SERVE_KERNELS = {"qwen3-1.7b": ("flash_fwd",), "mamba2-370m": ("ssd_intra",),
                  "gemma2-2b": ("flash_fwd",),
-                 "granite-moe-3b-a800m": ("flash_fwd",)}
+                 "granite-moe-3b-a800m": ("flash_fwd",),
+                 "musicgen-large": ("flash_fwd",)}
 SERVE_GATE = 0.25
 # A main path whose ``serve_gate`` is "loss" (gemma2-2b) is gated instead
 # on the teacher-forced next-token loss over SERVE_NEW corpus tokens past
@@ -709,10 +720,10 @@ SERVE_GATE = 0.25
 # ``init_echo_share``: its greedy tokens that repeat the token before),
 # so the init's greedy tokens repeat the prompt's last, a corpus id, and
 # its share is 1.0 as the trained model's (PERF.md, Findings)
-SERVE_FP32 = ("qwen3-1.7b", "mamba2-370m", "gemma2-2b")
+SERVE_FP32 = ("qwen3-1.7b", "mamba2-370m", "gemma2-2b", "musicgen-large")
 SERVE_TOL = 1e-4
 SERVE_SMOKE = ("qwen3-1.7b", "gemma2-2b", "mamba2-370m",
-               "jamba-1.5-large-398b", "qwen2-moe-a2.7b")
+               "jamba-1.5-large-398b", "qwen2-moe-a2.7b", "musicgen-large")
 SERVE_SMOKE_SHAPE = (2, 12, 20)
 # phase 18: the dry-run.  (a) the measured step's peak against the --mesh
 # debug row's, relative; (b) the production cell, in a subprocess of at
@@ -752,6 +763,13 @@ FA_FWD_PASSES, FA_BWD_PASSES = 6 + 5, 6 + 4 * 3
 FA_DQ_PASSES, FA_DKV_PASSES = 6 + 3 + 3, 6 + 3 * 3
 PROFILE_TOP = 10         # kernels named in each profile line
 PROFILE_STEPS = 3        # unprofiled steps timed before the profiled one
+# the profiled step's elementwise sums and zero fills: autograd's sums of
+# the period-stacked leaves' gradients (PERF.md, Findings), by kernel name
+# and by aten op and input shape
+ADD_FILL_KERNELS = {"add": "CUDAFunctor_add<float>",
+                    "fill": "FillFunctor<float>"}
+ADD_FILL_OPS = ("aten::add", "aten::add_", "aten::fill_")
+ADD_FILL_TOP = 12
 # split backward against fused, relative to each gradient leaf's scale
 SPLIT_TOL = {"float32": 1e-4, "bfloat16": 0.05}
 # the kernels line's keys of gemma2-2b's rows (PERF.md: 1w and 2w local
@@ -1304,9 +1322,33 @@ def gemma2_rows(dev, res, flex) -> None:
         reserved_gib=torch.cuda.memory_reserved(dev) / 2 ** 30)
 
 
+def server_shape_rows(dev, res, arch, key) -> None:
+    """The attention and xent rows at a main path's server shapes (its
+    server batch x seq, its heads, its head's tying), each under ``key``:
+    rows 1g-6g (granite-moe-3b-a800m) and 1mg-6mg (musicgen-large)."""
+    t = time.perf_counter()
+    cfg = registry.get_config(arch)
+    spec = MAIN_PATHS[arch]
+    B, S = spec["server_batch"], spec["seq"]
+    out = fa_case(dev, B, S, cfg.num_kv_heads,
+                  cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, 0, 0.0,
+                  torch.bfloat16, ITERS_ATTENTION, library=True)
+    torch.cuda.empty_cache()
+    out.update(xent_case(dev, B * (S - 1), cfg.d_model, cfg.vocab_size, 0.0,
+                         cfg.tie_embeddings, ITERS_XENT, library=True))
+    for name in _ATTN_XENT:
+        r = out[name]
+        bms, by = r.pop("bound")
+        res[name][key] = dict(r, bound_ms=bms, bound_by=by)
+    del out
+    torch.cuda.empty_cache()
+    log("server_shape_rows", arch=arch, seconds=time.perf_counter() - t)
+
+
 def smoke_reference(dev, arch):
     """The launcher's path on ``arch``'s smoke config from the same initial
     states, on the card and on the CPU: histories agree."""
+    t = time.perf_counter()
     cfg = registry.get_smoke_config(arch)
     args = launch_train.make_parser().parse_args(
         ["--arch", arch, "--clients", "4", "--cohort", "2", "--local-steps",
@@ -1335,7 +1377,7 @@ def smoke_reference(dev, arch):
                     raise AssertionError(f"{arch} smoke {phase} {key}: "
                                          f"{a} vs {b}")
     log("reference", arch=cfg.name, cuda=hist["cuda"], cpu=hist["cpu"],
-        rel_tol=1e-4)
+        rel_tol=1e-4, seconds=time.perf_counter() - t)
 
 
 def corpus_ids(vocab) -> np.ndarray:
@@ -3300,7 +3342,8 @@ def profile_server_step(dev, arch, step, state, inputs, **shape):
     kernel's time and calls, the device busy share, the union of kernel
     intervals over the unprofiled step's median time (kernel durations do
     not depend on the host), with the share over the profiled step's wall
-    time beside it, and the peak memory of the timed steps."""
+    time beside it, the peak memory of the timed steps, and the step's
+    ``add`` and ``fill`` (:func:`add_fill`)."""
     state, _ = step(state, inputs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3316,7 +3359,7 @@ def profile_server_step(dev, arch, step, state, inputs, **shape):
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t = time.perf_counter()
         state, m = step(state, inputs)
         torch.cuda.synchronize()
@@ -3352,11 +3395,38 @@ def profile_server_step(dev, arch, step, state, inputs, **shape):
         kernels=len(kernels), xent_ms=xent_ms,
         xent_share_of_step=xent_ms / step_ms_med, ssd_ms=ssd_ms,
         ssd_share_of_step=ssd_ms / step_ms_med,
+        add_fill=add_fill(prof, by_name),
         ssd_kernels=[{"name": name[:120], "ms": ms, "calls": n,
                       "ms_per_call": ms / n}
                      for name, (ms, n) in sorted(ssd.items())],
         top=[{"name": name[:120], "ms": ms, "calls": n}
              for name, (ms, n) in ranked])
+
+
+def add_fill(prof, by_name) -> dict:
+    """A profiled step's fp32 ``add`` and ``fill`` kernels (device ms and
+    calls, by kernel name as the "top" list names them), and the aten ops
+    ADD_FILL_OPS grouped by input shape: each group's calls and the device
+    ms of its own kernels, the ADD_FILL_TOP largest groups, and the sum
+    over every group.  A sum of full-stack gradients shows as calls on
+    the period stack's (R, ...) leaves."""
+    kernels = {}
+    for key, pattern in ADD_FILL_KERNELS.items():
+        hits = [v for name, v in by_name.items() if pattern in name]
+        kernels[key] = {"ms": sum(ms for ms, _ in hits),
+                        "calls": sum(n for _, n in hits)}
+    groups = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ADD_FILL_OPS:
+            us = getattr(e, "self_device_time_total", None)
+            groups.append({"op": e.key, "shapes": e.input_shapes,
+                           "calls": e.count,
+                           "ms": (e.self_cuda_time_total if us is None
+                                  else us) / 1e3})
+    groups.sort(key=lambda g: -g["ms"])
+    return {"kernels": kernels, "ops_ms": sum(g["ms"] for g in groups),
+            "ops_calls": sum(g["calls"] for g in groups),
+            "by_shape": groups[:ADD_FILL_TOP]}
 
 
 def build_with_ptxas_report():
@@ -4123,22 +4193,11 @@ def main() -> int:
         bms, by = r.pop("bound")
         res[name]["at_mamba2_shape"] = dict(r, bound_ms=bms, bound_by=by)
     # granite-moe's server shapes: attention G 3, hd 64; its tied head
-    gcfg = registry.get_config("granite-moe-3b-a800m")
-    gseq = MAIN_PATHS[gcfg.name]["seq"]
-    at_granite = fa_case(dev, 8, gseq, gcfg.num_kv_heads,
-                         gcfg.num_heads // gcfg.num_kv_heads, gcfg.head_dim,
-                         0, 0.0, torch.bfloat16, ITERS_ATTENTION,
-                         library=True)
-    at_granite.update(xent_case(dev, 8 * (gseq - 1), gcfg.d_model,
-                                gcfg.vocab_size, 0.0, True, ITERS_XENT,
-                                library=True))
-    for name in ("flash_fwd", "flash_bwd_fused", "xent_fwd", "xent_bwd"):
-        r = at_granite[name]
-        bms, by = r.pop("bound")
-        res[name]["at_granite_shape"] = dict(r, bound_ms=bms, bound_by=by)
-    del at_granite
-    torch.cuda.empty_cache()
+    server_shape_rows(dev, res, "granite-moe-3b-a800m", "at_granite_shape")
     gemma2_rows(dev, res, flex)
+    # musicgen-large's: multi-head attention (G 1, hd 64), its untied V
+    # 2048 head
+    server_shape_rows(dev, res, "musicgen-large", "at_musicgen_shape")
     xent_case(dev, 4 * (SEQ_LEN - 1), cfg.d_model, cfg.vocab_size, 0.0,
               True, 1, library=False)
     xent_case(dev, 1024, g2.d_model, g2.vocab_size, g2.final_softcap, True,
@@ -4221,6 +4280,7 @@ def main() -> int:
                                           "bound_passes", "bound_fp32_fma_ms",
                                           "replaced_ms", "at_mamba2_shape",
                                           "at_granite_shape",
+                                          "at_musicgen_shape",
                                           *GEMMA2_ROWS.values())
                         if k in r}})
     log("total", seconds=time.perf_counter() - t_start)

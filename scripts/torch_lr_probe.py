@@ -3,19 +3,21 @@
 GPU: does the merged model train at full width, and at which rate?
 
 Runs a main path of ``chip_smoke.py`` (full-width qwen3-1.7b, mamba2-370m,
-gemma2-2b or granite-moe-3b-a800m at the main path's depth, random init
-from seed 0, the same corpus, sequence length, samples, clients, batches
-and rounds, one server epoch) at lr 0.2 (the launcher's default), 0.05
-and 0.02, or at the rates ``--lrs`` names.  For each it prints one JSON
-line: the device history, the server phase's per-step losses, the
-merged model's loss and accuracy on the eval samples and on (at most) 8
-of its own training samples, and the card's peak memory over the run.
+gemma2-2b, granite-moe-3b-a800m or musicgen-large at the main path's
+depth, random init from seed 0, the same corpus, sequence length,
+samples, clients, batches and rounds, one server epoch) at lr 0.2 (the
+launcher's default), 0.05 and 0.02, or at the rates ``--lrs`` names.
+For each it prints one JSON line: the device history, the server
+phase's per-step losses, the merged model's loss and accuracy on the
+eval samples and on (at most) 8 of its own training samples, and the
+card's peak memory over the run.
 First it prints the merged model at init and ln V.
 From the repository root:
 
   python3 scripts/torch_lr_probe.py
   python3 scripts/torch_lr_probe.py --arch mamba2-370m
   python3 scripts/torch_lr_probe.py --arch gemma2-2b
+  python3 scripts/torch_lr_probe.py --arch musicgen-large
   python3 scripts/torch_lr_probe.py --arch granite-moe-3b-a800m --lrs 0.05 0.02
 """
 

@@ -438,6 +438,17 @@ def _record_configs():
         out.append(flash(f"gemma2_serve_fp32_fwd_{tag}", "record", "fwd", 2,
                          4, 2, 8223, 256, "float32", window=window,
                          softcap=50.0))
+    # musicgen-large's main path: multi-head attention (Hkv 32, G 1, hd
+    # 64) in the server step at batch 8 x seq 2048, the serving prefill at
+    # batch 4 and the fp32 serving check's no-cache forward over prompt +
+    # 31 tokens
+    for kind in ("fwd", "fused"):
+        out.append(flash(f"musicgen_path_attn_{kind}", "record", kind, 8, 32,
+                         1, 2048, 64, "bfloat16"))
+    out.append(flash("musicgen_prefill_bfloat16", "record", "fwd", 4, 32, 1,
+                     2048, 64, "bfloat16"))
+    out.append(flash("musicgen_serve_fp32_fwd", "record", "fwd", 4, 32, 1,
+                     2079, 64, "float32"))
     # the serving prefill (chip_smoke phase 17: batch 4, the path's seq as
     # prompt); mamba2-370m's prefill runs the SSD forward over 8 chunks
     out.append(flash("qwen3_prefill_bfloat16", "record", "fwd", 4, 8, 2,
@@ -467,7 +478,13 @@ def _record_configs():
                  tied=True, softcap=30.0),
             # gemma2-2b's server head on its own path: T 2 x 8191
             xent(f"gemma2_path_xent_{d}", "record", bwd, 16382, 2304,
-                 256000, tied=True, softcap=30.0)]
+                 256000, tied=True, softcap=30.0),
+            # musicgen-large's V 2048 heads: the server's untied one (T 8
+            # x 2047) and the device's auxiliary one, tied to its
+            # embedding (T 4 x 2047)
+            xent(f"musicgen_xent_{d}", "record", bwd, 16376, 2048, 2048),
+            xent(f"musicgen_aux_xent_{d}", "record", bwd, 8188, 2048, 2048,
+                 tied=True)]
     # mamba2-370m's SSD at the server shape (B 8 x 8 chunks, Q 256, H 32,
     # P 64, N 128: every kMax at once) and a ragged head group at the same
     # maxima

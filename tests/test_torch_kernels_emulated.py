@@ -62,6 +62,8 @@ FA = [  # BKV, G, Sq, Skv, hd, causal, window, softcap, dtype
     # granite-moe's attention: G 3, hd 64, a ragged last tile
     (2, 3, 130, 130, 64, True, 0, 0.0, torch.bfloat16),
     (2, 3, 130, 130, 64, True, 0, 0.0, torch.float32),
+    # musicgen-large's attention: MHA (G 1), hd 64, a ragged last tile
+    (2, 1, 130, 130, 64, True, 0, 0.0, torch.bfloat16),
 ]
 
 
