@@ -3418,11 +3418,9 @@ def add_fill(prof, by_name) -> dict:
     groups = []
     for e in prof.key_averages(group_by_input_shape=True):
         if e.key in ADD_FILL_OPS:
-            us = getattr(e, "self_device_time_total", None)
             groups.append({"op": e.key, "shapes": e.input_shapes,
                            "calls": e.count,
-                           "ms": (e.self_cuda_time_total if us is None
-                                  else us) / 1e3})
+                           "ms": e.self_device_time_total / 1e3})
     groups.sort(key=lambda g: -g["ms"])
     return {"kernels": kernels, "ops_ms": sum(g["ms"] for g in groups),
             "ops_calls": sum(g["calls"] for g in groups),

@@ -15,7 +15,6 @@ next-token accuracy within 1e-2 absolute.
 """
 
 import dataclasses
-import functools
 
 import jax
 import numpy as np
@@ -23,16 +22,13 @@ import pytest
 import torch
 
 import test_torch_ampere as A
+import torch_lm_path as L
 from repro.configs import registry
 from repro.core import evaluate as j_evaluate
 from repro.models import build_model as j_build
 from repro_torch.configs import registry as t_registry
-from repro_torch.configs.base import FedConfig, OptimConfig, RunConfig
 from repro_torch.core import evaluate, losses
-from repro_torch.core.uit import AmpereTrainer
-from repro_torch.data import ActivationStore, federate, make_dataset_for_model
 from repro_torch.interop import from_numpy_tree
-from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
 ARCH = "gemma2-2b"
@@ -52,74 +48,20 @@ def test_history_matches_jax_trainer(phase, key):
     A._check_history(ARCH, phase, key)
 
 
-def _run_cfg():
-    return RunConfig(arch=ARCH, fed=FedConfig(**A.FED),
-                     optim=OptimConfig(**A.OPTIM))
-
-
-@functools.lru_cache(maxsize=None)
-def _launcher_run():
-    """``launch.train.run_training`` on the smoke config on the CPU."""
-    cfg = t_registry.get_smoke_config(ARCH)
-    model = build_model(cfg)
-    train = make_dataset_for_model(model, A.N_TRAIN, seq_len=A.SEQ, seed=0)
-    evald = make_dataset_for_model(model, A.N_EVAL, seq_len=A.SEQ, seed=1)
-    out = launch_train.run_training(cfg, _run_cfg(), train, evald,
-                                    device="cpu", device_rounds=A.ROUNDS,
-                                    server_epochs=A.EPOCHS)
-    return out, train, evald
-
-
 def test_launcher_run_training_matches_trainer():
     """``launch.train.run_training`` on the smoke config on the CPU: the
     history of the trainer driven phase by phase from the launcher's own
-    init (a CPU generator seeded from the run's seed), key for key."""
-    cfg = t_registry.get_smoke_config(ARCH)
-    run = _run_cfg()
-    model = build_model(cfg)
-    out, train, evald = _launcher_run()
-    tr = AmpereTrainer(model, run, federate(train, run.fed.num_clients,
-                                            run.fed.dirichlet_alpha,
-                                            seed=run.seed),
-                       evald, device="cpu")
-    dp, sp, ap = tr._init_states(torch.Generator().manual_seed(run.seed))
-    st = tr.run_device_phase({"device": dp, "aux": ap}, A.ROUNDS)
-    store = tr.generate_activations(st, ActivationStore(seed=run.seed))
-    tr.run_server_phase(st, sp, store, A.EPOCHS)
-    got, want = out["history"], tr.history
-    assert len(got["device"]) == A.ROUNDS and len(got["server"]) == A.EPOCHS
-    for phase in ("device", "server"):
-        for g, w in zip(got[phase], want[phase]):
-            for k in ("loss", "val_loss", "val_acc"):
-                assert np.isfinite(g[k])
-                np.testing.assert_allclose(g[k], w[k], rtol=1e-6,
-                                           err_msg=f"{phase} {k}")
-    assert got["comm_bytes"] == want["comm_bytes"]
-    assert got["sim_time"] == want["sim_time"]
+    init, key for key."""
+    L.check_launcher_matches_trainer(ARCH)
 
 
 def test_served_merged_params_match_merged_eval():
     """The launcher's merged params served as ``chip_smoke.py`` serves
     them (``served_model``: the merged config, its tied head untied, as
-    the trainer evaluates it): the serving steps' teacher-forced loss over
-    the eval set's last 8 positions equals the forward's there, and the
-    forward's mean the last epoch's val loss.  Under the published tied
-    config the output head is the device's embedding, not the server's
-    trained head, and the loss differs."""
-    import chip_smoke as C
-    cfg = t_registry.get_smoke_config(ARCH)
-    out, _, evald = _launcher_run()
-    merged, val = out["merged_params"], out["history"]["server"][-1]
-    served = C.served_model(cfg)
-    tokens = evald.arrays["tokens"]
-    per, _ = evaluate.token_losses(served, merged, torch.as_tensor(tokens))
-    np.testing.assert_allclose(float(per.mean()), val["val_loss"],
-                               rtol=1e-6)
-    serve = C.serve_loss(served, merged, tokens, A.SEQ - 8,
-                         torch.device("cpu"))
-    np.testing.assert_allclose(serve, float(per[:, -8:].mean()), rtol=1e-5)
-    tied = evaluate.evaluate(build_model(cfg), merged, evald, "cpu")["loss"]
-    assert abs(tied - val["val_loss"]) > 1e-3
+    the trainer evaluates it) give the merged eval's loss; under the
+    published tied config the output head is the device's embedding, not
+    the server's trained head, and the loss differs."""
+    L.check_served_merged_params(ARCH)
 
 
 @pytest.mark.parametrize("arch", [ARCH, "qwen3-1.7b"])

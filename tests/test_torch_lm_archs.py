@@ -1,15 +1,16 @@
 """The registered LMs that only the reference's launcher had trained:
 ``qwen1.5-4b`` (MHA with a qkv bias, SwiGLU, untied), ``qwen2-vl-72b``
-(M-RoPE over three position sections) and ``mistral-large-123b`` (GQA, a
-32768 vocab), each through the port's ``AmpereTrainer`` against
+(M-RoPE over three position sections), ``mistral-large-123b`` (GQA, a
+32768 vocab) and ``musicgen-large`` (MHA, a plain GELU MLP, untied), each
+through the port's ``AmpereTrainer`` against
 ``repro.core.uit.AmpereTrainer`` on its smoke config.
 
 The federation, optimizer, data and phases are
 ``tests/test_torch_ampere.py``'s (4 clients, cohort 2, H 2, 2 device
 rounds, 2 server epochs, from the JAX trainer's initial states converted
 through numpy), with the same tolerances: losses within 1e-5 relative,
-next-token accuracy within 1e-2 absolute.  musicgen-large has a file of
-its own (``tests/test_torch_musicgen.py``).
+next-token accuracy within 1e-2 absolute.  musicgen-large's launcher and
+serving checks are ``tests/test_torch_musicgen.py``'s.
 """
 
 import pytest
@@ -18,7 +19,8 @@ import test_torch_ampere as A
 import torch_experiment_parity as P
 from repro_torch.configs import registry as t_registry
 
-ARCHS = ("qwen1.5-4b", "qwen2-vl-72b", "mistral-large-123b")
+ARCHS = ("qwen1.5-4b", "qwen2-vl-72b", "mistral-large-123b",
+         "musicgen-large")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -29,7 +31,7 @@ def _one_torch_thread():
 
 def test_archs_take_the_branches_named():
     """Each smoke config reaches the branch it is here for."""
-    qwen15, vl, mistral = (t_registry.get_smoke_config(a) for a in ARCHS)
+    qwen15, vl, mistral, _ = (t_registry.get_smoke_config(a) for a in ARCHS)
     assert qwen15.qkv_bias and not qwen15.tie_embeddings
     assert qwen15.num_kv_heads == qwen15.num_heads
     assert vl.mrope_sections and sum(vl.mrope_sections) == vl.head_dim // 2

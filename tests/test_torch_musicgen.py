@@ -1,32 +1,21 @@
-"""musicgen-large through the whole slice: the port's ``AmpereTrainer``
-against ``repro.core.uit.AmpereTrainer``, and the port's launcher against
-its own trainer.
+"""musicgen-large through the whole slice: its config's branches, and the
+port's launcher against its own trainer and its served merged params
+against the merged eval.  Its histories against
+``repro.core.uit.AmpereTrainer`` are ``tests/test_torch_lm_archs.py``'s.
 
 The musicgen-large smoke config keeps every branch its full-width path
 reaches: multi-head attention (kv heads = heads, one query a kv head), a
 plain two-layer GELU MLP (``wi``, ``wo``; no gate), RoPE, no softcap or
 window, and an untied head over a small vocabulary.  The federation,
-optimizer, data and phases are ``tests/test_torch_ampere.py``'s (4
-clients, cohort 2, H 2, 2 device rounds, 2 server epochs, from the JAX
-trainer's initial states converted through numpy), with the same
-tolerances: losses within 1e-5 relative, next-token accuracy within 1e-2
-absolute.
+optimizer, data and phases are ``tests/test_torch_ampere.py``'s.
 """
 
-import functools
-
-import numpy as np
 import pytest
 import torch
 
-import test_torch_ampere as A
 import torch_experiment_parity as P
+import torch_lm_path as L
 from repro_torch.configs import registry as t_registry
-from repro_torch.configs.base import FedConfig, OptimConfig, RunConfig
-from repro_torch.core import evaluate
-from repro_torch.core.uit import AmpereTrainer
-from repro_torch.data import ActivationStore, federate, make_dataset_for_model
-from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
 ARCH = "musicgen-large"
@@ -67,78 +56,16 @@ def test_config_is_mha_with_a_plain_gelu_mlp(smoke):
     assert tuple(params["head"]["w"].shape) == (D, cfg.vocab_size)
 
 
-@pytest.mark.parametrize("phase,key", [("device", "round"),
-                                       ("server", "epoch")])
-def test_history_matches_jax_trainer(phase, key):
-    A._check_history(ARCH, phase, key)
-
-
-def _run_cfg():
-    return RunConfig(arch=ARCH, fed=FedConfig(**A.FED),
-                     optim=OptimConfig(**A.OPTIM))
-
-
-@functools.lru_cache(maxsize=None)
-def _launcher_run():
-    """``launch.train.run_training`` on the smoke config on the CPU."""
-    cfg = t_registry.get_smoke_config(ARCH)
-    model = build_model(cfg)
-    train = make_dataset_for_model(model, A.N_TRAIN, seq_len=A.SEQ, seed=0)
-    evald = make_dataset_for_model(model, A.N_EVAL, seq_len=A.SEQ, seed=1)
-    out = launch_train.run_training(cfg, _run_cfg(), train, evald,
-                                    device="cpu", device_rounds=A.ROUNDS,
-                                    server_epochs=A.EPOCHS)
-    return out, train, evald
-
-
 def test_launcher_run_training_matches_trainer():
     """``launch.train.run_training`` on the smoke config on the CPU: the
     history of the trainer driven phase by phase from the launcher's own
-    init (a CPU generator seeded from the run's seed), key for key."""
-    cfg = t_registry.get_smoke_config(ARCH)
-    run = _run_cfg()
-    model = build_model(cfg)
-    out, train, evald = _launcher_run()
-    tr = AmpereTrainer(model, run, federate(train, run.fed.num_clients,
-                                            run.fed.dirichlet_alpha,
-                                            seed=run.seed),
-                       evald, device="cpu")
-    dp, sp, ap = tr._init_states(torch.Generator().manual_seed(run.seed))
-    st = tr.run_device_phase({"device": dp, "aux": ap}, A.ROUNDS)
-    store = tr.generate_activations(st, ActivationStore(seed=run.seed))
-    tr.run_server_phase(st, sp, store, A.EPOCHS)
-    got, want = out["history"], tr.history
-    assert len(got["device"]) == A.ROUNDS and len(got["server"]) == A.EPOCHS
-    for phase in ("device", "server"):
-        for g, w in zip(got[phase], want[phase]):
-            for k in ("loss", "val_loss", "val_acc"):
-                assert np.isfinite(g[k])
-                np.testing.assert_allclose(g[k], w[k], rtol=1e-6,
-                                           err_msg=f"{phase} {k}")
-    assert got["comm_bytes"] == want["comm_bytes"]
-    assert got["sim_time"] == want["sim_time"]
+    init, key for key."""
+    L.check_launcher_matches_trainer(ARCH)
 
 
 def test_served_merged_params_match_merged_eval():
     """The launcher's merged params served as ``chip_smoke.py`` serves
-    them (``served_model``: the trainer's merged config): the serving
-    steps' teacher-forced loss over the eval set's last 8 positions equals
-    the forward's there, and the forward's mean the last epoch's val loss.
-    The head is untied, so the published config serves the same model:
-    its eval loss is the val loss too."""
-    import chip_smoke as C
-    cfg = t_registry.get_smoke_config(ARCH)
-    out, _, evald = _launcher_run()
-    merged, val = out["merged_params"], out["history"]["server"][-1]
-    served = C.served_model(cfg)
-    assert served.cfg == build_model(cfg).cfg
-    tokens = evald.arrays["tokens"]
-    per, _ = evaluate.token_losses(served, merged, torch.as_tensor(tokens))
-    np.testing.assert_allclose(float(per.mean()), val["val_loss"],
-                               rtol=1e-6)
-    serve = C.serve_loss(served, merged, tokens, A.SEQ - 8,
-                         torch.device("cpu"))
-    np.testing.assert_allclose(serve, float(per[:, -8:].mean()), rtol=1e-5)
-    published = evaluate.evaluate(build_model(cfg), merged, evald,
-                                  "cpu")["loss"]
-    np.testing.assert_allclose(published, val["val_loss"], rtol=1e-6)
+    them (``served_model``: the trainer's merged config) give the merged
+    eval's loss; the head is untied, so the published config serves the
+    same model."""
+    L.check_served_merged_params(ARCH)
